@@ -7,22 +7,31 @@ Phases (any failure ends the run with a non-zero exit code and no result
 line):
 
 1. Require a CUDA card; print its name and power limit (nvidia-smi).
-2. Build the hand-written kernels from gstbad_tpu_torch/csrc (nvcc, into
-   gstbad_tpu_torch/_build/) and print the build time and ptxas report.
+2. Build the hand-written kernels from gstbad_tpu_torch/csrc (one nvcc per
+   source, all at once, into gstbad_tpu_torch/_build/) and print the build
+   time and ptxas report.
 3. Hold each kernel bit-exactly against its plain PyTorch version on the
-   card: at the main path's shapes ([64, 1080, 1920], materialized and
-   broadcast source, both erode values) and at a ragged shape.
-4. Drive the port's main path through parse_launch on the card: the 1080p
+   card, at the main paths' shapes and at a ragged shape: K1 and K2 at
+   [64, 1080, 1920] (materialized and broadcast source, both erode
+   values); K4 on a [129, 720, 1280] frame pool, K5 on 391 pairs of it, K6
+   on [128, 720, 1280].
+4. Drive the port's main paths through parse_launch on the card: the 1080p
    headline graph on bars (broadcast source) and on ball (moving source),
-   and the headline without zebrastripe (the nine-element prefix, which
-   takes the whole-word lookup).  Every launch counter is zeroed just
-   before and read just after; each kernel must have launched, and the
-   frames must equal the same graphs run by the port on the CPU.
-5. Time: the median of 5 runs of 1080p frames/s per graph (CUDA events
+   the headline without zebrastripe (the nine-element prefix, which takes
+   the whole-word lookup), and at 1280x720 GRAY8 24/1 BASELINE config 5
+   (interlace 2:3 ! fieldanalysis ! ivtc) and the combdetect graph.  Each
+   path's launch counters are zeroed just before and read just after; each
+   of its kernels must have launched, and its frames must equal the same
+   graph run by the port on the CPU.  Config 5's SSIM gate
+   (models/benchmarks.config5_fidelity) must give the same result on the
+   card as on the CPU.  Each new kernel is also held against its plain
+   version on the very inputs the main path gave it.
+5. Time: the median of 5 runs of source frames/s per graph (CUDA events
    around 10 steps of a 64-frame window, data kept on the card), a
    torch.profiler breakdown of each graph's step (device busy time, device
-   ops per step, idle share), and each kernel beside its plain version at
-   the main path's shapes.
+   ops per step, idle share), and each kernel beside its plain version,
+   its bound and, where one PyTorch call computes the same function, that
+   call, at the main path's shapes.
 6. Print the kernel table as one JSON line, then the result line
    {"ok": true, "device": {...}} last.
 """
@@ -39,9 +48,15 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W, H = 1920, 1080
+W5, H5 = 1280, 720          # config 5 and combdetect
 WINDOW = 64
 HEAD = ("coloreffects preset=sepia ! solarize ! chromium ! dodge ! burn "
         "! exclusion ! dilate ! chromahold ! videoconvert format=AYUV")
+# one H100 SXM, from NVIDIA's data sheet: HBM bytes/s, and the float32
+# rate outside the tensor cores, taken as the rate of the kernels' 32-bit
+# integer operations
+HBM_BPS = 3.35e12
+OPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -70,10 +85,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of the bytes over HBM_BPS and the
+    operations over OPS_PER_S."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def max_abs_err(a, b) -> int:
     if a.shape != b.shape:
         fail(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
-    return int((a.long() - b.long()).abs().max().item())
+    return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
 def profile_step(p, step_ms: float, key: str, steps: int = 3) -> None:
@@ -107,7 +130,7 @@ def profile_step(p, step_ms: float, key: str, steps: int = 3) -> None:
         t[1] += e.time_range.elapsed_us() / 1000.0
     busy = sum(t for _, t in by_name.values()) / steps
     n = len(dev_events) / steps
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
     log(f"profile {key}: device busy {busy:.3f} ms/step of {step_ms:.3f} ms "
         f"untraced (idle share {1 - busy / step_ms:.3f}), {n:.0f} device "
         "ops/step; top: " + "; ".join(
@@ -120,6 +143,38 @@ def launch_line(pattern: str, tail: str) -> str:
             f"format=BGRx ! {tail} ! fakesink")
 
 
+def frames_equal(key, got, cpu, shape) -> None:
+    """Host batches of a card run against the CPU port's: same windows,
+    frames of `shape` (after the frame axis), equal data, pts, flags and
+    valid."""
+    if len(got) != len(cpu):
+        fail(f"{key}: {len(got)} windows on the card, {len(cpu)} on CPU")
+    for a, c in zip(got, cpu):
+        if a.data.shape[1:] != shape or a.data.dtype.name != "uint8":
+            fail(f"{key}: frames {a.data.shape} {a.data.dtype}")
+        for f in ("data", "pts", "flags", "valid"):
+            if getattr(a, f).shape != getattr(c, f).shape or not (
+                    getattr(a, f) == getattr(c, f)).all():
+                fail(f"{key}: {f} differs from the CPU port")
+
+
+def capture(module, name: str, store: dict):
+    """Wrap module.<name> to record the arguments of its last call (the
+    inputs the main path gives a kernel).  Returns a function that puts the
+    original back."""
+    orig = getattr(module, name)
+
+    def spy(*args):
+        store[name] = args
+        return orig(*args)
+
+    # the wrapper counts its launches on the module's attribute, the spy
+    # while it is installed: those launches are not the counted run's
+    spy.launches = 0
+    setattr(module, name, spy)
+    return lambda: setattr(module, name, orig)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -129,11 +184,12 @@ def main() -> int:
     import gstbad_tpu_torch as gtt
     from gstbad_tpu_torch.core.tablefuse import LinearIndex, TableChain
     from gstbad_tpu_torch.models import benchmarks
-    from gstbad_tpu_torch.ops import _cuda, chainfuse, lut
+    from gstbad_tpu_torch.ops import _cuda, chainfuse, comb, fieldanalysis, lut
 
     dev = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
+    t_start = time.perf_counter()
 
     # 1. the card
     smi = subprocess.run(
@@ -157,7 +213,8 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f} s total, nvcc "
         f"{info['seconds']:.2f} s, built={info['built']}, {info['path']}")
     for line in str(info["log"]).splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if ("registers" in line or "spill" in line or "error" in line
+                or "Compiling entry" in line):
             log(f"  ptxas: {line.strip()}")
 
     # 3. kernels against their plain versions on the card
@@ -167,11 +224,25 @@ def main() -> int:
         return torch.randint(lo, hi, shape, generator=gen, device=dev,
                              dtype=torch.int64).to(torch.int32)
 
+    def rand_frames(n, h, w):
+        """uint8 frames: noise, with every other one a smooth gradient
+        plus a little noise, so comb scores fall on both sides of the
+        thresholds and metrics on both sides of the noise floor."""
+        f = rand_i32(n, h, w, lo=0, hi=256).to(torch.uint8)
+        yy = torch.arange(h, device=dev)[:, None]
+        xx = torch.arange(w, device=dev)[None, :]
+        smooth = (xx * 3 + yy * 2) % 256
+        noise = rand_i32((n + 1) // 2, h, w, lo=-3, hi=4)
+        f[0::2] = (smooth + noise).clamp(0, 255).to(torch.uint8)
+        return f
+
     word_t = rand_i32(256)
     rank_t = TableChain.rank_table(rand_i32(256, lo=0, hi=60000))
     luma = LinearIndex((19, 183, 54, 0), 8, 16)      # sepia head on BGRx
     mean2 = LinearIndex((0, 1, 1, 0), 0, 1)
-    err = {"dilate_zebra_fused": 0, "apply_word_table": 0}
+    err = {k: 0 for k in ("dilate_zebra_fused", "apply_word_table",
+                          "metrics_default", "comb_score_pairs",
+                          "comb_mask")}
     cases = [((WINDOW, H, W), None, luma), ((1, H, W), WINDOW, luma),
              ((3, 37, 333), None, mean2), ((1, 37, 333), 5, mean2)]
     for shape, batch, index in cases:
@@ -199,53 +270,124 @@ def main() -> int:
         e = max_abs_err(got, want)
         log(f"K2 apply_word_table idx {shape}: max_abs_err {e}")
         err["apply_word_table"] = max(err["apply_word_table"], e)
+
+    def check_telecine(label, pool, cur, prev, nf, pair_pool, top, bot,
+                       frames):
+        """K4, K5 and K6 against their plain versions on one input set."""
+        got = fieldanalysis.metrics_default(pool, cur, prev, nf)
+        want = fieldanalysis.metrics_default_plain(pool, cur, prev, nf)
+        torch.cuda.synchronize()
+        e4 = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        got = comb.comb_score_pairs(pair_pool, top, bot)
+        want = comb.comb_score_pairs_plain(pair_pool, top, bot)
+        torch.cuda.synchronize()
+        e5 = max_abs_err(got, want)
+        gm, gs = comb.comb_mask(frames)
+        wm, ws = comb.comb_mask_plain(frames)
+        torch.cuda.synchronize()
+        e6 = max(max_abs_err(gm, wm), max_abs_err(gs, ws))
+        log(f"K4/K5/K6 {label}: pool {tuple(pool.shape)}, {cur.numel()} "
+            f"frames, {top.numel()} pairs (score sum {int(ws.sum())} / "
+            f"{int(want.sum())}), mask {tuple(frames.shape)}: max_abs_err "
+            f"{e4} / {e5} / {e6}")
+        err["metrics_default"] = max(err["metrics_default"], e4)
+        err["comb_score_pairs"] = max(err["comb_score_pairs"], e5)
+        err["comb_mask"] = max(err["comb_mask"], e6)
+
+    n_slots = 2 * WINDOW        # interlace's output slots per window
+    n_pairs = 8 + 3 * n_slots - 1
+    nf16 = torch.tensor(16, dtype=torch.int32, device=dev)
+    for (p, h, w), npairs in (((n_slots + 1, H5, W5), n_pairs),
+                              ((7, 50, 130), 13)):
+        pool = rand_frames(p, h, w)
+        cur = torch.arange(1, p, dtype=torch.int32, device=dev)
+        prev = (cur - 1 - (cur % 3 == 0).to(torch.int32)).clamp(min=0)
+        top = rand_i32(npairs, lo=0, hi=p)
+        bot = rand_i32(npairs, lo=0, hi=p)
+        check_telecine("random", pool, cur, prev, nf16, pool, top, bot,
+                       pool[1:])
     if any(err.values()):
         fail(f"kernels disagree with their plain versions: {err}")
 
-    # 4. the main path through parse_launch on the card: the headline graph
-    # as models/benchmarks.py builds it, on bars and on ball, and its prefix
+    # 4. the main paths through parse_launch on the card
     def launch(desc):
         return lambda device: gtt.parse_launch(desc, device=device)
 
+    telecine_src = (f"videotestsrc pattern=ball width={W5} height={H5} "
+                    "format=GRAY8 framerate=24/1 ! interlace pattern=2:3")
     runs = {"headline_bars": lambda device: benchmarks.ten_element_graph(
                 W, H, device=device),
             "headline_ball": launch(launch_line("ball", HEAD
                                                 + " ! zebrastripe")),
-            "prefix_bars": launch(launch_line("bars", HEAD))}
-    n_windows, small = 3, 8
-    outs, deltas = {}, {}
-    chainfuse.dilate_zebra_fused.launches = 0
-    lut.apply_word_table.launches = 0
+            "prefix_bars": launch(launch_line("bars", HEAD)),
+            "config5_ivtc": lambda device: benchmarks.config5_ivtc(
+                W5, H5, device=device),
+            "combdetect_720p": lambda device: benchmarks.combdetect_720p(
+                W5, H5, device=device)}
+    counters = {"dilate_zebra_fused": chainfuse.dilate_zebra_fused,
+                "apply_word_table": lut.apply_word_table,
+                "metrics_default": fieldanalysis.metrics_default,
+                "comb_score_pairs": comb.comb_score_pairs,
+                "comb_mask": comb.comb_mask}
+    # (windows, window) of each path's counted run, and the launches each
+    # kernel must make per window on it
+    plan = {"headline_bars": (3, 8, {"dilate_zebra_fused": 1}),
+            "headline_ball": (3, 8, {"dilate_zebra_fused": 1}),
+            "prefix_bars": (3, 8, {"apply_word_table": 2}),
+            "config5_ivtc": (2, WINDOW, {"metrics_default": 1,
+                                         "comb_score_pairs": 1}),
+            "combdetect_720p": (2, WINDOW, {"comb_mask": 1})}
+    shapes = {"headline_bars": (H, W, 4), "headline_ball": (H, W, 4),
+              "prefix_bars": (H, W, 4), "config5_ivtc": (H5, W5),
+              "combdetect_720p": (H5, W5)}
+
+    # the telecine kernels' main-path inputs, recorded on an uncounted run
+    inputs = {}
+    undo = [capture(fieldanalysis, "metrics_default", inputs),
+            capture(comb, "comb_score_pairs", inputs),
+            capture(comb, "comb_mask", inputs)]
+    runs["config5_ivtc"]("cuda").run(n_frames=2 * WINDOW, window=WINDOW)
+    runs["combdetect_720p"]("cuda").run(n_frames=WINDOW, window=WINDOW)
+    for u in undo:
+        u()
+    torch.cuda.synchronize()
+    pool_mp, cur_mp, prev_mp, nf_mp = inputs["metrics_default"]
+    pool5, top_mp, bot_mp = inputs["comb_score_pairs"]
+    (frames_mp,) = inputs["comb_mask"]
+    check_telecine("main-path inputs", pool_mp, cur_mp, prev_mp, nf_mp,
+                   pool5, top_mp, bot_mp, frames_mp)
+    if any(err.values()):
+        fail(f"kernels disagree with their plain versions: {err}")
+
+    launches = {k: 0 for k in counters}
+    outs = {}
     for key, build in runs.items():
-        k1, k2 = (chainfuse.dilate_zebra_fused.launches,
-                  lut.apply_word_table.launches)
-        outs[key] = build("cuda").run(n_frames=n_windows * small,
-                                      window=small)
+        n_windows, window, need = plan[key]
+        for c in counters.values():
+            c.launches = 0
+        outs[key] = build("cuda").run(n_frames=n_windows * window,
+                                      window=window)
         torch.cuda.synchronize()
-        deltas[key] = (chainfuse.dilate_zebra_fused.launches - k1,
-                       lut.apply_word_table.launches - k2)
-    launches = {"dilate_zebra_fused": chainfuse.dilate_zebra_fused.launches,
-                "apply_word_table": lut.apply_word_table.launches}
-    log(f"main path launches {launches}, per graph {deltas}")
-    for key in ("headline_bars", "headline_ball"):
-        if deltas[key][0] != n_windows:
-            fail(f"{key}: K1 launched {deltas[key][0]} times in "
-                 f"{n_windows} windows")
-    if deltas["prefix_bars"][1] != 2 * n_windows:
-        fail(f"prefix_bars: K2 launched {deltas['prefix_bars'][1]} times in "
-             f"{n_windows} windows (2 per window expected)")
+        delta = {k: c.launches for k, c in counters.items()}
+        log(f"{key}: launches {delta}")
+        for k, per in need.items():
+            if delta[k] != per * n_windows:
+                fail(f"{key}: {k} launched {delta[k]} times in {n_windows} "
+                     f"windows ({per} per window expected)")
+        for k in launches:
+            launches[k] += delta[k]
+    log(f"main path launches {launches}")
     for key, build in runs.items():
-        cpu = build("cpu").run(n_frames=n_windows * small, window=small)
-        got = outs[key]
-        if len(got) != len(cpu):
-            fail(f"{key}: {len(got)} windows on the card, {len(cpu)} on CPU")
-        for a, c in zip(got, cpu):
-            if a.data.shape != (small, H, W, 4) or a.data.dtype.name != "uint8":
-                fail(f"{key}: frames {a.data.shape} {a.data.dtype}")
-            for f in ("data", "pts", "flags", "valid"):
-                if not (getattr(a, f) == getattr(c, f)).all():
-                    fail(f"{key}: {f} differs from the CPU port")
-        log(f"{key}: {len(got)} windows of {small} frames equal the CPU port")
+        n_windows, window, _ = plan[key]
+        cpu = build("cpu").run(n_frames=n_windows * window, window=window)
+        frames_equal(key, outs[key], cpu, shapes[key])
+        log(f"{key}: {len(cpu)} windows, {sum(len(b.pts) for b in cpu)} "
+            "frames equal the CPU port")
+    fid = {d: benchmarks.config5_fidelity(W5, H5, device=d)
+           for d in ("cuda", "cpu")}
+    log(f"config5_fidelity card {fid['cuda']} cpu {fid['cpu']}")
+    if fid["cuda"] != fid["cpu"]:
+        fail("config5_fidelity differs between the card and the CPU port")
 
     # 5. timing
     def fps_runs(build, reps: int = 5, n_steps: int = 10):
@@ -265,17 +407,14 @@ def main() -> int:
         for _ in range(reps):
             ms = cuda_ms(one, iters=n_steps, warmup=0)
             out.append(WINDOW * 1000.0 / ms)
-        data = holder["out"].data
-        if tuple(data.shape) != (WINDOW, H, W):
-            fail(f"timed step gave {tuple(data.shape)}")
         return statistics.median(out), out
 
     fps = {}
     for key, build in runs.items():
         med, all_runs = fps_runs(build)
         fps[key] = med
-        log(f"fps {key} 1080p window {WINDOW}: median {med:.1f} of "
-            f"{[round(x, 1) for x in all_runs]} ({card})")
+        log(f"fps {key} window {WINDOW}: median {med:.1f} source frames/s "
+            f"of {[round(x, 1) for x in all_runs]} ({card})")
     for key, build in runs.items():
         profile_step(build("cuda"), WINDOW * 1000.0 / fps[key], key)
 
@@ -286,40 +425,87 @@ def main() -> int:
                         torch.full((WINDOW,), 213, dtype=torch.int32,
                                    device=dev), phase])
     idx = rand_i32(WINDOW, H, W, lo=0, hi=256)
-    times = {}
+    times = {}   # label -> (ms, plain ms, library ms or None)
     for label, src, batch in (("bcast", src_bcast, WINDOW),
                               ("materialized", src_full, None)):
         times[f"K1_{label}"] = (
             cuda_ms(lambda: chainfuse.dilate_zebra_fused(
                 src, rank_t, word_t, luma, False, 213, phase, batch=batch)),
             cuda_ms(lambda: chainfuse.dilate_zebra_plain(
-                src, rank_t, word_t, luma, scal), iters=5))
+                src, rank_t, word_t, luma, scal), iters=5), None)
+    # K2's one-call library form: the same lookup as a single indexing call
     times["K2"] = (cuda_ms(lambda: lut.apply_word_table(idx, word_t)),
                    cuda_ms(lambda: lut.apply_word_table_plain(idx, word_t),
-                           iters=5))
-    frame_bytes = H * W * 4
-    for label, (ms, plain_ms) in times.items():
-        moved = {"K1_bcast": WINDOW * frame_bytes,
-                 "K1_materialized": 2 * WINDOW * frame_bytes,
-                 "K2": 2 * WINDOW * frame_bytes}[label]
-        log(f"{label} [{WINDOW}, {H}, {W}]: kernel {ms:.4f} ms "
-            f"({moved / ms / 1e6:.1f} GB/s of min traffic), plain "
-            f"{plain_ms:.4f} ms ({card})")
+                           iters=5),
+                   cuda_ms(lambda: word_t[idx], iters=5))
+    times["K4"] = (
+        cuda_ms(lambda: fieldanalysis.metrics_default(
+            pool_mp, cur_mp, prev_mp, nf_mp)),
+        cuda_ms(lambda: fieldanalysis.metrics_default_plain(
+            pool_mp, cur_mp, prev_mp, nf_mp), iters=3), None)
+    times["K5"] = (
+        cuda_ms(lambda: comb.comb_score_pairs(pool5, top_mp, bot_mp)),
+        cuda_ms(lambda: comb.comb_score_pairs_plain(pool5, top_mp, bot_mp),
+                iters=1, warmup=1), None)
+    times["K6"] = (
+        cuda_ms(lambda: comb.comb_mask(frames_mp)),
+        cuda_ms(lambda: comb.comb_mask_plain(frames_mp), iters=1, warmup=1),
+        None)
+
+    # bounds: each input byte read once, each output byte written once,
+    # and the integer operations the function needs per element
+    frame4 = H * W * 4
+    hw5 = H5 * W5
+    k4_frames = torch.unique(torch.cat([cur_mp, prev_mp])).numel()
+    k5_bytes = (torch.unique(top_mp).numel() * ((H5 + 1) // 2)
+                + torch.unique(bot_mp).numel() * (H5 // 2)) * W5
+    n_k5, n_k6 = top_mp.numel(), frames_mp.shape[0]
+    cells = (H5 - 4) * W5
+    bounds = {
+        # write B words; read one source frame; ~12 ops per pixel (index,
+        # three neighbour indices, rank walk, stripe select)
+        "K1_bcast": bound(WINDOW * frame4 + frame4, 12 * WINDOW * H * W),
+        "K1_materialized": bound(2 * WINDOW * frame4, 12 * WINDOW * H * W),
+        "K2": bound(2 * WINDOW * frame4, WINDOW * H * W),
+        # the distinct frames read; ~20 ops per pixel (ssd, three taps on
+        # half the rows, gates, sums)
+        "K4": bound(k4_frames * hw5 + cur_mp.numel() * 5 * 8,
+                    20 * cur_mp.numel() * hw5),
+        # the woven rows read; ~10 ops per cell (outlier, scan, clamp)
+        "K5": bound(k5_bytes + 4 * n_k5, 10 * n_k5 * cells),
+        "K6": bound(2 * n_k6 * hw5 + 4 * n_k6, 10 * n_k6 * cells),
+    }
+    for label, (ms, plain_ms, lib_ms) in times.items():
+        b_ms, b_by = bounds[label]
+        lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+        log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {lib} ms, bound {b_ms:.4f} ms ({b_by}) ({card})")
+    log(f"K4 inputs: pool {tuple(pool_mp.shape)}, {cur_mp.numel()} frames, "
+        f"{k4_frames} distinct; K5: {n_k5} pairs; K6: "
+        f"{tuple(frames_mp.shape)}")
+
+    def entry(kname, label, source, replaces):
+        ms, plain_ms, lib_ms = times[label]
+        b_ms, b_by = bounds[label]
+        return {"name": kname, "route": "cuda",
+                "source": f"gstbad_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[kname],
+                "max_abs_err": err[kname], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
 
     kernels = [
-        {"name": "dilate_zebra_fused", "route": "cuda",
-         "source": "gstbad_tpu_torch/csrc/tablefuse_kernels.cu",
-         "replaces": "gstbad_tpu/ops/chainfuse.py:78",
-         "launches": launches["dilate_zebra_fused"],
-         "max_abs_err": err["dilate_zebra_fused"],
-         "ms": times["K1_bcast"][0], "plain_ms": times["K1_bcast"][1]},
-        {"name": "apply_word_table", "route": "cuda",
-         "source": "gstbad_tpu_torch/csrc/tablefuse_kernels.cu",
-         "replaces": "gstbad_tpu/ops/lut.py:91",
-         "launches": launches["apply_word_table"],
-         "max_abs_err": err["apply_word_table"],
-         "ms": times["K2"][0], "plain_ms": times["K2"][1]},
+        entry("dilate_zebra_fused", "K1_bcast", "tablefuse_kernels.cu",
+              "gstbad_tpu/ops/chainfuse.py:78"),
+        entry("apply_word_table", "K2", "tablefuse_kernels.cu",
+              "gstbad_tpu/ops/lut.py:91"),
+        entry("metrics_default", "K4", "deinterlace_kernels.cu",
+              "gstbad_tpu/ops/fieldanalysis.py:190"),
+        entry("comb_score_pairs", "K5", "deinterlace_kernels.cu",
+              "gstbad_tpu/ops/comb.py:258"),
+        entry("comb_mask", "K6", "deinterlace_kernels.cu",
+              "gstbad_tpu/ops/comb.py:102"),
     ]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -164,6 +164,10 @@ class Element:
         """Per-window function. Returns (state, batch) or
         (state, batch, messages) where messages is a dict of per-frame
         tensors.
+
+        An element that holds frames back (fieldanalysis) also defines
+        drain(state) -> (state, FrameBatch or None), which
+        Pipeline.send_eos calls to flush them.
         """
         raise NotImplementedError
 

@@ -16,6 +16,19 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+# Video buffer flags (the values of gstbad_tpu.core.frame; semantics mirror
+# GST_VIDEO_BUFFER_FLAG_*)
+FLAG_INTERLACED = 1 << 0
+FLAG_TFF = 1 << 1
+FLAG_RFF = 1 << 2
+FLAG_ONEFIELD = 1 << 3
+FLAG_GAP = 1 << 4
+FLAG_DISCONT = 1 << 5  # GST_BUFFER_FLAG_DISCONT analog
+# composed field markers for interlace-mode=alternate streams, mirroring
+# GStreamer's TOP_FIELD = TFF|ONEFIELD / BOTTOM_FIELD = ONEFIELD composition
+FLAG_TOP_FIELD = FLAG_TFF | FLAG_ONEFIELD
+FLAG_BOTTOM_FIELD = FLAG_ONEFIELD
+
 Array = Any
 
 
@@ -25,7 +38,7 @@ class FrameBatch:
 
     data: uint8 [B, H, W, C] for packed video; {plane: tensor} for planar.
     pts:  int64 [B] nanoseconds.
-    flags: int32 [B] bitmask of gstbad_tpu.core.frame.FLAG_* values.
+    flags: int32 [B] bitmask of the FLAG_* values above.
     valid: bool [B]; frames with valid=False are dropped by the runner.
     """
 
@@ -113,3 +126,42 @@ def tensors_from_numpy(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tensors_from_numpy(v, device) for v in tree)
     return torch.tensor(np.asarray(tree), device=device)
+
+
+def to_host(*tensors) -> list:
+    """numpy copies of small tensors (per-frame pts, flags, metrics),
+    taken with one wait for the device: the copies of CUDA tensors go into
+    pinned buffers on the current stream, which is then synchronised once.
+    The window elements whose decisions run on the host (interlace,
+    fieldanalysis, ivtc) read their inputs through this."""
+    out = []
+    stream = None
+    for t in tensors:
+        if t.device.type == "cpu":
+            out.append(t)
+            continue
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t, non_blocking=True)
+        stream = torch.cuda.current_stream(t.device)
+        out.append(buf)
+    if stream is not None:
+        stream.synchronize()
+    return [t.numpy() for t in out]
+
+
+def to_device(device, *arrays) -> list:
+    """Tensors on `device` from host values (numpy arrays or scalars, each
+    given as (value, dtype) or as an array), queued without waiting for the
+    device: a CUDA copy goes from pinned memory on the current stream, so
+    it does not wait for the work already queued there.  The counterpart
+    of to_host for the plans and states those elements send back."""
+    device = torch.device(device)
+    out = []
+    for a in arrays:
+        if isinstance(a, tuple):
+            a = np.asarray(a[0], dtype=a[1])
+        t = torch.from_numpy(np.array(a))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out.append(t)
+    return out

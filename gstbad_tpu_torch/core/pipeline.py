@@ -381,6 +381,28 @@ class Pipeline:
             return outs[0]
         return outs
 
+    def send_eos(self) -> Dict[str, List[FrameBatch]]:
+        """EOS analog: drain the elements that hold queued frames (the
+        fieldanalysis flush path, gstfieldanalysis.c:744-781) through their
+        optional `drain(state) -> (state, FrameBatch or None)` hook.
+
+        Returns the drained frames as host batches per element name.
+        Downstream elements do not re-process drained frames (as for an
+        analyzer in tail position)."""
+        drained: Dict[str, List[FrameBatch]] = {}
+        if self._states is None:
+            return drained
+        order = self._order or self._toposort()
+        for idx, n in enumerate(order):
+            el = n.element
+            if not hasattr(el, "drain"):
+                continue
+            st, batch = el.drain(self._states[idx])
+            self._states[idx] = st
+            if batch is not None:
+                drained.setdefault(el.NAME, []).append(batch.to_numpy())
+        return drained
+
     def _drain_messages(self, batch: FrameBatch, messages) -> None:
         if not messages:
             return

@@ -1,5 +1,6 @@
 """The benchmark pipeline graphs of the port (the JAX package's
-models/benchmarks.py: the headline graph and configs 1 and 2).
+models/benchmarks.py: the headline graph, configs 1, 2 and 5 and
+combdetect), and config 5's quality gate.
 
 Each entry builds a Pipeline in launch-string form, so the element API is
 exercised exactly the way users drive it, on `device`.
@@ -8,6 +9,8 @@ exercised exactly the way users drive it, on `device`.
 from __future__ import annotations
 
 from typing import Callable, Dict
+
+import numpy as np
 
 from gstbad_tpu_torch.core.pipeline import Pipeline, parse_launch
 
@@ -37,9 +40,70 @@ def ten_element_graph(width=1920, height=1080, device="cuda") -> Pipeline:
         "! videoconvert format=AYUV ! zebrastripe ! fakesink", device=device)
 
 
+def config5_ivtc(width=1280, height=720, device="cuda") -> Pipeline:
+    """interlace (2:3 telecine) -> fieldanalysis -> ivtc round trip
+    (BASELINE config 5; config5_fidelity scores it)."""
+    return parse_launch(
+        f"videotestsrc pattern=ball width={width} height={height} "
+        "format=GRAY8 framerate=24/1 ! interlace pattern=2:3 "
+        "! fieldanalysis ! ivtc ! fakesink", device=device)
+
+
+def combdetect_720p(width=1280, height=720, device="cuda") -> Pipeline:
+    """interlace -> combdetect zebra paint (BASELINE combdetect row)."""
+    return parse_launch(
+        f"videotestsrc pattern=ball width={width} height={height} "
+        "format=GRAY8 framerate=24/1 ! interlace pattern=2:3 "
+        "! combdetect ! fakesink", device=device)
+
+
+def config5_fidelity(width=1280, height=720, n_frames=30, window=10,
+                     device="cuda"):
+    """BASELINE config 5's quality gate (the JAX package's
+    bench.py:config5_fidelity on the port): the telecine round trip scored
+    by the compare/iqa SSIM oracle against the progressive source
+    (gst/debugutils/gstcompare.c:355-428).
+
+    ivtc's first emitted frame predates its field queue warm-up and is
+    skipped; each remaining output frame is scored against its
+    best-aligned source frame (the inverse-telecine cadence duplicates
+    frames, so alignment is by content, monotone in the source)."""
+    import torch
+
+    from gstbad_tpu_torch.ops.ssim import ssim_plane
+
+    src = parse_launch(
+        f"videotestsrc pattern=ball width={width} height={height} "
+        "format=GRAY8 framerate=24/1 ! fakesink", device=device)
+    orig = np.concatenate([b.data for b in src.run(n_frames=n_frames,
+                                                   window=window)])
+    chain = config5_ivtc(width, height, device=device)
+    out = np.concatenate([b.data for b in chain.run(n_frames=n_frames,
+                                                    window=window)])
+    scores = []
+    j0 = 0
+    for i in range(1, out.shape[0]):      # skip the warm-up frame
+        # monotone best-match within the cadence lookahead
+        cand = range(j0, min(j0 + 4, orig.shape[0]))
+        if not len(cand):
+            break
+        errs = [np.abs(out[i].astype(np.int64)
+                       - orig[j].astype(np.int64)).mean() for j in cand]
+        j = j0 + int(np.argmin(errs))
+        j0 = j
+        scores.append(float(ssim_plane(torch.from_numpy(out[i]).to(device),
+                                       torch.from_numpy(orig[j]).to(device))))
+    ssim = float(np.mean(scores)) if scores else 0.0
+    return {"ssim": round(ssim, 6),
+            "dssim": round((1.0 - ssim) / 2.0, 6),   # compare.c dssim
+            "frames_scored": len(scores)}
+
+
 BENCHMARKS: Dict[str, Callable[..., Pipeline]] = {
     "config1_sepia": config1_sepia,
     "config2_gaudi": config2_gaudi,
+    "config5_ivtc": config5_ivtc,
+    "combdetect_720p": combdetect_720p,
     "ten_element": ten_element_graph,
 }
 

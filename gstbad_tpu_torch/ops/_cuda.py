@@ -1,8 +1,9 @@
 """Builds and loads the hand-written CUDA kernels (csrc/*.cu).
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes: a build takes seconds, where an extension
-that includes PyTorch's headers takes minutes.  The library lands in
+Each source compiles with its own nvcc process, all started together, and
+the objects link into one shared library with a plain C interface, loaded
+with ctypes: a build takes seconds, where an extension that includes
+PyTorch's headers takes minutes.  The library lands in
 gstbad_tpu_torch/_build/<hash of sources and flags>/, built on first use,
 so a fresh checkout builds it and an edited source rebuilds it.  Nothing
 here runs at import time: this module imports on a machine without nvcc or
@@ -26,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libgstbad_kernels.so"
 
 _P = ctypes.c_void_p
@@ -37,6 +38,9 @@ SIGNATURES = {
     "gst_word_lut": (_P, _P, _P, _LL),
     "gst_dilate_zebra": (_P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I),
+    "gst_fieldanalysis_metrics": (_P, _P, _P, _P, _P, _I, _I, _I, _I),
+    "gst_comb_score_pairs": (_P, _P, _P, _P, _I, _I, _I, _I),
+    "gst_comb_mask": (_P, _P, _P, _I, _I, _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -74,18 +78,34 @@ def _build() -> Path:
         build_info.update(path=str(lib), built=False, seconds=0.0, log="")
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    tag = f"{os.getpid()}.tmp"
+    sources = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [out_dir / f"{src.stem}.{os.getpid()}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all running at once
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    if not failed:
+        cmds.append([_nvcc(), "-shared", "-o", str(tmp),
+                     *(str(o) for o in objs)])
+        link = subprocess.run(cmds[-1], capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(link.returncode)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
+    log = "".join(" ".join(c) + "\n" + out for c, out in zip(cmds, logs))
+    (out_dir / "build.log").write_text(log)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{log}")
+        raise RuntimeError(f"nvcc failed with exit code {failed[0]}:\n{log}")
     os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
     build_info.update(path=str(lib), built=True, seconds=seconds, log=log)
     return lib

@@ -1,5 +1,6 @@
 """gstbad_tpu_torch on a CUDA card: each hand-written kernel against its
-plain version, and the headline graph on the card against the CPU port.
+plain version, and the headline, config-5 and combdetect graphs on the card
+against the CPU port.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  They
 import neither jax nor gstbad_tpu, so they run on a machine that has only
@@ -16,7 +17,7 @@ import torch
 
 import gstbad_tpu_torch as gtt
 from gstbad_tpu_torch.core.tablefuse import LinearIndex, TableChain
-from gstbad_tpu_torch.ops import chainfuse, lut
+from gstbad_tpu_torch.ops import chainfuse, comb, fieldanalysis, lut
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +111,96 @@ def test_kernel_wrappers_raise_on_bad_input(dev):
                                          device=dev).t(), t)
     with pytest.raises(ValueError):
         lut.apply_word_table(torch.zeros(4, dtype=torch.int32), t)
+
+
+def _u8(rng, shape, dev):
+    """Noise frames with every other frame a smooth gradient plus a little
+    noise, so comb scores fall on both sides of the thresholds."""
+    out = rng.integers(0, 256, shape, dtype=np.uint8)
+    h, w = shape[-2:]
+    yy, xx = np.mgrid[:h, :w]
+    for i in range(0, shape[0], 2):
+        out[i] = np.clip((xx * 3 + yy * 2) % 256
+                         + rng.integers(-3, 4, (h, w)), 0, 255)
+    return torch.from_numpy(out).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(9, 48, 64), (5, 50, 66), (3, 8, 4),
+                                   (4, 720, 1280)])
+def test_fieldanalysis_metrics_kernel_matches_plain(dev, shape):
+    rng = np.random.default_rng(13)
+    pool = _u8(rng, shape, dev)
+    b = shape[0] - 1
+    cur = torch.arange(1, b + 1, dtype=torch.int32, device=dev)
+    prev = torch.from_numpy(np.maximum(np.arange(b) - (np.arange(b) % 2),
+                                       0).astype(np.int32)).to(dev)
+    nf = torch.tensor(16, dtype=torch.int32, device=dev)
+    before = fieldanalysis.metrics_default.launches
+    got = fieldanalysis.metrics_default(pool, cur, prev, nf)
+    assert fieldanalysis.metrics_default.launches == before + 1
+    want = fieldanalysis.metrics_default_plain(pool, cur, prev, nf)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape,n", [((12, 48, 64), 11), ((6, 50, 130), 40),
+                                     ((5, 22, 37), 33), ((3, 4, 9), 2),
+                                     ((9, 720, 1280), 17)])
+def test_comb_kernels_match_plain(dev, shape, n):
+    rng = np.random.default_rng(14)
+    pool = _u8(rng, shape, dev)
+    ti = torch.from_numpy(rng.integers(0, shape[0], n).astype(np.int32)
+                          ).to(dev)
+    bi = torch.from_numpy(rng.integers(0, shape[0], n).astype(np.int32)
+                          ).to(dev)
+    before = (comb.comb_score_pairs.launches, comb.comb_mask.launches)
+    got = comb.comb_score_pairs(pool, ti, bi)
+    mask, score = comb.comb_mask(pool)
+    assert (comb.comb_score_pairs.launches,
+            comb.comb_mask.launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, comb.comb_score_pairs_plain(pool, ti, bi))
+    want_mask, want_score = comb.comb_mask_plain(pool)
+    assert torch.equal(mask, want_mask) and torch.equal(score, want_score)
+
+
+TELECINE = {
+    "config5": ("interlace pattern=2:3 ! fieldanalysis ! ivtc ! fakesink",
+                (1, 1, 0)),
+    "combdetect": ("interlace pattern=2:3 ! combdetect ! fakesink",
+                   (0, 0, 1)),
+}
+
+
+@pytest.mark.parametrize("graph", sorted(TELECINE))
+@pytest.mark.parametrize("fmt", ["GRAY8", "I420"])
+def test_telecine_graph_on_card_equals_cpu_port(dev, graph, fmt):
+    tail, per_window = TELECINE[graph]
+    desc = (f"videotestsrc pattern=ball width=66 height=50 format={fmt} "
+            f"framerate=24/1 ! {tail}")
+    counters = (fieldanalysis.metrics_default, comb.comb_score_pairs,
+                comb.comb_mask)
+    before = [c.launches for c in counters]
+    card = gtt.parse_launch(desc, device="cuda")
+    got = card.run(n_frames=20, window=5)
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        4 * k for k in per_window]
+    cpu = gtt.parse_launch(desc, device="cpu")
+    want = cpu.run(n_frames=20, window=5)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        for f in ("pts", "flags", "valid"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+        if isinstance(a.data, dict):
+            for k in a.data:
+                np.testing.assert_array_equal(a.data[k], b.data[k])
+        else:
+            np.testing.assert_array_equal(a.data, b.data)
+    assert [(m.element, m.name, m.pts, m.fields) for m in card.bus.messages] \
+        == [(m.element, m.name, m.pts, m.fields) for m in cpu.bus.messages]
+    if graph == "config5":
+        drained = card.send_eos()["fieldanalysis"][0]
+        ref = cpu.send_eos()["fieldanalysis"][0]
+        np.testing.assert_array_equal(drained.pts, ref.pts)
+        np.testing.assert_array_equal(drained.flags, ref.flags)

@@ -84,13 +84,19 @@ def test_unported_parts_refuse_cleanly():
 
 def test_launch_counters_stay_zero_on_cpu():
     from gstbad_tpu_torch.models import benchmarks
-    from gstbad_tpu_torch.ops import chainfuse, lut
+    from gstbad_tpu_torch.ops import chainfuse, comb, fieldanalysis, lut
     for name in benchmarks.BENCHMARKS:
         p = benchmarks.build(name, width=64, height=8, device="cpu")
         res = p.run(n_frames=4, window=2)
-        assert len(res) == 2 and res[0].data.shape == (2, 8, 64, 4)
+        if name in ("config5_ivtc", "combdetect_720p"):   # GRAY8, telecine
+            assert res and res[0].data.shape[1:] == (8, 64)
+        else:
+            assert len(res) == 2 and res[0].data.shape == (2, 8, 64, 4)
     assert chainfuse.dilate_zebra_fused.launches == 0
     assert lut.apply_word_table.launches == 0
+    assert fieldanalysis.metrics_default.launches == 0
+    assert comb.comb_score_pairs.launches == 0
+    assert comb.comb_mask.launches == 0
 
 
 def test_tensors_from_numpy_keeps_dtypes():
@@ -153,7 +159,8 @@ def test_chip_smoke_fails_alone_and_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["ten_element", "config1_sepia",
-                                  "config2_gaudi"])
+                                  "config2_gaudi", "config5_ivtc",
+                                  "combdetect_720p"])
 def test_benchmark_builders(name):
     """models/benchmarks.py builds the same graphs in both packages."""
     from gstbad_tpu.models import benchmarks as jbench

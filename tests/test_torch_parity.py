@@ -102,13 +102,20 @@ def assert_same(jax_run, torch_run, exempt=None):
         t = np.concatenate([getattr(b, f) for b in tres])
         assert a.dtype == t.dtype, f
         np.testing.assert_array_equal(t, a, err_msg=f)
-    a = np.concatenate([np.asarray(b.data) for b in jres])
-    t = np.concatenate([b.data for b in tres])
-    assert a.dtype == t.dtype == np.uint8 and a.shape == t.shape
-    if exempt is not None:
-        keep = ~exempt
-        a, t = a[keep], t[keep]
-    np.testing.assert_array_equal(t, a)
+    if jres and isinstance(jres[0].data, dict):    # planar: per plane
+        assert all(sorted(b.data) == sorted(jres[0].data) for b in tres)
+        planes = [(np.concatenate([np.asarray(b.data[k]) for b in jres]),
+                   np.concatenate([b.data[k] for b in tres]))
+                  for k in sorted(jres[0].data)]
+    else:
+        planes = [(np.concatenate([np.asarray(b.data) for b in jres]),
+                   np.concatenate([b.data for b in tres]))]
+    for a, t in planes:
+        assert a.dtype == t.dtype == np.uint8 and a.shape == t.shape
+        if exempt is not None:
+            keep = ~exempt
+            a, t = a[keep], t[keep]
+        np.testing.assert_array_equal(t, a)
 
 
 def check_graph(graph, pattern, size, fuse):
