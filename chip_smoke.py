@@ -14,24 +14,31 @@ line):
    card, at the main paths' shapes and at a ragged shape: K1 and K2 at
    [64, 1080, 1920] (materialized and broadcast source, both erode
    values); K4 on a [129, 720, 1280] frame pool, K5 on 391 pairs of it, K6
-   on [128, 720, 1280].
+   on [128, 720, 1280]; K3 (gaussian blur) at [64, 1080, 1920],
+   materialized and as a broadcast [1, 1080, 1920] base, at sigma 1.2,
+   -2.0 and 8.0 (41 taps); K7 (warp gather) at [64, 1080, 1920] and
+   [16, 2160, 3840] through the fisheye and twirl maps, with the AYUV and
+   the zero background, materialized and broadcast.
 4. Drive the port's main paths through parse_launch on the card: the 1080p
    headline graph on bars (broadcast source) and on ball (moving source),
    the headline without zebrastripe (the nine-element prefix, which takes
-   the whole-word lookup), and at 1280x720 GRAY8 24/1 BASELINE config 5
-   (interlace 2:3 ! fieldanalysis ! ivtc) and the combdetect graph.  Each
-   path's launch counters are zeroed just before and read just after; each
-   of its kernels must have launched, and its frames must equal the same
-   graph run by the port on the CPU.  Config 5's SSIM gate
+   the whole-word lookup), at 1280x720 GRAY8 24/1 BASELINE config 5
+   (interlace 2:3 ! fieldanalysis ! ivtc) and the combdetect graph, the
+   1080p AYUV gaussianblur graph (BASELINE config 2b) on bars and on ball,
+   the 4K rgb2bayer ! bayer2rgb ! fisheye ! twirl graph (BASELINE config
+   4, window 16) and the 1080p fisheye graph.  Each path's launch counters
+   are zeroed just before and read just after; each of its kernels must
+   have launched as planned, and its frames must equal the same graph run
+   by the port on the CPU.  Config 5's SSIM gate
    (models/benchmarks.config5_fidelity) must give the same result on the
-   card as on the CPU.  Each new kernel is also held against its plain
-   version on the very inputs the main path gave it.
+   card as on the CPU.  K3 to K7 are also held against their plain
+   versions on the very inputs the main paths gave them.
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
-   around 10 steps of a 64-frame window, data kept on the card), a
-   torch.profiler breakdown of each graph's step (device busy time, device
-   ops per step, idle share), and each kernel beside its plain version,
-   its bound and, where one PyTorch call computes the same function, that
-   call, at the main path's shapes.
+   around 10 steps of a 64-frame window, 16 at 4K, data kept on the card),
+   a torch.profiler breakdown of each graph's step (device busy time,
+   device ops per step, idle share), and each kernel beside its plain
+   version, its bound and, where one PyTorch call computes the same
+   function, that call, at the main path's shapes.
 6. Print the kernel table as one JSON line, then the result line
    {"ok": true, "device": {...}} last.
 """
@@ -49,7 +56,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 W, H = 1920, 1080
 W5, H5 = 1280, 720          # config 5 and combdetect
+W4, H4 = 3840, 2160         # config 4
 WINDOW = 64
+WINDOW4 = 16                # config 4's window (bench.py:330 caps 4K at 16)
 HEAD = ("coloreffects preset=sepia ! solarize ! chromium ! dodge ! burn "
         "! exclusion ! dilate ! chromahold ! videoconvert format=AYUV")
 # one H100 SXM, from NVIDIA's data sheet: HBM bytes/s, and the float32
@@ -99,7 +108,15 @@ def max_abs_err(a, b) -> int:
     return int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
 
 
-def profile_step(p, step_ms: float, key: str, steps: int = 3) -> None:
+def byte_err(a, b) -> int:
+    """Largest difference of any byte of two int32 word tensors (the
+    packed-pixel kernels' error per channel)."""
+    import torch
+    return max_abs_err(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def profile_step(p, step_ms: float, key: str, window: int,
+                 steps: int = 3) -> None:
     """Device time per step of pipeline `p` from a torch.profiler trace of
     `steps` steps: busy ms, device ops launched, the idle share against
     the untraced step time `step_ms`, and the kernels that take the most
@@ -108,8 +125,8 @@ def profile_step(p, step_ms: float, key: str, steps: int = 3) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    step = p.compile(WINDOW)
-    params, states = p.params(), p.init_states(WINDOW)
+    step = p.compile(window)
+    params, states = p.params(), p.init_states(window)
     for _ in range(2):
         states, _, _ = step(params, states, None)
     torch.cuda.synchronize()
@@ -159,14 +176,14 @@ def frames_equal(key, got, cpu, shape) -> None:
 
 
 def capture(module, name: str, store: dict):
-    """Wrap module.<name> to record the arguments of its last call (the
-    inputs the main path gives a kernel).  Returns a function that puts the
-    original back."""
+    """Wrap module.<name> to record the arguments of each call (the inputs
+    the main path gives a kernel) in store[name], a list.  Returns a
+    function that puts the original back."""
     orig = getattr(module, name)
 
-    def spy(*args):
-        store[name] = args
-        return orig(*args)
+    def spy(*args, **kw):
+        store.setdefault(name, []).append((args, kw))
+        return orig(*args, **kw)
 
     # the wrapper counts its launches on the module's attribute, the spy
     # while it is installed: those launches are not the counted run's
@@ -184,10 +201,12 @@ def main() -> int:
     import gstbad_tpu_torch as gtt
     from gstbad_tpu_torch.core.tablefuse import LinearIndex, TableChain
     from gstbad_tpu_torch.models import benchmarks
-    from gstbad_tpu_torch.ops import _cuda, chainfuse, comb, fieldanalysis, lut
+    from gstbad_tpu_torch.golden import geometric
+    from gstbad_tpu_torch.ops import (_cuda, blur, chainfuse, comb,
+                                      fieldanalysis, lut, remap)
 
     dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     t_start = time.perf_counter()
 
@@ -242,7 +261,8 @@ def main() -> int:
     mean2 = LinearIndex((0, 1, 1, 0), 0, 1)
     err = {k: 0 for k in ("dilate_zebra_fused", "apply_word_table",
                           "metrics_default", "comb_score_pairs",
-                          "comb_mask")}
+                          "comb_mask", "gaussian_blur_words",
+                          "warp_words")}
     cases = [((WINDOW, H, W), None, luma), ((1, H, W), WINDOW, luma),
              ((3, 37, 333), None, mean2), ((1, 37, 333), 5, mean2)]
     for shape, batch, index in cases:
@@ -306,6 +326,57 @@ def main() -> int:
         bot = rand_i32(npairs, lo=0, hi=p)
         check_telecine("random", pool, cur, prev, nf16, pool, top, bot,
                        pool[1:])
+
+    def check_blur(label, src, kern, rows, cols, batch=None):
+        """K3 against its plain version on one input."""
+        got = blur.gaussian_blur_words(src, kern, rows, cols, batch=batch)
+        want = blur.gaussian_blur_words_plain(src, kern, rows, cols,
+                                              batch=batch)
+        torch.cuda.synchronize()
+        e = byte_err(got, want)
+        log(f"K3 gaussian_blur_words {label} src {tuple(src.shape)} batch "
+            f"{batch or src.shape[0]} taps {kern.numel()}: "
+            f"max_abs_err {e} (bytes)")
+        err["gaussian_blur_words"] = max(err["gaussian_blur_words"], e)
+
+    def blur_tables(sigma, h, w):
+        return [torch.from_numpy(t).to(dev)
+                for t in blur.make_blur_tables(sigma, h, w)]
+
+    def check_warp(label, src, mp, bg, batch=None):
+        """K7 against its plain version on one input."""
+        got = remap.warp_words(src, mp, bg, batch=batch)
+        want = remap.warp_words_plain(src, mp, bg, batch=batch)
+        torch.cuda.synchronize()
+        e = byte_err(got, want)
+        log(f"K7 warp_words {label} src {tuple(src.shape)} batch "
+            f"{batch or src.shape[0]} bg {bg:#x}: max_abs_err {e} (bytes)")
+        err["warp_words"] = max(err["warp_words"], e)
+
+    def warp_map(warp, h, w, off_edge="ignore"):
+        flat, valid = remap.fix_map(geometric.MAP_BUILDERS[warp](w, h), w, h,
+                                    off_edge)
+        return torch.from_numpy(remap.word_map(flat, valid)).to(dev)
+
+    bg_ayuv = remap.background_word(b"\xff\x10\x80\x80")
+    src_full, src_bcast = rand_i32(WINDOW, H, W), rand_i32(1, H, W)
+    for sigma in (1.2, -2.0, 8.0):
+        tables = blur_tables(sigma, H, W)
+        check_blur(f"sigma {sigma}", src_full, *tables)
+        check_blur(f"sigma {sigma}", src_bcast, *tables, batch=WINDOW)
+        check_blur(f"sigma {sigma}", rand_i32(3, 37, 333),
+                   *blur_tables(sigma, 37, 333))
+    src4 = rand_i32(WINDOW4, H4, W4)
+    for warp in ("fisheye", "twirl"):
+        mp = warp_map(warp, H, W)
+        check_warp(warp, src_full, mp, bg_ayuv)
+        check_warp(warp, src_bcast, mp, 0, batch=WINDOW)
+        check_warp(warp, src4, warp_map(warp, H4, W4), 0)
+    check_warp("rotate wrap", rand_i32(3, 37, 333),
+               warp_map("rotate", 37, 333, "wrap"), bg_ayuv)
+    check_warp("rotate", rand_i32(1, 37, 333), warp_map("rotate", 37, 333),
+               bg_ayuv, batch=5)
+    del src_full, src_bcast, src4
     if any(err.values()):
         fail(f"kernels disagree with their plain versions: {err}")
 
@@ -313,8 +384,6 @@ def main() -> int:
     def launch(desc):
         return lambda device: gtt.parse_launch(desc, device=device)
 
-    telecine_src = (f"videotestsrc pattern=ball width={W5} height={H5} "
-                    "format=GRAY8 framerate=24/1 ! interlace pattern=2:3")
     runs = {"headline_bars": lambda device: benchmarks.ten_element_graph(
                 W, H, device=device),
             "headline_ball": launch(launch_line("ball", HEAD
@@ -323,12 +392,23 @@ def main() -> int:
             "config5_ivtc": lambda device: benchmarks.config5_ivtc(
                 W5, H5, device=device),
             "combdetect_720p": lambda device: benchmarks.combdetect_720p(
-                W5, H5, device=device)}
+                W5, H5, device=device),
+            "config2_blur_bars": lambda device: benchmarks.config2_blur(
+                W, H, device=device),
+            "config2_blur_ball": launch(
+                f"videotestsrc pattern=ball width={W} height={H} "
+                "format=AYUV ! gaussianblur sigma=1.2 ! fakesink"),
+            "config4_warp": lambda device: benchmarks.config4_warp(
+                W4, H4, device=device),
+            "warp_1080p": lambda device: benchmarks.warp_1080p(
+                W, H, device=device)}
     counters = {"dilate_zebra_fused": chainfuse.dilate_zebra_fused,
                 "apply_word_table": lut.apply_word_table,
                 "metrics_default": fieldanalysis.metrics_default,
                 "comb_score_pairs": comb.comb_score_pairs,
-                "comb_mask": comb.comb_mask}
+                "comb_mask": comb.comb_mask,
+                "gaussian_blur_words": blur.gaussian_blur_words,
+                "warp_words": remap.warp_words}
     # (windows, window) of each path's counted run, and the launches each
     # kernel must make per window on it
     plan = {"headline_bars": (3, 8, {"dilate_zebra_fused": 1}),
@@ -336,26 +416,53 @@ def main() -> int:
             "prefix_bars": (3, 8, {"apply_word_table": 2}),
             "config5_ivtc": (2, WINDOW, {"metrics_default": 1,
                                          "comb_score_pairs": 1}),
-            "combdetect_720p": (2, WINDOW, {"comb_mask": 1})}
+            "combdetect_720p": (2, WINDOW, {"comb_mask": 1}),
+            "config2_blur_bars": (2, 8, {"gaussian_blur_words": 1}),
+            "config2_blur_ball": (2, 8, {"gaussian_blur_words": 1}),
+            "config4_warp": (1, WINDOW4, {"warp_words": 2}),
+            "warp_1080p": (2, WINDOW, {"warp_words": 1})}
     shapes = {"headline_bars": (H, W, 4), "headline_ball": (H, W, 4),
               "prefix_bars": (H, W, 4), "config5_ivtc": (H5, W5),
-              "combdetect_720p": (H5, W5)}
+              "combdetect_720p": (H5, W5), "config2_blur_bars": (H, W, 4),
+              "config2_blur_ball": (H, W, 4), "config4_warp": (H4, W4, 4),
+              "warp_1080p": (H, W, 4)}
+    windows = {key: WINDOW4 if key == "config4_warp" else WINDOW
+               for key in runs}
 
-    # the telecine kernels' main-path inputs, recorded on an uncounted run
+    # K3 to K7's main-path inputs, recorded on uncounted runs
     inputs = {}
     undo = [capture(fieldanalysis, "metrics_default", inputs),
             capture(comb, "comb_score_pairs", inputs),
-            capture(comb, "comb_mask", inputs)]
+            capture(comb, "comb_mask", inputs),
+            capture(blur, "gaussian_blur_words", inputs),
+            capture(remap, "warp_words", inputs)]
     runs["config5_ivtc"]("cuda").run(n_frames=2 * WINDOW, window=WINDOW)
     runs["combdetect_720p"]("cuda").run(n_frames=WINDOW, window=WINDOW)
+    for key in ("config2_blur_bars", "config2_blur_ball", "config4_warp",
+                "warp_1080p"):
+        runs[key]("cuda").run(n_frames=windows[key], window=windows[key])
     for u in undo:
         u()
     torch.cuda.synchronize()
-    pool_mp, cur_mp, prev_mp, nf_mp = inputs["metrics_default"]
-    pool5, top_mp, bot_mp = inputs["comb_score_pairs"]
-    (frames_mp,) = inputs["comb_mask"]
+    pool_mp, cur_mp, prev_mp, nf_mp = inputs["metrics_default"][-1][0]
+    pool5, top_mp, bot_mp = inputs["comb_score_pairs"][-1][0]
+    (frames_mp,) = inputs["comb_mask"][-1][0]
     check_telecine("main-path inputs", pool_mp, cur_mp, prev_mp, nf_mp,
                    pool5, top_mp, bot_mp, frames_mp)
+    # blur: bars (broadcast base), ball (materialized); warp: config 4's
+    # fisheye and twirl (materialized 4K), warp_1080p's fisheye (broadcast)
+    blur_mp = inputs["gaussian_blur_words"]
+    warp_mp = inputs["warp_words"]
+    for (args, kw), label in zip(blur_mp, ("config2_blur_bars",
+                                           "config2_blur_ball")):
+        check_blur(f"main-path inputs {label}", *args, **kw)
+    for (args, kw), label in zip(warp_mp, ("config4_warp fisheye",
+                                           "config4_warp twirl",
+                                           "warp_1080p fisheye")):
+        check_warp(f"main-path inputs {label}", *args, **kw)
+    if len(blur_mp) != 2 or len(warp_mp) != 3:
+        fail(f"main paths gave K3 {len(blur_mp)} and K7 {len(warp_mp)} "
+             "inputs, 2 and 3 expected")
     if any(err.values()):
         fail(f"kernels disagree with their plain versions: {err}")
 
@@ -390,10 +497,10 @@ def main() -> int:
         fail("config5_fidelity differs between the card and the CPU port")
 
     # 5. timing
-    def fps_runs(build, reps: int = 5, n_steps: int = 10):
+    def fps_runs(build, window, reps: int = 5, n_steps: int = 10):
         p = build("cuda")
-        step = p.compile(WINDOW)
-        params, states = p.params(), p.init_states(WINDOW)
+        step = p.compile(window)
+        params, states = p.params(), p.init_states(window)
         holder = {"states": states}
 
         def one():
@@ -406,17 +513,18 @@ def main() -> int:
         out = []
         for _ in range(reps):
             ms = cuda_ms(one, iters=n_steps, warmup=0)
-            out.append(WINDOW * 1000.0 / ms)
+            out.append(window * 1000.0 / ms)
         return statistics.median(out), out
 
     fps = {}
     for key, build in runs.items():
-        med, all_runs = fps_runs(build)
+        med, all_runs = fps_runs(build, windows[key])
         fps[key] = med
-        log(f"fps {key} window {WINDOW}: median {med:.1f} source frames/s "
-            f"of {[round(x, 1) for x in all_runs]} ({card})")
+        log(f"fps {key} window {windows[key]}: median {med:.1f} source "
+            f"frames/s of {[round(x, 1) for x in all_runs]} ({card})")
     for key, build in runs.items():
-        profile_step(build("cuda"), WINDOW * 1000.0 / fps[key], key)
+        profile_step(build("cuda"), windows[key] * 1000.0 / fps[key], key,
+                     windows[key])
 
     src_bcast = rand_i32(1, H, W)
     src_full = rand_i32(WINDOW, H, W)
@@ -451,6 +559,27 @@ def main() -> int:
         cuda_ms(lambda: comb.comb_mask(frames_mp)),
         cuda_ms(lambda: comb.comb_mask_plain(frames_mp), iters=1, warmup=1),
         None)
+    # K3 on config2_blur's inputs (bars: a broadcast base; ball: a
+    # materialized window); no one PyTorch call has the border-sum
+    # normalisation and the rounding, so no library time
+    for label, (args, kw) in zip(("K3_bcast", "K3_materialized"), blur_mp):
+        times[label] = (
+            cuda_ms(lambda: blur.gaussian_blur_words(*args, **kw)),
+            cuda_ms(lambda: blur.gaussian_blur_words_plain(*args, **kw),
+                    iters=3), None)
+    # K7 on config4_warp's fisheye input (4K x 16, materialized) and on
+    # warp_1080p's (a broadcast base, 64 frames); the library form is the
+    # gather alone, index_select, without the background select
+    for label, (args, kw) in zip(("K7_4k", "K7_1080p_bcast"),
+                                 (warp_mp[0], warp_mp[2])):
+        src, mp, bg = args
+        b = kw.get("batch") or src.shape[0]
+        flat = mp.clamp(min=0)
+        full = src.expand(b, -1, -1).reshape(b, -1)
+        times[label] = (
+            cuda_ms(lambda: remap.warp_words(*args, **kw)),
+            cuda_ms(lambda: remap.warp_words_plain(*args, **kw), iters=5),
+            cuda_ms(lambda: full.index_select(1, flat), iters=5))
 
     # bounds: each input byte read once, each output byte written once,
     # and the integer operations the function needs per element
@@ -475,6 +604,28 @@ def main() -> int:
         "K5": bound(k5_bytes + 4 * n_k5, 10 * n_k5 * cells),
         "K6": bound(2 * n_k6 * hw5 + 4 * n_k6, 10 * n_k6 * cells),
     }
+    for label, (args, kw) in zip(("K3_bcast", "K3_materialized"), blur_mp):
+        src, kern = args[0], args[1]
+        b = kw.get("batch") or src.shape[0]
+        px = b * src.shape[1] * src.shape[2]
+        # read the source frames and the tables once, write B frames; per
+        # pixel and channel of each distinct source frame (one for a
+        # broadcast base) 2 (2c + 1) multiplies and adds, two divisions,
+        # the +0.5 and the clamp
+        table_bytes = 4 * (kern.numel() + src.shape[1] + src.shape[2])
+        bounds[label] = bound(4 * px + src.numel() * 4 + table_bytes,
+                              (4 * kern.numel() + 5) * 4 * src.numel())
+    for label, (args, kw) in zip(("K7_4k", "K7_1080p_bcast"),
+                                 (warp_mp[0], warp_mp[2])):
+        src, mp = args[0], args[1]
+        b = kw.get("batch") or src.shape[0]
+        px = b * mp.numel()
+        # read the map and the source pixels the map names once per source
+        # frame, write B frames; one select per pixel
+        named = torch.unique(mp[mp >= 0]).numel()
+        bounds[label] = bound(4 * px + 4 * named * src.shape[0]
+                              + 4 * mp.numel(), px)
+        log(f"{label}: the map names {named} of {mp.numel()} source pixels")
     for label, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bounds[label]
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
@@ -504,12 +655,16 @@ def main() -> int:
               "gstbad_tpu/ops/comb.py:258"),
         entry("comb_mask", "K6", "deinterlace_kernels.cu",
               "gstbad_tpu/ops/comb.py:102"),
+        entry("gaussian_blur_words", "K3_bcast", "blur_kernels.cu",
+              "gstbad_tpu/ops/blur_pallas.py:56"),
+        entry("warp_words", "K7_4k", "warp_kernels.cu",
+              "gstbad_tpu/ops/warp_pallas.py:215"),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
-    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                           "count": count}}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device_kind, "count": count}}))
     return 0
 
 

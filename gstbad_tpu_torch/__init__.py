@@ -13,7 +13,8 @@ Package layout
   ops/       tensor ops, and the hand-written CUDA kernels (csrc/) with
              their builder (ops/_cuda.py)
   elements/  the ported elements (videotestsrc, coloreffects, chromahold,
-             gaudieffects, videoconvert, zebrastripe, fakesink, ...)
+             gaudieffects, videoconvert, zebrastripe, the telecine
+             elements, bayer, the 16 geometric warps, fakesink, ...)
   golden/    reference data carried over from the JAX package
   models/    the benchmark pipeline graphs
 

@@ -1,5 +1,5 @@
-"""gaudieffects — burn, chromium, dilate, dodge, exclusion, solarize
-(reference: gst/gaudieffects/).  gaussianblur is not ported yet.
+"""gaudieffects — burn, chromium, dilate, dodge, exclusion, solarize,
+gaussianblur (reference: gst/gaudieffects/).
 
 The word-based effects view each pixel as a little-endian guint32, so their
 "red/green/blue" are memory bytes 2/1/0 and the fill byte is 3 regardless of
@@ -16,7 +16,7 @@ from gstbad_tpu_torch.core.frame import FrameBatch
 from gstbad_tpu_torch.core.registry import register
 from gstbad_tpu_torch.core.spec import VideoFormat
 from gstbad_tpu_torch.golden.gaudieffects import chromium_cos_table
-from gstbad_tpu_torch.ops import lut, pointops
+from gstbad_tpu_torch.ops import blur, lut, pointops
 
 _WORD_RGB = (2, 1, 0)
 _WORD_FILL = 3
@@ -182,3 +182,35 @@ class Solarize(_GuintWordFilter):
 
     def byte_map_kinds(self):
         return ("map", "map", "map", "zero")
+
+
+@register
+class GaussianBlur(VideoFilter):
+    """gstgaussblur.c: separable float blur on AYUV, sigma in [-20, 20]
+    default 1.2 (negative = sharpen).  sigma is static here because the
+    kernel window size is shape-affecting (gstgaussblur.c:372-373).
+
+    The window's packed words go through ops/blur.gaussian_blur_words (K3
+    on the card): a static source's [1, H, W] broadcast base is read once
+    for the whole window."""
+
+    NAME = "gaussianblur"
+    FORMATS = (VideoFormat.AYUV,)
+    PROPERTIES = (Property("sigma", float, 1.2, -20.0, 20.0, static=True),)
+
+    def prepare(self):
+        sigma = self.props["sigma"]
+        self._tables = None
+        if sigma != 0.0:
+            tables = blur.make_blur_tables(sigma, self.in_spec.height,
+                                           self.in_spec.width)
+            self._tables = [torch.as_tensor(t, device=self.device)
+                            for t in tables]
+
+    def process(self, params, state, batch: FrameBatch):
+        if self._tables is None:
+            return state, batch
+        out = blur.gaussian_blur_words(pointops.word_source(batch),
+                                       *self._tables, batch=batch.batch)
+        return state, batch.with_data(pointops.unpack32(out)).replace(
+            word=out)

@@ -1,6 +1,7 @@
 """The benchmark pipeline graphs of the port (the JAX package's
-models/benchmarks.py: the headline graph, configs 1, 2 and 5 and
-combdetect), and config 5's quality gate.
+models/benchmarks.py: the headline graph, configs 1, 2, 2b (gaussianblur),
+4 (bayer and warps) and 5, the single-warp graphs and combdetect), and
+config 5's quality gate.
 
 Each entry builds a Pipeline in launch-string form, so the element API is
 exercised exactly the way users drive it, on `device`.
@@ -38,6 +39,33 @@ def ten_element_graph(width=1920, height=1080, device="cuda") -> Pipeline:
         "format=BGRx ! coloreffects preset=sepia ! solarize ! chromium "
         "! dodge ! burn ! exclusion ! dilate ! chromahold "
         "! videoconvert format=AYUV ! zebrastripe ! fakesink", device=device)
+
+
+def config2_blur(width=1920, height=1080, device="cuda") -> Pipeline:
+    """gaussianblur sigma=1.2 on AYUV bars (BASELINE config 2b)."""
+    return parse_launch(
+        f"videotestsrc pattern=bars width={width} height={height} "
+        "format=AYUV ! gaussianblur sigma=1.2 ! fakesink", device=device)
+
+
+def config4_warp(width=3840, height=2160, device="cuda") -> Pipeline:
+    """bayer2rgb + fisheye warp at 4K (BASELINE config 4)."""
+    return parse_launch(
+        f"videotestsrc pattern=gradient width={width} height={height} "
+        "format=ARGB ! rgb2bayer ! bayer2rgb format=ARGB "
+        "! fisheye ! twirl ! fakesink", device=device)
+
+
+def warp_1080p(width=1920, height=1080, device="cuda") -> Pipeline:
+    """Single fisheye warp, 1080p."""
+    return parse_launch(
+        f"videotestsrc pattern=bars width={width} height={height} "
+        "format=BGRx ! fisheye ! fakesink", device=device)
+
+
+def warp_4k(width=3840, height=2160, device="cuda") -> Pipeline:
+    """Single fisheye warp at 4K."""
+    return warp_1080p(width, height, device=device)
 
 
 def config5_ivtc(width=1280, height=720, device="cuda") -> Pipeline:
@@ -102,6 +130,10 @@ def config5_fidelity(width=1280, height=720, n_frames=30, window=10,
 BENCHMARKS: Dict[str, Callable[..., Pipeline]] = {
     "config1_sepia": config1_sepia,
     "config2_gaudi": config2_gaudi,
+    "config2_blur": config2_blur,
+    "config4_warp": config4_warp,
+    "warp_1080p": warp_1080p,
+    "warp_4k": warp_4k,
     "config5_ivtc": config5_ivtc,
     "combdetect_720p": combdetect_720p,
     "ten_element": ten_element_graph,

@@ -44,6 +44,18 @@ def pack32(img: torch.Tensor) -> torch.Tensor:
     return img.view(torch.int32)[..., 0]
 
 
+def word_source(batch) -> torch.Tensor:
+    """The int32 words of a packed 4-byte FrameBatch for a word kernel:
+    its [1, H, W] broadcast base when it has one (a static source, read
+    once for the whole window), else its word view, else pack32 of its
+    bytes."""
+    if batch.word_base is not None:
+        return batch.word_base
+    if batch.word is not None:
+        return batch.word
+    return pack32(batch.data)
+
+
 def unpack32(p: torch.Tensor) -> torch.Tensor:
     """int32 word [...] -> [..., 4] uint8 (a dtype view, no copy)."""
     return p.unsqueeze(-1).view(torch.uint8)

@@ -1,6 +1,6 @@
 """gstbad_tpu_torch on a CUDA card: each hand-written kernel against its
-plain version, and the headline, config-5 and combdetect graphs on the card
-against the CPU port.
+plain version, and the headline, config-5, combdetect, config-2b (blur),
+config-4 and warp graphs on the card against the CPU port.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  They
 import neither jax nor gstbad_tpu, so they run on a machine that has only
@@ -17,7 +17,10 @@ import torch
 
 import gstbad_tpu_torch as gtt
 from gstbad_tpu_torch.core.tablefuse import LinearIndex, TableChain
-from gstbad_tpu_torch.ops import chainfuse, comb, fieldanalysis, lut
+from gstbad_tpu_torch.golden import geometric
+from gstbad_tpu_torch.models import benchmarks
+from gstbad_tpu_torch.ops import (blur, chainfuse, comb, fieldanalysis, lut,
+                                  remap)
 
 pytestmark = pytest.mark.cuda
 
@@ -204,3 +207,115 @@ def test_telecine_graph_on_card_equals_cpu_port(dev, graph, fmt):
         ref = cpu.send_eos()["fieldanalysis"][0]
         np.testing.assert_array_equal(drained.pts, ref.pts)
         np.testing.assert_array_equal(drained.flags, ref.flags)
+
+
+@pytest.mark.parametrize("shape,batch", [((64, 1080, 1920), None),
+                                         ((1, 1080, 1920), 64),
+                                         ((3, 37, 333), None),
+                                         ((1, 37, 333), 5),
+                                         ((2, 1, 1), None)])
+@pytest.mark.parametrize("sigma", [1.2, -2.0, 8.0, 20.0])
+def test_blur_kernel_matches_plain(dev, shape, batch, sigma):
+    """Bit exact: the kernel keeps the plain version's float32 order."""
+    rng = np.random.default_rng(15)
+    src = _i32(rng, shape, dev)
+    tables = [torch.from_numpy(x).to(dev)
+              for x in blur.make_blur_tables(sigma, *shape[1:])]
+    before = blur.gaussian_blur_words.launches
+    got = blur.gaussian_blur_words(src, *tables, batch=batch)
+    assert blur.gaussian_blur_words.launches == before + 1
+    want = blur.gaussian_blur_words_plain(src, *tables, batch=batch)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _warp_map(name, h, w, dev, off_edge="ignore"):
+    flat, valid = remap.fix_map(geometric.MAP_BUILDERS[name](w, h), w, h,
+                                off_edge)
+    return torch.from_numpy(remap.word_map(flat, valid)).to(dev)
+
+
+@pytest.mark.parametrize("shape,batch", [((64, 1080, 1920), None),
+                                         ((16, 2160, 3840), None),
+                                         ((1, 1080, 1920), 64),
+                                         ((3, 37, 333), None),
+                                         ((1, 37, 333), 5)])
+@pytest.mark.parametrize("name,off_edge", [("fisheye", "ignore"),
+                                           ("twirl", "ignore"),
+                                           ("rotate", "wrap")])
+def test_warp_kernel_matches_plain(dev, shape, batch, name, off_edge):
+    rng = np.random.default_rng(16)
+    src = _i32(rng, shape, dev)
+    mp = _warp_map(name, *shape[1:], dev, off_edge)
+    for bg in (0, remap.background_word(b"\xff\x10\x80\x80")):
+        before = remap.warp_words.launches
+        got = remap.warp_words(src, mp, bg, batch=batch)
+        assert remap.warp_words.launches == before + 1
+        want = remap.warp_words_plain(src, mp, bg, batch=batch)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_warp_kernel_out_of_range_map_takes_background(dev):
+    rng = np.random.default_rng(17)
+    src = _i32(rng, (4, 9, 13), dev)
+    mp = _i32(rng, 9 * 13, dev, -5, 9 * 13 + 5)
+    got = remap.warp_words(src, mp, 77)
+    torch.cuda.synchronize()
+    assert torch.equal(got, remap.warp_words_plain(src, mp, 77))
+
+
+# (graph, launches of (gaussian_blur_words, warp_words) per window)
+SLICE_GRAPHS = {"config2_blur": (1, 0), "config4_warp": (0, 2),
+                "warp_1080p": (0, 1)}
+
+
+@pytest.mark.parametrize("size", [(256, 64), (200, 18)])
+@pytest.mark.parametrize("name", sorted(SLICE_GRAPHS))
+def test_slice_graph_on_card_equals_cpu_port(dev, name, size):
+    per_window = SLICE_GRAPHS[name]
+    before = (blur.gaussian_blur_words.launches, remap.warp_words.launches)
+    card = benchmarks.build(name, width=size[0], height=size[1],
+                            device="cuda").run(n_frames=8, window=4)
+    assert (blur.gaussian_blur_words.launches - before[0],
+            remap.warp_words.launches - before[1]) == tuple(
+                2 * k for k in per_window)
+    cpu = benchmarks.build(name, width=size[0], height=size[1],
+                           device="cpu").run(n_frames=8, window=4)
+    assert len(card) == len(cpu) == 2
+    for a, b in zip(card, cpu):
+        for f in ("data", "pts", "flags", "valid"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+@pytest.mark.parametrize("pattern", ["ball", "checkers"])
+def test_blur_and_warps_on_a_moving_source(dev, pattern):
+    """A materialized window (ball) and AYUV warps with their background."""
+    desc = (f"videotestsrc pattern={pattern} width=160 height=40 "
+            "format=AYUV ! gaussianblur sigma=-1.5 ! rotate angle=0.5 "
+            "! tunnel ! fakesink")
+    card = gtt.parse_launch(desc, device="cuda").run(n_frames=6, window=3)
+    cpu = gtt.parse_launch(desc, device="cpu").run(n_frames=6, window=3)
+    for a, b in zip(card, cpu):
+        np.testing.assert_array_equal(a.data, b.data)
+
+
+def test_blur_and_warp_wrappers_raise_on_bad_input(dev):
+    tables = [torch.from_numpy(x).to(dev)
+              for x in blur.make_blur_tables(1.2, 8, 16)]
+    with pytest.raises(ValueError):
+        blur.gaussian_blur_words(torch.zeros((2, 8, 16), dtype=torch.int64,
+                                             device=dev), *tables)
+    with pytest.raises(ValueError):
+        blur.gaussian_blur_words(torch.zeros((2, 16, 8), dtype=torch.int32,
+                                             device=dev).transpose(1, 2),
+                                 *tables)
+    src = torch.zeros((2, 8, 16), dtype=torch.int32, device=dev)
+    mp = torch.zeros(8 * 16, dtype=torch.int32)
+    with pytest.raises(ValueError):        # a CPU map for a card source
+        remap.warp_words(src, mp, 0)
+    with pytest.raises(ValueError):        # a card map for a CPU source
+        remap.warp_words(src.cpu(), mp.to(dev), 0)
+    with pytest.raises(ValueError):
+        remap.warp_words(src.float(), mp.to(dev), 0)
+

@@ -21,7 +21,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, gstbad_tpu_torch\n"
+    # every module of the port, the kernels' wrappers included
+    code = ("import importlib, pkgutil, sys, gstbad_tpu_torch\n"
+            "for m in pkgutil.walk_packages(gstbad_tpu_torch.__path__, "
+            "'gstbad_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "assert 'gstbad_tpu_torch.ops.remap' in sys.modules\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'gstbad_tpu.')) "
             "or m == 'gstbad_tpu']\n"
@@ -69,7 +74,7 @@ def test_cuda_device_without_a_card_raises():
 
 def test_unported_parts_refuse_cleanly():
     with pytest.raises(KeyError):
-        gtt.parse_launch("videotestsrc ! gaussianblur ! fakesink",
+        gtt.parse_launch("videotestsrc ! facedetect ! fakesink",
                          device="cpu")
     p = gtt.parse_launch("videotestsrc ! videoconvert format=I420 "
                          "! fakesink", device="cpu")
@@ -84,7 +89,8 @@ def test_unported_parts_refuse_cleanly():
 
 def test_launch_counters_stay_zero_on_cpu():
     from gstbad_tpu_torch.models import benchmarks
-    from gstbad_tpu_torch.ops import chainfuse, comb, fieldanalysis, lut
+    from gstbad_tpu_torch.ops import (blur, chainfuse, comb, fieldanalysis,
+                                      lut, remap)
     for name in benchmarks.BENCHMARKS:
         p = benchmarks.build(name, width=64, height=8, device="cpu")
         res = p.run(n_frames=4, window=2)
@@ -97,6 +103,8 @@ def test_launch_counters_stay_zero_on_cpu():
     assert fieldanalysis.metrics_default.launches == 0
     assert comb.comb_score_pairs.launches == 0
     assert comb.comb_mask.launches == 0
+    assert blur.gaussian_blur_words.launches == 0
+    assert remap.warp_words.launches == 0
 
 
 def test_tensors_from_numpy_keeps_dtypes():
@@ -160,7 +168,8 @@ def test_chip_smoke_fails_alone_and_without_a_card(tmp_path):
 
 @pytest.mark.parametrize("name", ["ten_element", "config1_sepia",
                                   "config2_gaudi", "config5_ivtc",
-                                  "combdetect_720p"])
+                                  "combdetect_720p", "config2_blur",
+                                  "config4_warp", "warp_1080p", "warp_4k"])
 def test_benchmark_builders(name):
     """models/benchmarks.py builds the same graphs in both packages."""
     from gstbad_tpu.models import benchmarks as jbench
