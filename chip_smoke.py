@@ -18,7 +18,10 @@ line):
    materialized and as a broadcast [1, 1080, 1920] base, at sigma 1.2,
    -2.0 and 8.0 (41 taps); K7 (warp gather) at [64, 1080, 1920] and
    [16, 2160, 3840] through the fisheye and twirl maps, with the AYUV and
-   the zero background, materialized and broadcast.
+   the zero background, materialized and broadcast; K8 (the VAD power
+   recurrence) in both modes, serial and bracket, at [64, 4800] on noise,
+   DC, silence and square-wave rows and at [3, 300] and [5, 4801] (the
+   serial plain version runs on a CPU copy: one Python step per sample).
 4. Drive the port's main paths through parse_launch on the card: the 1080p
    headline graph on bars (broadcast source) and on ball (moving source),
    the headline without zebrastripe (the nine-element prefix, which takes
@@ -26,19 +29,29 @@ line):
    (interlace 2:3 ! fieldanalysis ! ivtc) and the combdetect graph, the
    1080p AYUV gaussianblur graph (BASELINE config 2b) on bars and on ball,
    the 4K rgb2bayer ! bayer2rgb ! fisheye ! twirl graph (BASELINE config
-   4, window 16) and the 1080p fisheye graph.  Each path's launch counters
-   are zeroed just before and read just after; each of its kernels must
-   have launched as planned, and its frames must equal the same graph run
-   by the port on the CPU.  Config 5's SSIM gate
+   4, window 16), the 1080p fisheye graph, and the audio graphs at 4800
+   samples per block, window 64: BASELINE config 3 (audiotestsrc !
+   audiomixmatrix ! freeverb ! audioconvert ! removesilence, where the
+   VAD's power bracket closes: K8's bracket mode once a window, its serial
+   mode never) and vad_square (removesilence on a square wave: both modes
+   once a window).  Each path's launch counters are zeroed just before and
+   read just after; each of its kernels must have launched as planned, and
+   its frames must equal the same graph run by the port on the CPU:
+   exactly, but config 3's S16 samples within 1 LSB (with the share that
+   differs printed) and its freeverb output within 2e-6, since the card's
+   float32 matrix products sum in another order.  Config 5's SSIM gate
    (models/benchmarks.config5_fidelity) must give the same result on the
-   card as on the CPU.  K3 to K7 are also held against their plain
+   card as on the CPU.  K3 to K8 are also held against their plain
    versions on the very inputs the main paths gave them.
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
    around 10 steps of a 64-frame window, 16 at 4K, data kept on the card),
    a torch.profiler breakdown of each graph's step (device busy time,
    device ops per step, idle share), and each kernel beside its plain
    version, its bound and, where one PyTorch call computes the same
-   function, that call, at the main path's shapes.
+   function, that call, at the main path's shapes.  K8's line adds its
+   dependency chain: samples walked in order times the cycles of one step
+   (measured by a probe kernel that runs the step on registers alone) at
+   the card's top SM clock; the audio graphs add their realtime factor.
 6. Print the kernel table as one JSON line, then the result line
    {"ok": true, "device": {...}} last.
 """
@@ -61,11 +74,17 @@ WINDOW = 64
 WINDOW4 = 16                # config 4's window (bench.py:330 caps 4K at 16)
 HEAD = ("coloreffects preset=sepia ! solarize ! chromium ! dodge ! burn "
         "! exclusion ! dilate ! chromahold ! videoconvert format=AYUV")
+AUDIO_BLOCK = 4800          # config 3's samplesperbuffer, 48 kHz
+AUDIO_RATE = 48000
 # one H100 SXM, from NVIDIA's data sheet: HBM bytes/s, and the float32
 # rate outside the tensor cores, taken as the rate of the kernels' 32-bit
 # integer operations
 HBM_BPS = 3.35e12
 OPS_PER_S = 67e12
+# the compiled-C audio chain of BASELINE config 3 on the host CPU
+# (BASELINE_C.json audio_chain_realtime_x), the denominator of the
+# audio graphs' realtime factor
+C_AUDIO_REALTIME_X = 346.63
 
 
 def fail(msg: str) -> None:
@@ -175,6 +194,52 @@ def frames_equal(key, got, cpu, shape) -> None:
                 fail(f"{key}: {f} differs from the CPU port")
 
 
+def samples_close(key, got, cpu, got_msgs, cpu_msgs, lsb: int) -> None:
+    """Host S16 audio batches of a card run against the CPU port's: same
+    windows and blocks, pts, flags, valid and bus messages equal, samples
+    within `lsb`; prints the share of samples that differ."""
+    if len(got) != len(cpu):
+        fail(f"{key}: {len(got)} windows on the card, {len(cpu)} on CPU")
+    worst = n_diff = total = 0
+    for a, c in zip(got, cpu):
+        if a.data.shape[1:] != (AUDIO_BLOCK, 1) or a.data.dtype.name != "int16":
+            fail(f"{key}: blocks {a.data.shape} {a.data.dtype}")
+        for f in ("pts", "flags", "valid"):
+            if getattr(a, f).shape != getattr(c, f).shape or not (
+                    getattr(a, f) == getattr(c, f)).all():
+                fail(f"{key}: {f} differs from the CPU port")
+        if a.data.shape != c.data.shape:
+            fail(f"{key}: {a.data.shape} blocks, {c.data.shape} on CPU")
+        d = abs(a.data.astype(int) - c.data.astype(int))
+        worst = max(worst, int(d.max()))
+        n_diff += int((d > 0).sum())
+        total += d.size
+    if worst > lsb:
+        fail(f"{key}: samples {worst} LSB from the CPU port's ({lsb} allowed)")
+    if got_msgs != cpu_msgs:
+        fail(f"{key}: bus messages differ from the CPU port's")
+    log(f"{key}: {len(cpu)} windows; {n_diff} of {total} samples "
+        f"({n_diff / total:.6f}) differ from the CPU port's, by at most "
+        f"{worst} LSB; pts, valid and {len(cpu_msgs)} bus messages equal")
+
+
+def bus_messages(p) -> list:
+    return [(m.element, m.name, m.pts, m.fields) for m in p.bus.messages]
+
+
+def tap_data(p, name: str, n_windows: int, window: int):
+    """The output of element `name` over n_windows windows of pipeline p
+    (a debug tap on the compiled step), on the host."""
+    import torch
+    step = p.compile(window, taps=(name,))
+    params, states = p.params(), p.init_states(window)
+    out = []
+    for _ in range(n_windows):
+        states, leaves, _ = step(params, states, None)
+        out.append(p.taps_of(leaves)[name].data.cpu())
+    return torch.cat(out)
+
+
 def capture(module, name: str, store: dict):
     """Wrap module.<name> to record the arguments of each call (the inputs
     the main path gives a kernel) in store[name], a list.  Returns a
@@ -202,7 +267,7 @@ def main() -> int:
     from gstbad_tpu_torch.core.tablefuse import LinearIndex, TableChain
     from gstbad_tpu_torch.models import benchmarks
     from gstbad_tpu_torch.golden import geometric
-    from gstbad_tpu_torch.ops import (_cuda, blur, chainfuse, comb,
+    from gstbad_tpu_torch.ops import (_cuda, audio, blur, chainfuse, comb,
                                       fieldanalysis, lut, remap)
 
     dev = torch.device("cuda", 0)
@@ -218,6 +283,12 @@ def main() -> int:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     log(f"card: {card}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    sm_hz = float(smi.stdout.split()[0]) * 1e6
+    log(f"top SM clock: {sm_hz / 1e6:.0f} MHz")
     try:
         triton = importlib.metadata.version("triton")
     except importlib.metadata.PackageNotFoundError:
@@ -262,7 +333,8 @@ def main() -> int:
     err = {k: 0 for k in ("dilate_zebra_fused", "apply_word_table",
                           "metrics_default", "comb_score_pairs",
                           "comb_mask", "gaussian_blur_words",
-                          "warp_words")}
+                          "warp_words", "vad_powers_serial",
+                          "vad_powers_bracket")}
     cases = [((WINDOW, H, W), None, luma), ((1, H, W), WINDOW, luma),
              ((3, 37, 333), None, mean2), ((1, 37, 333), 5, mean2)]
     for shape, batch, index in cases:
@@ -377,6 +449,44 @@ def main() -> int:
     check_warp("rotate", rand_i32(1, 37, 333), warp_map("rotate", 37, 333),
                bg_ayuv, batch=5)
     del src_full, src_bcast, src4
+
+    def vad_rows(kind, nb, n):
+        """S16 VAD blocks: noise (the brackets close), DC 30000 and a 440 Hz
+        square (they stay open), silence."""
+        if kind == "noise":
+            return rand_i32(nb, n, lo=-32768, hi=32768).to(torch.int16)
+        if kind == "dc":
+            return torch.full((nb, n), 30000, dtype=torch.int16, device=dev)
+        if kind == "silence":
+            return torch.zeros((nb, n), dtype=torch.int16, device=dev)
+        t = torch.arange(nb * n, dtype=torch.float64, device=dev)
+        return (26213 * torch.sign(torch.sin(2 * torch.pi * 440 * t
+                                             / AUDIO_RATE))
+                ).to(torch.int16).reshape(nb, n)
+
+    def check_vad(label, data, p0):
+        """K8's two modes against their plain versions on one input; the
+        serial plain version on a CPU copy (one Python step per sample)."""
+        got = audio.vad_powers_serial(data, p0)
+        lo, hi = audio.vad_powers_bracket(data)
+        want = audio.vad_powers_serial_plain(data.cpu(), p0.cpu())
+        want_lo, want_hi = audio.vad_powers_bracket_plain(data)
+        torch.cuda.synchronize()
+        es = max_abs_err(got.cpu(), want)
+        eb = max(max_abs_err(lo, want_lo), max_abs_err(hi, want_hi))
+        closed = int((want_lo == want_hi).sum())
+        log(f"K8 vad_powers serial/bracket {label} {tuple(data.shape)}: "
+            f"max_abs_err {es} / {eb} ({closed} of {data.shape[0]} "
+            "brackets closed)")
+        err["vad_powers_serial"] = max(err["vad_powers_serial"], es)
+        err["vad_powers_bracket"] = max(err["vad_powers_bracket"], eb)
+
+    p0 = torch.tensor(123456789, dtype=torch.int64, device=dev)
+    for kind in ("noise", "dc", "silence", "square"):
+        check_vad(kind, vad_rows(kind, WINDOW, AUDIO_BLOCK), p0)
+    for nb, n in ((3, 300), (5, 4801)):
+        for kind in ("noise", "square"):
+            check_vad(kind, vad_rows(kind, nb, n), p0)
     if any(err.values()):
         fail(f"kernels disagree with their plain versions: {err}")
 
@@ -401,14 +511,21 @@ def main() -> int:
             "config4_warp": lambda device: benchmarks.config4_warp(
                 W4, H4, device=device),
             "warp_1080p": lambda device: benchmarks.warp_1080p(
-                W, H, device=device)}
+                W, H, device=device),
+            "config3_audio": lambda device: benchmarks.config3_audio(
+                AUDIO_BLOCK, device=device),
+            "vad_square": lambda device: benchmarks.vad_square(
+                AUDIO_BLOCK, device=device)}
+    audio_keys = ("config3_audio", "vad_square")
     counters = {"dilate_zebra_fused": chainfuse.dilate_zebra_fused,
                 "apply_word_table": lut.apply_word_table,
                 "metrics_default": fieldanalysis.metrics_default,
                 "comb_score_pairs": comb.comb_score_pairs,
                 "comb_mask": comb.comb_mask,
                 "gaussian_blur_words": blur.gaussian_blur_words,
-                "warp_words": remap.warp_words}
+                "warp_words": remap.warp_words,
+                "vad_powers_serial": audio.vad_powers_serial,
+                "vad_powers_bracket": audio.vad_powers_bracket}
     # (windows, window) of each path's counted run, and the launches each
     # kernel must make per window on it
     plan = {"headline_bars": (3, 8, {"dilate_zebra_fused": 1}),
@@ -420,7 +537,12 @@ def main() -> int:
             "config2_blur_bars": (2, 8, {"gaussian_blur_words": 1}),
             "config2_blur_ball": (2, 8, {"gaussian_blur_words": 1}),
             "config4_warp": (1, WINDOW4, {"warp_words": 2}),
-            "warp_1080p": (2, WINDOW, {"warp_words": 1})}
+            "warp_1080p": (2, WINDOW, {"warp_words": 1}),
+            # a sine's brackets close: the serial mode never runs
+            "config3_audio": (2, WINDOW, {"vad_powers_bracket": 1,
+                                          "vad_powers_serial": 0}),
+            "vad_square": (2, WINDOW, {"vad_powers_bracket": 1,
+                                       "vad_powers_serial": 1})}
     shapes = {"headline_bars": (H, W, 4), "headline_ball": (H, W, 4),
               "prefix_bars": (H, W, 4), "config5_ivtc": (H5, W5),
               "combdetect_720p": (H5, W5), "config2_blur_bars": (H, W, 4),
@@ -441,9 +563,30 @@ def main() -> int:
     for key in ("config2_blur_bars", "config2_blur_ball", "config4_warp",
                 "warp_1080p"):
         runs[key]("cuda").run(n_frames=windows[key], window=windows[key])
+    # K8's: config 3's bracket input and vad_square's serial input; config
+    # 3's freeverb output on the card, held against the CPU port's below
+    undo += [capture(audio, "vad_powers_bracket", inputs),
+             capture(audio, "vad_powers_serial", inputs)]
+    fv_card = tap_data(runs["config3_audio"]("cuda"), "freeverb", 2, WINDOW)
+    runs["vad_square"]("cuda").run(n_frames=WINDOW, window=WINDOW)
     for u in undo:
         u()
     torch.cuda.synchronize()
+    fv_err = float((fv_card - tap_data(runs["config3_audio"]("cpu"),
+                                       "freeverb", 2, WINDOW)).abs().max())
+    log(f"config3_audio: freeverb output on the card within {fv_err:.3e} "
+        "of the CPU port's (2e-6 allowed)")
+    if not fv_err <= 2e-6:
+        fail("config3_audio: freeverb output differs from the CPU port's")
+    (x_bracket,), _ = inputs["vad_powers_bracket"][0]
+    (x_serial, p0_serial), _ = inputs["vad_powers_serial"][0]
+    check_vad("main-path inputs config3_audio", x_bracket, p0_serial)
+    check_vad("main-path inputs vad_square", x_serial, p0_serial)
+    if len(inputs["vad_powers_bracket"]) != 3 or len(
+            inputs["vad_powers_serial"]) != 1:
+        fail("main paths gave K8's bracket "
+             f"{len(inputs['vad_powers_bracket'])} and its serial mode "
+             f"{len(inputs['vad_powers_serial'])} inputs, 3 and 1 expected")
     pool_mp, cur_mp, prev_mp, nf_mp = inputs["metrics_default"][-1][0]
     pool5, top_mp, bot_mp = inputs["comb_score_pairs"][-1][0]
     (frames_mp,) = inputs["comb_mask"][-1][0]
@@ -467,14 +610,15 @@ def main() -> int:
         fail(f"kernels disagree with their plain versions: {err}")
 
     launches = {k: 0 for k in counters}
-    outs = {}
+    outs, msgs = {}, {}
     for key, build in runs.items():
         n_windows, window, need = plan[key]
+        pipe = build("cuda")
         for c in counters.values():
             c.launches = 0
-        outs[key] = build("cuda").run(n_frames=n_windows * window,
-                                      window=window)
+        outs[key] = pipe.run(n_frames=n_windows * window, window=window)
         torch.cuda.synchronize()
+        msgs[key] = bus_messages(pipe)
         delta = {k: c.launches for k, c in counters.items()}
         log(f"{key}: launches {delta}")
         for k, per in need.items():
@@ -486,7 +630,12 @@ def main() -> int:
     log(f"main path launches {launches}")
     for key, build in runs.items():
         n_windows, window, _ = plan[key]
-        cpu = build("cpu").run(n_frames=n_windows * window, window=window)
+        pipe = build("cpu")
+        cpu = pipe.run(n_frames=n_windows * window, window=window)
+        if key in audio_keys:
+            samples_close(key, outs[key], cpu, msgs[key], bus_messages(pipe),
+                          1 if key == "config3_audio" else 0)
+            continue
         frames_equal(key, outs[key], cpu, shapes[key])
         log(f"{key}: {len(cpu)} windows, {sum(len(b.pts) for b in cpu)} "
             "frames equal the CPU port")
@@ -522,6 +671,16 @@ def main() -> int:
         fps[key] = med
         log(f"fps {key} window {windows[key]}: median {med:.1f} source "
             f"frames/s of {[round(x, 1) for x in all_runs]} ({card})")
+    for key in audio_keys:
+        rt = fps[key] * AUDIO_BLOCK / AUDIO_RATE
+        log(f"realtime {key}: {fps[key]:.1f} source blocks/s of "
+            f"{AUDIO_BLOCK} samples = {rt:.2f}x realtime at 48 kHz "
+            f"({card})")
+    log("realtime config3_audio: the compiled C chain of BASELINE config 3 "
+        f"on the host CPU runs {C_AUDIO_REALTIME_X}x realtime "
+        f"(BASELINE_C.json): the card's graph is "
+        f"{fps['config3_audio'] * AUDIO_BLOCK / AUDIO_RATE / C_AUDIO_REALTIME_X:.3f}"
+        "x that")
     for key, build in runs.items():
         profile_step(build("cuda"), windows[key] * 1000.0 / fps[key], key,
                      windows[key])
@@ -581,6 +740,27 @@ def main() -> int:
             cuda_ms(lambda: remap.warp_words_plain(*args, **kw), iters=5),
             cuda_ms(lambda: full.index_select(1, flat), iters=5))
 
+    # K8 on its main-path inputs: the serial mode on vad_square's window,
+    # the bracket on config 3's; the plain serial version is a Python loop
+    # on the host (it copies the samples there); no PyTorch call computes
+    # a truncating recurrence, so no library time
+    times["K8_serial"] = (
+        cuda_ms(lambda: audio.vad_powers_serial(x_serial, p0_serial)),
+        cuda_ms(lambda: audio.vad_powers_serial_plain(x_serial, p0_serial),
+                iters=1, warmup=0), None)
+    times["K8_bracket"] = (
+        cuda_ms(lambda: audio.vad_powers_bracket(x_bracket)),
+        cuda_ms(lambda: audio.vad_powers_bracket_plain(x_bracket), iters=1,
+                warmup=1), None)
+    # the latency of one step of the chain, from the probe kernel
+    probe = torch.zeros(2, dtype=torch.int64, device=dev)
+    probe_steps = 1 << 20
+    _cuda.launch("gst_vad_step_cycles", probe, probe_steps)
+    torch.cuda.synchronize()
+    step_cycles = probe[0].item() / probe_steps
+    log(f"K8 step latency: {step_cycles:.3f} cycles per dependent step "
+        f"({probe_steps} steps on registers)")
+
     # bounds: each input byte read once, each output byte written once,
     # and the integer operations the function needs per element
     frame4 = H * W * 4
@@ -626,11 +806,30 @@ def main() -> int:
         bounds[label] = bound(4 * px + 4 * named * src.shape[0]
                               + 4 * mp.numel(), px)
         log(f"{label}: the map names {named} of {mp.numel()} source pixels")
+    # K8: the samples read once (2 bytes each), the powers written once;
+    # per sample 3 operations for the squared term and 2 per walk of the
+    # step (multiply-high, add); the bracket walks each sample twice.  The
+    # chain: the samples walked in order, times the step's latency, at
+    # the top SM clock
+    chains = {}
+    for label, x, walks in (("K8_serial", x_serial, 1),
+                            ("K8_bracket", x_bracket, 2)):
+        nb, n = x.shape
+        bounds[label] = bound(2 * nb * n + 8 * walks * nb + 8,
+                              (3 + 2 * walks) * nb * n)
+        in_order = nb * n if label == "K8_serial" else n
+        chains[label] = in_order * step_cycles / sm_hz * 1e3
+        log(f"{label}: {nb} blocks of {n} samples; chain {in_order} steps "
+            f"x {step_cycles:.3f} cycles at {sm_hz / 1e6:.0f} MHz = "
+            f"{chains[label]:.4f} ms")
     for label, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bounds[label]
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
+        chain = (f", chain {chains[label]:.4f} ms" if label in chains
+                 else "")
         log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {lib} ms, bound {b_ms:.4f} ms ({b_by}) ({card})")
+            f"library {lib} ms, bound {b_ms:.4f} ms ({b_by}){chain} "
+            f"({card})")
     log(f"K4 inputs: pool {tuple(pool_mp.shape)}, {cur_mp.numel()} frames, "
         f"{k4_frames} distinct; K5: {n_k5} pairs; K6: "
         f"{tuple(frames_mp.shape)}")
@@ -659,6 +858,10 @@ def main() -> int:
               "gstbad_tpu/ops/blur_pallas.py:56"),
         entry("warp_words", "K7_4k", "warp_kernels.cu",
               "gstbad_tpu/ops/warp_pallas.py:215"),
+        entry("vad_powers_serial", "K8_serial", "vad_kernels.cu",
+              "gstbad_tpu/ops/audio.py:585"),
+        entry("vad_powers_bracket", "K8_bracket", "vad_kernels.cu",
+              "gstbad_tpu/ops/audio.py:653"),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

@@ -14,7 +14,8 @@ Package layout
              their builder (ops/_cuda.py)
   elements/  the ported elements (videotestsrc, coloreffects, chromahold,
              gaudieffects, videoconvert, zebrastripe, the telecine
-             elements, bayer, the 16 geometric warps, fakesink, ...)
+             elements, bayer, the 16 geometric warps, audiotestsrc and
+             config 3's audio chain, fakesink, ...)
   golden/    reference data carried over from the JAX package
   models/    the benchmark pipeline graphs
 

@@ -18,7 +18,7 @@ example gst/gaudieffects/gstgaussblur.c) maps onto this protocol:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -257,3 +257,21 @@ class VideoFilter(Element):
     def negotiate(self, in_spec: MediaSpec) -> MediaSpec:
         require(in_spec.kind == "video", f"{self.NAME}: needs video input")
         return fixate_format(in_spec, tuple(self.FORMATS), self.NAME)
+
+
+class AudioFilter(Element):
+    """Element restricted to a set of sample formats and, optionally, a
+    channel-count range (GstAudioFilter)."""
+
+    FORMATS: Sequence[str] = ()
+    CHANNELS: Optional[Tuple[int, int]] = None  # (min, max) or None
+
+    def negotiate(self, in_spec: MediaSpec) -> MediaSpec:
+        require(in_spec.kind == "audio", f"{self.NAME}: needs audio input")
+        spec = fixate_format(in_spec, tuple(self.FORMATS), self.NAME)
+        if self.CHANNELS is not None:
+            lo, hi = self.CHANNELS
+            require(lo <= spec.channels <= hi,
+                    f"{self.NAME}: channels {spec.channels} not in "
+                    f"[{lo},{hi}]")
+        return spec

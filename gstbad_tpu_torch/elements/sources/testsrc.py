@@ -2,9 +2,9 @@
 
 The reference consumes gst-plugins-base's videotestsrc in every launch line
 and test; this one generates batched frames directly on the pipeline's
-device so benchmarks aren't host-transfer bound.  The noise pattern (drawn
-from JAX's PRNG in the JAX package, which torch cannot reproduce) and
-audiotestsrc are not ported yet.
+device so benchmarks aren't host-transfer bound.  videotestsrc's noise
+pattern and audiotestsrc's white noise (drawn from JAX's PRNG in the JAX
+package, which torch cannot reproduce) are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from gstbad_tpu_torch.core.element import Element, Property
 from gstbad_tpu_torch.core.frame import FrameBatch
 from gstbad_tpu_torch.core.registry import register
-from gstbad_tpu_torch.core.spec import MediaSpec, VideoFormat
+from gstbad_tpu_torch.core.spec import AudioFormat, MediaSpec, VideoFormat
 from gstbad_tpu_torch.ops.pointops import unpack32
 
 # SMPTE-ish color bars in RGB (white, yellow, cyan, green, magenta, red,
@@ -249,3 +249,87 @@ class VideoTestSrc(Element):
             return torch.where(mask, white, data.to(torch.int32)
                                ).to(torch.uint16)
         return data.masked_fill(mask[..., None], 255)
+
+
+_AUDIO_DTYPES = {AudioFormat.S16: torch.int16, AudioFormat.S32: torch.int32,
+                 AudioFormat.F32: torch.float32, AudioFormat.F64: torch.float64}
+
+
+@register
+class AudioTestSrc(Element):
+    """Sine/square/silence PCM generator, [B, S, C] blocks of S =
+    samplesperbuffer samples.  The waveform is float64, as in the JAX
+    package, and converted to the sample format at the end."""
+
+    NAME = "audiotestsrc"
+    KIND = "source"
+    PROPERTIES = (
+        Property("wave", str, "sine", static=True),
+        Property("freq", float, 440.0, static=True),
+        Property("volume", float, 0.8, 0.0, 1.0, static=True),
+        Property("format", str, AudioFormat.F32, static=True),
+        Property("rate", int, 48000, static=True),
+        Property("channels", int, 2, 1, 64, static=True),
+        Property("samplesperbuffer", int, 1024, 1, None, static=True),
+        Property("seed", int, 0, static=True),
+    )
+
+    def negotiate(self, in_spec: MediaSpec) -> MediaSpec:
+        return MediaSpec(kind="audio", format=self.props["format"],
+                         rate=self.props["rate"],
+                         channels=self.props["channels"])
+
+    def prepare(self):
+        wave = self.props["wave"]
+        if wave == "white-noise":
+            raise ValueError("audiotestsrc: wave=white-noise is not ported "
+                             "to gstbad_tpu_torch yet (ROADMAP queue 1)")
+        if wave not in ("sine", "square", "silence"):
+            raise ValueError(f"unknown wave {wave!r}")
+        if self.out_spec.format not in _AUDIO_DTYPES:
+            raise ValueError(f"audiotestsrc: unknown format "
+                             f"{self.out_spec.format!r}")
+
+    def init_state(self, batch: int):
+        # sample counter (int64, as the JAX package's x64 counter)
+        return torch.zeros((), dtype=torch.int64, device=self.device)
+
+    def generate(self, params, state, window: int):
+        spec = self.out_spec
+        s = self.props["samplesperbuffer"]
+        n0 = state
+        idx = (n0 + torch.arange(window * s, dtype=torch.int64,
+                                 device=self.device)).reshape(window, s)
+        wave = self.props["wave"]
+        vol = self.props["volume"]
+        if wave == "silence":
+            x = torch.zeros((window, s), dtype=torch.float64,
+                            device=self.device)
+        else:
+            # 2*pi*freq * (idx / rate) as the JAX package's compiled form
+            # evaluates it: XLA folds the two constants into one factor
+            arg = idx.to(torch.float64) * (2 * np.pi * self.props["freq"]
+                                           / spec.rate)
+            if arg.device.type == "cpu":
+                # torch's vectorised float64 sine on the CPU is off by one
+                # ulp from the C library's on some samples; numpy's, like
+                # the JAX package's on the CPU, equals the C library's
+                x = torch.from_numpy(np.sin(arg.numpy()))
+            else:
+                x = torch.sin(arg)
+            if wave == "square":
+                x = torch.sign(x)
+            x = vol * x
+        fmt = spec.format
+        if fmt == AudioFormat.S16:
+            x = (x * 32767.0).clamp(-32768, 32767)
+        elif fmt == AudioFormat.S32:
+            x = (x * 2147483647.0).clamp(-2147483648, 2147483647)
+        # every channel carries the same wave: one converted plane, viewed
+        # C times
+        data = x.to(_AUDIO_DTYPES[fmt])[..., None].expand(window, s,
+                                                         spec.channels)
+        dur = int(1e9 * s / spec.rate)
+        pts = (n0 // s + torch.arange(window, dtype=torch.int64,
+                                      device=self.device)) * dur
+        return n0 + window * s, FrameBatch.make(data, pts=pts)

@@ -1,7 +1,7 @@
 """The benchmark pipeline graphs of the port (the JAX package's
 models/benchmarks.py: the headline graph, configs 1, 2, 2b (gaussianblur),
-4 (bayer and warps) and 5, the single-warp graphs and combdetect), and
-config 5's quality gate.
+3 (the audio chain), 4 (bayer and warps) and 5, the single-warp graphs and
+combdetect; and vad_square), and config 5's quality gate.
 
 Each entry builds a Pipeline in launch-string form, so the element API is
 exercised exactly the way users drive it, on `device`.
@@ -46,6 +46,34 @@ def config2_blur(width=1920, height=1080, device="cuda") -> Pipeline:
     return parse_launch(
         f"videotestsrc pattern=bars width={width} height={height} "
         "format=AYUV ! gaussianblur sigma=1.2 ! fakesink", device=device)
+
+
+def config3_audio(samplesperbuffer=4800, device="cuda") -> Pipeline:
+    """audiomixmatrix -> freeverb -> audioconvert -> removesilence, 48 kHz
+    8-channel sine in (BASELINE config 3).  On a sine the VAD's power
+    bracket closes on every block, so the serial recurrence never runs."""
+    matrix = "<" + ",".join(
+        "<" + ",".join("1.0" if i == o else "0.125" for i in range(8)) + ">"
+        for o in range(2)) + ">"
+    return parse_launch(
+        "audiotestsrc wave=sine channels=8 format=F32 "
+        f"samplesperbuffer={samplesperbuffer} "
+        f"! audiomixmatrix matrix='{matrix}' ! freeverb "
+        "! audioconvert format=S16 channels=1 ! removesilence ! fakesink",
+        device=device)
+
+
+def vad_square(samplesperbuffer=4800, device="cuda") -> Pipeline:
+    """removesilence on a 440 Hz square wave: a constant squared sample,
+    whose power recurrence has neighbouring fixed points, so the bracket
+    never closes and every window takes the serial recurrence.  The power
+    settles near 2.75e9, under the 0 dB threshold (2^32 - 1): every block
+    is silence, one silence_detected message is posted, and with
+    remove=false every frame reaches the sink."""
+    return parse_launch(
+        "audiotestsrc wave=square channels=1 format=S16 "
+        f"samplesperbuffer={samplesperbuffer} "
+        "! removesilence silent=false threshold=0 ! fakesink", device=device)
 
 
 def config4_warp(width=3840, height=2160, device="cuda") -> Pipeline:
@@ -131,6 +159,8 @@ BENCHMARKS: Dict[str, Callable[..., Pipeline]] = {
     "config1_sepia": config1_sepia,
     "config2_gaudi": config2_gaudi,
     "config2_blur": config2_blur,
+    "config3_audio": config3_audio,
+    "vad_square": vad_square,
     "config4_warp": config4_warp,
     "warp_1080p": warp_1080p,
     "warp_4k": warp_4k,

@@ -43,6 +43,9 @@ SIGNATURES = {
     "gst_comb_mask": (_P, _P, _P, _I, _I, _I),
     "gst_gaussian_blur": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
     "gst_warp_words": (_P, _P, _P, _I, _I, _I, _I, _I),
+    "gst_vad_powers_serial": (_P, _P, _P, _I, _I),
+    "gst_vad_powers_bracket": (_P, _P, _P, _I, _I),
+    "gst_vad_step_cycles": (_P, _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,6 +1,7 @@
 """gstbad_tpu_torch on a CUDA card: each hand-written kernel against its
 plain version, and the headline, config-5, combdetect, config-2b (blur),
-config-4 and warp graphs on the card against the CPU port.
+config-3 (audio), vad_square, config-4 and warp graphs on the card against
+the CPU port.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  They
 import neither jax nor gstbad_tpu, so they run on a machine that has only
@@ -8,7 +9,8 @@ the port's dependencies:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: bit exact (integer kernels).
+Tolerance: bit exact (integer kernels), but config3_audio's S16 samples,
+within 1 LSB (freeverb's float32 sums, stated at its test).
 """
 
 import numpy as np
@@ -19,8 +21,8 @@ import gstbad_tpu_torch as gtt
 from gstbad_tpu_torch.core.tablefuse import LinearIndex, TableChain
 from gstbad_tpu_torch.golden import geometric
 from gstbad_tpu_torch.models import benchmarks
-from gstbad_tpu_torch.ops import (blur, chainfuse, comb, fieldanalysis, lut,
-                                  remap)
+from gstbad_tpu_torch.ops import (audio, blur, chainfuse, comb, fieldanalysis,
+                                  lut, remap)
 
 pytestmark = pytest.mark.cuda
 
@@ -319,3 +321,79 @@ def test_blur_and_warp_wrappers_raise_on_bad_input(dev):
     with pytest.raises(ValueError):
         remap.warp_words(src.float(), mp.to(dev), 0)
 
+
+
+def _vad_rows(kind, shape, dev):
+    """S16 VAD blocks: noise (brackets close), DC 30000 and a square wave
+    (brackets stay open) and silence."""
+    rng = np.random.default_rng(18)
+    t = np.arange(shape[0] * shape[1]).reshape(shape)
+    data = {"noise": lambda: rng.integers(-32768, 32768, shape),
+            "dc": lambda: np.full(shape, 30000),
+            "square": lambda: 26213 * np.sign(np.sin(2 * np.pi * 440 * t
+                                                     / 48000)),
+            "silence": lambda: np.zeros(shape)}[kind]()
+    return torch.from_numpy(data.astype(np.int16)).to(dev)
+
+
+@pytest.mark.parametrize("shape", [(64, 4800), (3, 300), (5, 4801)])
+@pytest.mark.parametrize("kind", ["noise", "dc", "square", "silence"])
+def test_vad_kernels_match_plain(dev, kind, shape):
+    """Both modes of K8 against their plain versions, exactly; the serial
+    plain version runs on a CPU copy (one Python step per sample)."""
+    data = _vad_rows(kind, shape, dev)
+    p0 = torch.tensor(123456789, dtype=torch.int64, device=dev)
+    before = (audio.vad_powers_serial.launches,
+              audio.vad_powers_bracket.launches)
+    got = audio.vad_powers_serial(data, p0)
+    lo, hi = audio.vad_powers_bracket(data)
+    assert (audio.vad_powers_serial.launches,
+            audio.vad_powers_bracket.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), audio.vad_powers_serial_plain(
+        data.cpu(), p0.cpu()))
+    want_lo, want_hi = audio.vad_powers_bracket_plain(data)
+    assert torch.equal(lo, want_lo) and torch.equal(hi, want_hi)
+
+
+def test_vad_wrappers_raise_on_bad_input(dev):
+    data = torch.zeros((2, 300), dtype=torch.int16, device=dev)
+    p0 = torch.zeros((), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):        # a CPU power for card samples
+        audio.vad_powers_serial(data, p0.cpu())
+    with pytest.raises(ValueError):        # a card power for CPU samples
+        audio.vad_powers_serial(data.cpu(), p0)
+    with pytest.raises(ValueError):
+        audio.vad_powers_bracket(data.to(torch.int32))
+    with pytest.raises(ValueError):
+        audio.vad_powers_bracket(data.t())
+
+
+# (graph, launches of (vad_powers_bracket, vad_powers_serial) per window)
+AUDIO_GRAPHS = {"config3_audio": (1, 0), "vad_square": (1, 1)}
+
+
+@pytest.mark.parametrize("name", sorted(AUDIO_GRAPHS))
+def test_audio_graph_on_card_equals_cpu_port(dev, name):
+    """vad_square bit exact; config3_audio's S16 samples within 1 LSB (the
+    card's float32 matrix products sum freeverb's blocks in another order,
+    within 2e-6), pts, valid and messages exact."""
+    per_window = AUDIO_GRAPHS[name]
+    before = (audio.vad_powers_bracket.launches,
+              audio.vad_powers_serial.launches)
+    card = benchmarks.build(name, samplesperbuffer=1200, device="cuda")
+    got = card.run(n_frames=12, window=4)
+    assert (audio.vad_powers_bracket.launches - before[0],
+            audio.vad_powers_serial.launches - before[1]) == tuple(
+                3 * k for k in per_window)
+    cpu = benchmarks.build(name, samplesperbuffer=1200, device="cpu")
+    want = cpu.run(n_frames=12, window=4)
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.pts, b.pts)
+        np.testing.assert_array_equal(a.valid, b.valid)
+        diff = np.abs(a.data.astype(int) - b.data.astype(int))
+        assert diff.max() <= (1 if name == "config3_audio" else 0)
+    assert [(m.element, m.name, m.pts, m.fields) for m in card.bus.messages] \
+        == [(m.element, m.name, m.pts, m.fields) for m in cpu.bus.messages]

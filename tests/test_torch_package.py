@@ -27,6 +27,9 @@ def test_import_leaves_jax_out():
             "'gstbad_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "assert 'gstbad_tpu_torch.ops.remap' in sys.modules\n"
+            "assert 'gstbad_tpu_torch.ops.audio' in sys.modules\n"
+            "assert 'gstbad_tpu_torch.elements.audio.removesilence' in "
+            "sys.modules\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'gstbad_tpu.')) "
             "or m == 'gstbad_tpu']\n"
@@ -89,9 +92,14 @@ def test_unported_parts_refuse_cleanly():
 
 def test_launch_counters_stay_zero_on_cpu():
     from gstbad_tpu_torch.models import benchmarks
-    from gstbad_tpu_torch.ops import (blur, chainfuse, comb, fieldanalysis,
-                                      lut, remap)
+    from gstbad_tpu_torch.ops import (audio, blur, chainfuse, comb,
+                                      fieldanalysis, lut, remap)
     for name in benchmarks.BENCHMARKS:
+        if name in ("config3_audio", "vad_square"):   # audio: [B, S, C]
+            p = benchmarks.build(name, samplesperbuffer=300, device="cpu")
+            res = p.run(n_frames=4, window=2)
+            assert len(res) == 2 and res[0].data.shape == (2, 300, 1)
+            continue
         p = benchmarks.build(name, width=64, height=8, device="cpu")
         res = p.run(n_frames=4, window=2)
         if name in ("config5_ivtc", "combdetect_720p"):   # GRAY8, telecine
@@ -105,6 +113,17 @@ def test_launch_counters_stay_zero_on_cpu():
     assert comb.comb_mask.launches == 0
     assert blur.gaussian_blur_words.launches == 0
     assert remap.warp_words.launches == 0
+    assert audio.vad_powers_serial.launches == 0
+    assert audio.vad_powers_bracket.launches == 0
+
+
+def test_audio_elements_are_registered():
+    names = gtt.element_names()
+    for name in ("audiotestsrc", "audiomixmatrix", "audiochannelmix",
+                 "freeverb", "audioconvert", "removesilence"):
+        assert name in names
+        assert type(gtt.make(name)).__module__.startswith(
+            "gstbad_tpu_torch.elements.")
 
 
 def test_tensors_from_numpy_keeps_dtypes():
