@@ -14,14 +14,18 @@ line):
    card, at the main paths' shapes and at a ragged shape: K1 and K2 at
    [64, 1080, 1920] (materialized and broadcast source, both erode
    values); K4 on a [129, 720, 1280] frame pool, K5 on 391 pairs of it, K6
-   on [128, 720, 1280]; K3 (gaussian blur) at [64, 1080, 1920],
-   materialized and as a broadcast [1, 1080, 1920] base, at sigma 1.2,
-   -2.0 and 8.0 (41 taps); K7 (warp gather) at [64, 1080, 1920] and
-   [16, 2160, 3840] through the fisheye and twirl maps, with the AYUV and
-   the zero background, materialized and broadcast; K8 (the VAD power
-   recurrence) in both modes, serial and bracket, at [64, 4800] on noise,
-   DC, silence and square-wave rows and at [3, 300] and [5, 4801] (the
-   serial plain version runs on a CPU copy: one Python step per sample).
+   on [128, 720, 1280], and K5/K6 on the hard cases: woven frames whose
+   rows alternate 0 and 255 (every cell an outlier, runs as wide as the
+   frame, carries at the 1000 clamp) at W 1, 31, 33, 1281, 3840 and 8192
+   and H 4, 5, 6 and 64, K5 with repeated and out-of-pool pairs; K3
+   (gaussian blur) at [64, 1080, 1920], materialized and as a broadcast
+   [1, 1080, 1920] base, at sigma 1.2, -2.0 and 8.0 (41 taps); K7 (warp
+   gather) at [64, 1080, 1920] and [16, 2160, 3840] through the fisheye
+   and twirl maps, with the AYUV and the zero background, materialized
+   and broadcast; K8 (the VAD power recurrence) in both modes, serial and
+   bracket, at [64, 4800] on noise, DC, silence and square-wave rows and
+   at [3, 300] and [5, 4801] (the serial plain version runs on a CPU
+   copy: one Python step per sample).
 4. Drive the port's main paths through parse_launch on the card: the 1080p
    headline graph on bars (broadcast source) and on ball (moving source),
    the headline without zebrastripe (the nine-element prefix, which takes
@@ -52,6 +56,11 @@ line):
    dependency chain: samples walked in order times the cycles of one step
    (measured by a probe kernel that runs the step on registers alone) at
    the card's top SM clock; the audio graphs add their realtime factor.
+   K5 and K6 take their chain bound the same way: the H - 4 rows of a
+   column in order, each one dependent step of the row recurrence (the
+   clamp of the carried cell, the select and the add; gst_comb_row_cycles
+   measures it on registers).  They print their ns per row, and K5/K6 are
+   also timed on random 720-row frames 2560, 3840 and 8192 wide.
 6. Print the kernel table as one JSON line, then the result line
    {"ok": true, "device": {...}} last.
 """
@@ -113,11 +122,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, chain_ms: float = 0.0):
     """(bound_ms, bound_by): the larger of the bytes over HBM_BPS and the
-    operations over OPS_PER_S."""
+    operations over OPS_PER_S, or over their dependency chain (chain_ms:
+    the operations that must run one after another, at their latency)."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
+    t_ops = max(ops / OPS_PER_S * 1e3, chain_ms)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -398,6 +408,48 @@ def main() -> int:
         bot = rand_i32(npairs, lo=0, hi=p)
         check_telecine("random", pool, cur, prev, nf16, pool, top, bot,
                        pool[1:])
+
+    def weave_frames(n, h, w):
+        """Frames whose rows alternate 0 and 255, so that every cell of the
+        band is an outlier; the odd frames inverted, so that a pair of one
+        parity weaves to the same and of two parities to a flat frame."""
+        f = torch.zeros((n, h, w), dtype=torch.uint8, device=dev)
+        f[:, 1::2] = 255
+        f[1::2] = 255 - f[1::2]
+        return f
+
+    def pairs_plain(pool, top, bot):
+        """K5's plain version on the pairs inside the pool; a pair outside
+        it scores 0 (the kernel reads nothing for it)."""
+        p = pool.shape[0]
+        inside = (top >= 0) & (top < p) & (bot >= 0) & (bot < p)
+        want = torch.zeros(top.shape, dtype=torch.int32, device=dev)
+        want[inside] = comb.comb_score_pairs_plain(pool, top[inside],
+                                                   bot[inside])
+        return want
+
+    # repeated pairs, and indices below, at and far past the pool's end
+    hard_top = torch.tensor([0, 0, 2, -1, 3, 0, 1, 1, 2**31 - 1],
+                            dtype=torch.int32, device=dev)
+    hard_bot = torch.tensor([1, 0, 2, 1, 0, 100, 1, 1, 0],
+                            dtype=torch.int32, device=dev)
+    for w in (1, 31, 33, 1281, 3840, 8192):
+        scores = []
+        for h in (4, 5, 6, 64):
+            frames = weave_frames(3, h, w)
+            gm, gs = comb.comb_mask(frames)
+            got = comb.comb_score_pairs(frames, hard_top, hard_bot)
+            wm, ws = comb.comb_mask_plain(frames)
+            want = pairs_plain(frames, hard_top, hard_bot)
+            torch.cuda.synchronize()
+            e5 = max_abs_err(got, want)
+            e6 = max(max_abs_err(gm, wm), max_abs_err(gs, ws))
+            err["comb_score_pairs"] = max(err["comb_score_pairs"], e5)
+            err["comb_mask"] = max(err["comb_mask"], e6)
+            scores.append(f"H {h}: {int(ws.sum())} / {int(want.sum())} "
+                          f"(err {e6} / {e5})")
+        log(f"K6/K5 all-outlier weave W {w}, 3 frames, 9 pairs: score sums "
+            + "; ".join(scores))
 
     def check_blur(label, src, kern, rows, cols, batch=None):
         """K3 against its plain version on one input."""
@@ -718,6 +770,18 @@ def main() -> int:
         cuda_ms(lambda: comb.comb_mask(frames_mp)),
         cuda_ms(lambda: comb.comb_mask_plain(frames_mp), iters=1, warmup=1),
         None)
+    # K5/K6 at widths past the main paths' (1440p, 4K, and the widest
+    # accepted): 16 random frames, 16 pairs of them
+    wide_pairs = torch.arange(16, dtype=torch.int32, device=dev)
+    for w in (2560, 3840, 8192):
+        wide = torch.randint(0, 256, (16, H5, w), dtype=torch.uint8,
+                             device=dev)
+        t6 = cuda_ms(lambda: comb.comb_mask(wide))
+        t5 = cuda_ms(lambda: comb.comb_score_pairs(wide, wide_pairs,
+                                                   wide_pairs.flip(0)))
+        log(f"K6/K5 at [16, {H5}, {w}]: {t6:.4f} / {t5:.4f} ms = "
+            f"{t6 * 1e6 / (H5 - 4):.1f} / {t5 * 1e6 / (H5 - 4):.1f} ns per "
+            f"row ({card})")
     # K3 on config2_blur's inputs (bars: a broadcast base; ball: a
     # materialized window); no one PyTorch call has the border-sum
     # normalisation and the rounding, so no library time
@@ -760,7 +824,20 @@ def main() -> int:
     step_cycles = probe[0].item() / probe_steps
     log(f"K8 step latency: {step_cycles:.3f} cycles per dependent step "
         f"({probe_steps} steps on registers)")
-
+    # the comb recurrence's dependent step down a column: the clamp of the
+    # carried cell, the next row's select and add.  The bound's chain is
+    # the H - 4 rows of a column; the kernel's wavefront also walks the
+    # W - 1 columns of a row in order
+    row_steps = 1 << 16
+    _cuda.launch("gst_comb_row_cycles", probe, row_steps)
+    torch.cuda.synchronize()
+    row_cycles = probe[0].item() / row_steps
+    comb_chain = (H5 - 4) * row_cycles / sm_hz * 1e3
+    wavefront = (H5 - 4 + W5 - 1) * row_cycles / sm_hz * 1e3
+    log(f"K5/K6 row step latency: {row_cycles:.3f} cycles per dependent "
+        f"step ({row_steps} steps on registers); chain {H5 - 4} rows = "
+        f"{comb_chain:.4f} ms at {sm_hz / 1e6:.0f} MHz; the wavefront's "
+        f"{H5 - 4} + {W5 - 1} steps = {wavefront:.4f} ms")
     # bounds: each input byte read once, each output byte written once,
     # and the integer operations the function needs per element
     frame4 = H * W * 4
@@ -780,9 +857,11 @@ def main() -> int:
         # half the rows, gates, sums)
         "K4": bound(k4_frames * hw5 + cur_mp.numel() * 5 * 8,
                     20 * cur_mp.numel() * hw5),
-        # the woven rows read; ~10 ops per cell (outlier, scan, clamp)
-        "K5": bound(k5_bytes + 4 * n_k5, 10 * n_k5 * cells),
-        "K6": bound(2 * n_k6 * hw5 + 4 * n_k6, 10 * n_k6 * cells),
+        # the woven rows read; ~10 ops per cell (outlier, scan, clamp);
+        # the chain of H - 4 dependent row steps
+        "K5": bound(k5_bytes + 4 * n_k5, 10 * n_k5 * cells, comb_chain),
+        "K6": bound(2 * n_k6 * hw5 + 4 * n_k6, 10 * n_k6 * cells,
+                    comb_chain),
     }
     for label, (args, kw) in zip(("K3_bcast", "K3_materialized"), blur_mp):
         src, kern = args[0], args[1]
@@ -811,14 +890,14 @@ def main() -> int:
     # step (multiply-high, add); the bracket walks each sample twice.  The
     # chain: the samples walked in order, times the step's latency, at
     # the top SM clock
-    chains = {}
+    chains = {"K5": comb_chain, "K6": comb_chain}
     for label, x, walks in (("K8_serial", x_serial, 1),
                             ("K8_bracket", x_bracket, 2)):
         nb, n = x.shape
-        bounds[label] = bound(2 * nb * n + 8 * walks * nb + 8,
-                              (3 + 2 * walks) * nb * n)
         in_order = nb * n if label == "K8_serial" else n
         chains[label] = in_order * step_cycles / sm_hz * 1e3
+        bounds[label] = bound(2 * nb * n + 8 * walks * nb + 8,
+                              (3 + 2 * walks) * nb * n, chains[label])
         log(f"{label}: {nb} blocks of {n} samples; chain {in_order} steps "
             f"x {step_cycles:.3f} cycles at {sm_hz / 1e6:.0f} MHz = "
             f"{chains[label]:.4f} ms")
@@ -827,6 +906,8 @@ def main() -> int:
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
         chain = (f", chain {chains[label]:.4f} ms" if label in chains
                  else "")
+        if label in ("K5", "K6"):
+            chain += f", {ms * 1e6 / (H5 - 4):.1f} ns per row"
         log(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {lib} ms, bound {b_ms:.4f} ms ({b_by}){chain} "
             f"({card})")

@@ -41,6 +41,7 @@ SIGNATURES = {
     "gst_fieldanalysis_metrics": (_P, _P, _P, _P, _P, _I, _I, _I, _I),
     "gst_comb_score_pairs": (_P, _P, _P, _P, _I, _I, _I, _I),
     "gst_comb_mask": (_P, _P, _P, _I, _I, _I),
+    "gst_comb_row_cycles": (_P, _I),
     "gst_gaussian_blur": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I),
     "gst_warp_words": (_P, _P, _P, _I, _I, _I, _I, _I),
     "gst_vad_powers_serial": (_P, _P, _P, _I, _I),

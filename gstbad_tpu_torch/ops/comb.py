@@ -75,7 +75,7 @@ def comb_mask(luma):
 
     Replaces the TPU kernel gstbad_tpu/ops/comb.py:_comb_chain_kernel.  CPU
     tensors take comb_mask_plain; CUDA tensors launch
-    csrc/deinterlace_kernels.cu:comb_chain_kernel<true> or raise."""
+    csrc/deinterlace_kernels.cu:comb_chain_kernel<C, true> or raise."""
     if luma.dtype != torch.uint8 or luma.ndim < 2:
         raise ValueError(f"comb_mask: luma must be uint8 [..., H, W], got "
                          f"{luma.dtype} {tuple(luma.shape)}")
@@ -148,7 +148,7 @@ def comb_score_pairs(pool, top_idx, bot_idx):
 
     Replaces the TPU kernel gstbad_tpu/ops/comb.py:_score_kernel.  CPU
     tensors take comb_score_pairs_plain; CUDA tensors launch
-    csrc/deinterlace_kernels.cu:comb_chain_kernel<false>, which reads the
+    csrc/deinterlace_kernels.cu:comb_chain_kernel<C, false>, which reads the
     woven rows straight from the pool, or raise."""
     _check_pairs(pool, top_idx, bot_idx)
     if pool.device.type == "cpu":

@@ -149,23 +149,55 @@ def test_fieldanalysis_metrics_kernel_matches_plain(dev, shape):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("shape,n", [((12, 48, 64), 11), ((6, 50, 130), 40),
-                                     ((5, 22, 37), 33), ((3, 4, 9), 2),
-                                     ((9, 720, 1280), 17)])
-def test_comb_kernels_match_plain(dev, shape, n):
+def _weave(shape, dev):
+    """Frames whose rows alternate 0 and 255, so that every cell of the
+    band is an outlier (runs as wide as the frame, carries at the 1000
+    clamp); the odd frames inverted, so that a pair of one parity weaves
+    to the same and of two parities to a flat frame."""
+    out = np.zeros(shape, np.uint8)
+    out[:, 1::2] = 255
+    out[1::2] = 255 - out[1::2]
+    return torch.from_numpy(out).to(dev)
+
+
+# (pool shape, pairs, frames): random frames, and the all-outlier weave at
+# narrow, ragged and wide widths and at the heights with no band, one row
+# and two rows, its pairs repeated and some out of the pool
+COMB_CASES = ([((12, 48, 64), 11, "random"), ((6, 50, 130), 40, "random"),
+               ((5, 22, 37), 33, "random"), ((3, 4, 9), 2, "random"),
+               ((9, 720, 1280), 17, "random")]
+              + [((3, 64, w), 9, "weave")
+                 for w in (1, 31, 33, 1281, 3840, 8192)]
+              + [((3, h, w), 9, "weave") for h in (4, 5, 6)
+                 for w in (33, 1281)])
+WEAVE_TOP = [0, 0, 2, -1, 3, 0, 1, 1, 2**31 - 1]
+WEAVE_BOT = [1, 0, 2, 1, 0, 100, 1, 1, 0]
+
+
+@pytest.mark.parametrize("shape,n,frames", COMB_CASES)
+def test_comb_kernels_match_plain(dev, shape, n, frames):
+    """Exact; a pair with an index outside the pool scores 0."""
     rng = np.random.default_rng(14)
-    pool = _u8(rng, shape, dev)
-    ti = torch.from_numpy(rng.integers(0, shape[0], n).astype(np.int32)
-                          ).to(dev)
-    bi = torch.from_numpy(rng.integers(0, shape[0], n).astype(np.int32)
-                          ).to(dev)
+    if frames == "random":
+        pool = _u8(rng, shape, dev)
+        ti = torch.from_numpy(rng.integers(0, shape[0], n).astype(np.int32)
+                              ).to(dev)
+        bi = torch.from_numpy(rng.integers(0, shape[0], n).astype(np.int32)
+                              ).to(dev)
+    else:
+        pool = _weave(shape, dev)
+        ti = torch.tensor(WEAVE_TOP, dtype=torch.int32, device=dev)
+        bi = torch.tensor(WEAVE_BOT, dtype=torch.int32, device=dev)
     before = (comb.comb_score_pairs.launches, comb.comb_mask.launches)
     got = comb.comb_score_pairs(pool, ti, bi)
     mask, score = comb.comb_mask(pool)
     assert (comb.comb_score_pairs.launches,
             comb.comb_mask.launches) == (before[0] + 1, before[1] + 1)
     torch.cuda.synchronize()
-    assert torch.equal(got, comb.comb_score_pairs_plain(pool, ti, bi))
+    inside = (ti >= 0) & (ti < shape[0]) & (bi >= 0) & (bi < shape[0])
+    want = torch.zeros_like(got)
+    want[inside] = comb.comb_score_pairs_plain(pool, ti[inside], bi[inside])
+    assert torch.equal(got, want)
     want_mask, want_score = comb.comb_mask_plain(pool)
     assert torch.equal(mask, want_mask) and torch.equal(score, want_score)
 

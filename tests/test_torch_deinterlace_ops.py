@@ -163,6 +163,71 @@ def test_scan_rows_equals_pallas_chain_and_c_recurrence():
                                   want)
 
 
+def _weave(n, h, w):
+    """Frames whose rows alternate 0 and 255, so that every cell of the
+    band is an outlier; the odd frames inverted, so that a pair of frames
+    of one parity weaves to the same and of two parities to a flat
+    frame."""
+    f = np.zeros((n, h, w), np.uint8)
+    f[:, 1::2] = 255
+    f[1::2] = 255 - f[1::2]
+    return f
+
+
+def _c_comb(il):
+    """gstcombdetect.c's row loop written out on one woven frame: the mask
+    of cells over 100, its count, and whether a carried cell reached the
+    1000 clamp."""
+    h, w = il.shape
+    v = il.astype(np.int64)
+    t = np.zeros(w, np.int64)
+    mask = np.zeros((h, w), bool)
+    clamped = False
+    for j in range(2, h - 2):
+        for i in range(w):
+            a, b, c = v[j - 1, i], v[j, i], v[j + 1, i]
+            if b < min(a, c) - 5 or b > max(a, c) + 5:
+                t[i] = min(t[i] + (t[i - 1] if i else 0) + 1, 1000)
+                clamped |= t[i] == 1000
+            else:
+                t[i] = 0
+            mask[j, i] = t[i] > 100
+    return mask, int(mask.sum()), clamped
+
+
+@pytest.mark.parametrize("h,w", [(h, w) for h in (4, 5, 6)
+                                 for w in (1, 33, 257)] + [(12, 257)])
+def test_comb_weave_equals_pallas_xla_and_c(h, w):
+    """The all-outlier weave, where runs span the whole width and, at
+    W = 257 from the second row on, the sums pass the 1000 clamp (H = 12
+    carries clamped rows on), with repeated pairs.  The JAX Pallas
+    comb_mask has no band to scan at H = 4 and raises there, so that
+    height holds to the XLA path and the C loop only."""
+    luma = _weave(2, h, w)
+    mask, score = comb.comb_mask(torch.from_numpy(luma))
+    want = [_c_comb(f) for f in luma]
+    np.testing.assert_array_equal(mask.numpy(),
+                                  np.stack([m for m, _, _ in want]))
+    np.testing.assert_array_equal(score.numpy(), [s for _, s, _ in want])
+    assert want[0][2] == (h >= 6 and w == 257)
+    for engine in ("xla", "pallas") if h > 4 else ("xla",):
+        jm, js = jcomb.comb_mask(jnp.asarray(luma), engine=engine)
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(jm))
+        np.testing.assert_array_equal(score.numpy(), np.asarray(js))
+    ti = np.array([0, 0, 1, 1, 0, 1], np.int32)
+    bi = np.array([0, 1, 1, 1, 0, 0], np.int32)
+    got = comb.comb_score_pairs(torch.from_numpy(luma), torch.from_numpy(ti),
+                                torch.from_numpy(bi))
+    even = (np.arange(h) % 2 == 0)[:, None]
+    np.testing.assert_array_equal(got.numpy(), [
+        _c_comb(np.where(even, luma[t], luma[b]))[1] for t, b in zip(ti, bi)])
+    for engine in ("xla", "pallas"):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(
+            jcomb.comb_score_pairs(jnp.asarray(luma), jnp.asarray(ti),
+                                   jnp.asarray(bi), engine=engine,
+                                   chunk=32)))
+
+
 def test_reconstruction_equals_jax():
     rng = np.random.default_rng(5)
     frames = _mixed_frames(rng, (4, 20, 37))

@@ -154,6 +154,20 @@ def test_chip_smoke_imports_no_jax():
         assert name.split(".")[0] not in ("jax", "jaxlib", "gstbad_tpu"), name
 
 
+def test_comb_entry_points_are_registered():
+    """The comb chain's entry points and its chain probe have ctypes
+    signatures (a pointer per tensor, an int per size)."""
+    from gstbad_tpu_torch.ops import _cuda
+    P, I = _cuda._P, _cuda._I
+    assert _cuda.SIGNATURES["gst_comb_score_pairs"] == (P, P, P, P, I, I, I, I)
+    assert _cuda.SIGNATURES["gst_comb_mask"] == (P, P, P, I, I, I)
+    assert _cuda.SIGNATURES["gst_comb_row_cycles"] == (P, I)
+    src = (_cuda.CSRC / "deinterlace_kernels.cu").read_text()
+    for name in ("gst_comb_score_pairs", "gst_comb_mask",
+                 "gst_comb_row_cycles"):
+        assert f'extern "C" int {name}(' in src
+
+
 def test_kernel_build_dir_is_keyed_by_the_sources(tmp_path, monkeypatch):
     """The build directory's name is a hash of the CUDA sources and the
     nvcc flags, so an edited source or flag builds anew (no nvcc needed)."""
