@@ -13,13 +13,18 @@ line):
 3. Hold each kernel bit-exactly against its plain PyTorch version on the
    card, at the main paths' shapes and at a ragged shape: K1 and K2 at
    [64, 1080, 1920] (materialized and broadcast source, both erode
-   values); K4 on a [129, 720, 1280] frame pool, K5 on 391 pairs of it, K6
+   values), K1 also on frames that mix erode values and thresholds, with
+   index weights above 255 (its wide index), and at W 1, 2, 3, 5, 127, 129
+   and 333 (rows that are not 16-byte aligned); K4 on a [129, 720, 1280]
+   frame pool, K5 on 391 pairs of it, K6
    on [128, 720, 1280], and K5/K6 on the hard cases: woven frames whose
    rows alternate 0 and 255 (every cell an outlier, runs as wide as the
    frame, carries at the 1000 clamp) at W 1, 31, 33, 1281, 3840 and 8192
    and H 4, 5, 6 and 64, K5 with repeated and out-of-pool pairs; K3
    (gaussian blur) at [64, 1080, 1920], materialized and as a broadcast
-   [1, 1080, 1920] base, at sigma 1.2, -2.0 and 8.0 (41 taps); K7 (warp
+   [1, 1080, 1920] base, at sigma 1.2, -2.0, 8.0 (41 taps) and 20.0 (101
+   taps, the largest window), and at sigma 1.2 and 20.0 on frames one
+   below, at and one above its tiles (H 15-17, 31-33, 63-65; W 63-65); K7 (warp
    gather) at [64, 1080, 1920] and [16, 2160, 3840] through the fisheye
    and twirl maps, with the AYUV and the zero background, materialized
    and broadcast; K8 (the VAD power recurrence) in both modes, serial and
@@ -52,7 +57,10 @@ line):
    a torch.profiler breakdown of each graph's step (device busy time,
    device ops per step, idle share), and each kernel beside its plain
    version, its bound and, where one PyTorch call computes the same
-   function, that call, at the main path's shapes.  K8's line adds its
+   function, that call, at the main path's shapes.  A bound is the larger
+   of the bytes over the HBM rate and the instructions over their pipe's
+   rate on this card (SMs x 128 FP32 or 64 INT32 lanes x the top SM
+   clock), or a dependency chain.  K8's line adds its
    dependency chain: samples walked in order times the cycles of one step
    (measured by a probe kernel that runs the step on registers alone) at
    the card's top SM clock; the audio graphs add their realtime factor.
@@ -61,8 +69,9 @@ line):
    clamp of the carried cell, the select and the add; gst_comb_row_cycles
    measures it on registers).  They print their ns per row, and K5/K6 are
    also timed on random 720-row frames 2560, 3840 and 8192 wide.
-6. Print the kernel table as one JSON line, then the result line
-   {"ok": true, "device": {...}} last.
+6. Print the kernel table as one JSON line (K1 and K3 once on a
+   broadcast base and once on a materialized window, each with its
+   "mode"), then the result line {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -85,11 +94,16 @@ HEAD = ("coloreffects preset=sepia ! solarize ! chromium ! dodge ! burn "
         "! exclusion ! dilate ! chromahold ! videoconvert format=AYUV")
 AUDIO_BLOCK = 4800          # config 3's samplesperbuffer, 48 kHz
 AUDIO_RATE = 48000
-# one H100 SXM, from NVIDIA's data sheet: HBM bytes/s, and the float32
-# rate outside the tensor cores, taken as the rate of the kernels' 32-bit
-# integer operations
+# one H100 SXM, from NVIDIA's data sheet: HBM bytes/s.  The instruction
+# rates come from the card in main(): an SM issues one FP32 instruction
+# (FMUL, FADD or FFMA) on each of its 128 FP32 lanes a clock and one INT32
+# instruction on each of its 64 INT32 lanes, at the top SM clock
 HBM_BPS = 3.35e12
-OPS_PER_S = 67e12
+FP32_LANES, INT32_LANES = 128, 64
+# the instructions of K3's two divisions (x pass and y pass) per channel
+# and pixel, from cuobjdump -sass of the build: each is one FMUL and four
+# FFMA (Markstein's quotient from the reciprocal of the border sum)
+K3_DIV_INSTR = 10
 # the compiled-C audio chain of BASELINE config 3 on the host CPU
 # (BASELINE_C.json audio_chain_realtime_x), the denominator of the
 # audio graphs' realtime factor
@@ -122,12 +136,14 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float, chain_ms: float = 0.0):
+def bound(nbytes: float, ops: float, ops_per_s: float,
+          chain_ms: float = 0.0):
     """(bound_ms, bound_by): the larger of the bytes over HBM_BPS and the
-    operations over OPS_PER_S, or over their dependency chain (chain_ms:
-    the operations that must run one after another, at their latency)."""
+    instructions over their pipe's rate ops_per_s, or their dependency
+    chain (chain_ms: the operations that must run one after another, at
+    their latency)."""
     t_bytes = nbytes / HBM_BPS * 1e3
-    t_ops = max(ops / OPS_PER_S * 1e3, chain_ms)
+    t_ops = max(ops / ops_per_s * 1e3, chain_ms)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -298,7 +314,11 @@ def main() -> int:
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         timeout=60)
     sm_hz = float(smi.stdout.split()[0]) * 1e6
-    log(f"top SM clock: {sm_hz / 1e6:.0f} MHz")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    fp32_per_s = n_sm * FP32_LANES * sm_hz
+    int32_per_s = n_sm * INT32_LANES * sm_hz
+    log(f"top SM clock: {sm_hz / 1e6:.0f} MHz, {n_sm} SMs: {fp32_per_s:.4g} "
+        f"FP32 and {int32_per_s:.4g} INT32 instructions/s")
     try:
         triton = importlib.metadata.version("triton")
     except importlib.metadata.PackageNotFoundError:
@@ -345,25 +365,53 @@ def main() -> int:
                           "comb_mask", "gaussian_blur_words",
                           "warp_words", "vad_powers_serial",
                           "vad_powers_bracket")}
-    cases = [((WINDOW, H, W), None, luma), ((1, H, W), WINDOW, luma),
-             ((3, 37, 333), None, mean2), ((1, 37, 333), 5, mean2)]
-    for shape, batch, index in cases:
+    wide = LinearIndex((300, 1000, 7, 0), 0, 11)     # weights above 255
+
+    def check_k1(shape, batch, index, erode, thr):
+        """K1 against its plain version on random words; erode and thr
+        per frame ([B] tensors) or one value for all."""
         src = rand_i32(*shape)
         b = batch or shape[0]
         phase = torch.arange(b, dtype=torch.int32, device=dev) + 5
+        got = chainfuse.dilate_zebra_fused(src, rank_t, word_t, index, erode,
+                                           thr, phase, batch=batch)
+        scal = torch.stack([torch.as_tensor(v, device=dev).to(torch.int32)
+                            .expand(b) for v in (erode, thr, phase)])
+        want = chainfuse.dilate_zebra_plain(src, rank_t, word_t, index, scal)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        err["dilate_zebra_fused"] = max(err["dilate_zebra_fused"], e)
+        return e
+
+    cases = [((WINDOW, H, W), None, luma), ((1, H, W), WINDOW, luma),
+             ((3, 37, 333), None, mean2), ((1, 37, 333), 5, mean2)]
+    for shape, batch, index in cases:
         for erode in (False, True):
-            got = chainfuse.dilate_zebra_fused(
-                src, rank_t, word_t, index, erode, 120, phase, batch=batch)
-            scal = torch.stack([
-                torch.full((b,), int(erode), dtype=torch.int32, device=dev),
-                torch.full((b,), 120, dtype=torch.int32, device=dev), phase])
-            want = chainfuse.dilate_zebra_plain(src, rank_t, word_t, index,
-                                                scal)
-            torch.cuda.synchronize()
-            e = max_abs_err(got, want)
-            log(f"K1 dilate_zebra_fused src {shape} batch {b} erode {erode}: "
-                f"max_abs_err {e}")
-            err["dilate_zebra_fused"] = max(err["dilate_zebra_fused"], e)
+            e = check_k1(shape, batch, index, erode, 120)
+            log(f"K1 dilate_zebra_fused src {shape} batch "
+                f"{batch or shape[0]} erode {erode}: max_abs_err {e}")
+    # a broadcast base whose frames mix erode values and thresholds (a
+    # wrong reuse of the dilated tile across frames shows here), and the
+    # index whose weights exceed 255 (the kernel's wide path)
+    mixed_erode = (torch.arange(WINDOW, device=dev) // 3 % 2).to(torch.int32)
+    mixed_thr = (torch.arange(WINDOW, device=dev) * 37 % 300 - 20).to(
+        torch.int32)
+    for shape, batch in (((1, H, W), WINDOW), ((WINDOW, H, W), None)):
+        for index, name in ((luma, "luma"), (wide, "wide")):
+            e = check_k1(shape, batch, index, mixed_erode, mixed_thr)
+            log(f"K1 dilate_zebra_fused src {shape} batch {WINDOW} {name} "
+                f"index, mixed erode and thresholds: max_abs_err {e}")
+    # rows that are not 16-byte aligned take the kernel's scalar path
+    hard = []
+    for w in (1, 2, 3, 5, 127, 129, 333):
+        for shape, batch in (((3, 37, w), None), ((1, 37, w), 5)):
+            for index in (luma, wide):
+                hard.append(check_k1(shape, batch, index,
+                                     mixed_erode[:batch or 3],
+                                     mixed_thr[:batch or 3]))
+    log(f"K1 dilate_zebra_fused W 1, 2, 3, 5, 127, 129, 333 (H 37, "
+        f"materialized and broadcast, luma and wide index, mixed frames): "
+        f"{len(hard)} cases, max_abs_err {max(hard)}")
     for shape in ((WINDOW, H, W), (3, 37, 333)):
         idx = rand_i32(*shape, lo=0, hi=256)
         got = lut.apply_word_table(idx, word_t)
@@ -484,12 +532,34 @@ def main() -> int:
 
     bg_ayuv = remap.background_word(b"\xff\x10\x80\x80")
     src_full, src_bcast = rand_i32(WINDOW, H, W), rand_i32(1, H, W)
-    for sigma in (1.2, -2.0, 8.0):
+    for sigma in (1.2, -2.0, 8.0, 20.0):
         tables = blur_tables(sigma, H, W)
         check_blur(f"sigma {sigma}", src_full, *tables)
         check_blur(f"sigma {sigma}", src_bcast, *tables, batch=WINDOW)
         check_blur(f"sigma {sigma}", rand_i32(3, 37, 333),
                    *blur_tables(sigma, 37, 333))
+    # frames one below, at and one above the tile: 64 columns, and 64 rows
+    # at the main path's centre (4), 32 and 16 rows at larger ones
+    for sigma in (1.2, 20.0):
+        before = err["gaussian_blur_words"]
+        err["gaussian_blur_words"] = 0
+        n = 0
+        for h in (15, 16, 17, 31, 32, 33, 63, 64, 65):
+            for w in (63, 64, 65):
+                tables = blur_tables(sigma, h, w)
+                for shape, batch in (((2, h, w), None), ((1, h, w), 3)):
+                    src = rand_i32(*shape)
+                    got = blur.gaussian_blur_words(src, *tables, batch=batch)
+                    want = blur.gaussian_blur_words_plain(src, *tables,
+                                                          batch=batch)
+                    torch.cuda.synchronize()
+                    err["gaussian_blur_words"] = max(
+                        err["gaussian_blur_words"], byte_err(got, want))
+                    n += 1
+        log(f"K3 gaussian_blur_words sigma {sigma} at H 15-17, 31-33, 63-65 "
+            f"and W 63-65 (materialized and broadcast): {n} cases, "
+            f"max_abs_err {err['gaussian_blur_words']} (bytes)")
+        err["gaussian_blur_words"] = max(err["gaussian_blur_words"], before)
     src4 = rand_i32(WINDOW4, H4, W4)
     for warp in ("fisheye", "twirl"):
         mp = warp_map(warp, H, W)
@@ -745,11 +815,15 @@ def main() -> int:
                                    device=dev), phase])
     idx = rand_i32(WINDOW, H, W, lo=0, hi=256)
     times = {}   # label -> (ms, plain ms, library ms or None)
+    # K1 takes its per-frame erode, threshold and phase as tensors on the
+    # card, as zebrastripe passes them: Python scalars would add two
+    # uploads to every timed call
     for label, src, batch in (("bcast", src_bcast, WINDOW),
                               ("materialized", src_full, None)):
         times[f"K1_{label}"] = (
             cuda_ms(lambda: chainfuse.dilate_zebra_fused(
-                src, rank_t, word_t, luma, False, 213, phase, batch=batch)),
+                src, rank_t, word_t, luma, scal[0], scal[1], phase,
+                batch=batch)),
             cuda_ms(lambda: chainfuse.dilate_zebra_plain(
                 src, rank_t, word_t, luma, scal), iters=5), None)
     # K2's one-call library form: the same lookup as a single indexing call
@@ -847,21 +921,25 @@ def main() -> int:
                 + torch.unique(bot_mp).numel() * (H5 // 2)) * W5
     n_k5, n_k6 = top_mp.numel(), frames_mp.shape[0]
     cells = (H5 - 4) * W5
+    # the integer kernels' operations on the INT32 pipe
     bounds = {
         # write B words; read one source frame; ~12 ops per pixel (index,
         # three neighbour indices, rank walk, stripe select)
-        "K1_bcast": bound(WINDOW * frame4 + frame4, 12 * WINDOW * H * W),
-        "K1_materialized": bound(2 * WINDOW * frame4, 12 * WINDOW * H * W),
-        "K2": bound(2 * WINDOW * frame4, WINDOW * H * W),
+        "K1_bcast": bound(WINDOW * frame4 + frame4, 12 * WINDOW * H * W,
+                          int32_per_s),
+        "K1_materialized": bound(2 * WINDOW * frame4, 12 * WINDOW * H * W,
+                                 int32_per_s),
+        "K2": bound(2 * WINDOW * frame4, WINDOW * H * W, int32_per_s),
         # the distinct frames read; ~20 ops per pixel (ssd, three taps on
         # half the rows, gates, sums)
         "K4": bound(k4_frames * hw5 + cur_mp.numel() * 5 * 8,
-                    20 * cur_mp.numel() * hw5),
+                    20 * cur_mp.numel() * hw5, int32_per_s),
         # the woven rows read; ~10 ops per cell (outlier, scan, clamp);
         # the chain of H - 4 dependent row steps
-        "K5": bound(k5_bytes + 4 * n_k5, 10 * n_k5 * cells, comb_chain),
-        "K6": bound(2 * n_k6 * hw5 + 4 * n_k6, 10 * n_k6 * cells,
+        "K5": bound(k5_bytes + 4 * n_k5, 10 * n_k5 * cells, int32_per_s,
                     comb_chain),
+        "K6": bound(2 * n_k6 * hw5 + 4 * n_k6, 10 * n_k6 * cells,
+                    int32_per_s, comb_chain),
     }
     for label, (args, kw) in zip(("K3_bcast", "K3_materialized"), blur_mp):
         src, kern = args[0], args[1]
@@ -869,11 +947,14 @@ def main() -> int:
         px = b * src.shape[1] * src.shape[2]
         # read the source frames and the tables once, write B frames; per
         # pixel and channel of each distinct source frame (one for a
-        # broadcast base) 2 (2c + 1) multiplies and adds, two divisions,
-        # the +0.5 and the clamp
+        # broadcast base), on the FP32 pipe: 2 (2c + 1) multiplies and as
+        # many adds, the two divisions, the +0.5, the clamp (two) and the
+        # conversion
         table_bytes = 4 * (kern.numel() + src.shape[1] + src.shape[2])
-        bounds[label] = bound(4 * px + src.numel() * 4 + table_bytes,
-                              (4 * kern.numel() + 5) * 4 * src.numel())
+        bounds[label] = bound(
+            4 * px + src.numel() * 4 + table_bytes,
+            (4 * kern.numel() + K3_DIV_INSTR + 4) * 4 * src.numel(),
+            fp32_per_s)
     for label, (args, kw) in zip(("K7_4k", "K7_1080p_bcast"),
                                  (warp_mp[0], warp_mp[2])):
         src, mp = args[0], args[1]
@@ -883,7 +964,7 @@ def main() -> int:
         # frame, write B frames; one select per pixel
         named = torch.unique(mp[mp >= 0]).numel()
         bounds[label] = bound(4 * px + 4 * named * src.shape[0]
-                              + 4 * mp.numel(), px)
+                              + 4 * mp.numel(), px, int32_per_s)
         log(f"{label}: the map names {named} of {mp.numel()} source pixels")
     # K8: the samples read once (2 bytes each), the powers written once;
     # per sample 3 operations for the squared term and 2 per walk of the
@@ -897,7 +978,8 @@ def main() -> int:
         in_order = nb * n if label == "K8_serial" else n
         chains[label] = in_order * step_cycles / sm_hz * 1e3
         bounds[label] = bound(2 * nb * n + 8 * walks * nb + 8,
-                              (3 + 2 * walks) * nb * n, chains[label])
+                              (3 + 2 * walks) * nb * n, int32_per_s,
+                              chains[label])
         log(f"{label}: {nb} blocks of {n} samples; chain {in_order} steps "
             f"x {step_cycles:.3f} cycles at {sm_hz / 1e6:.0f} MHz = "
             f"{chains[label]:.4f} ms")
@@ -915,18 +997,24 @@ def main() -> int:
         f"{k4_frames} distinct; K5: {n_k5} pairs; K6: "
         f"{tuple(frames_mp.shape)}")
 
-    def entry(kname, label, source, replaces):
+    def entry(kname, label, source, replaces, mode=None):
         ms, plain_ms, lib_ms = times[label]
         b_ms, b_by = bounds[label]
-        return {"name": kname, "route": "cuda",
-                "source": f"gstbad_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches[kname],
-                "max_abs_err": err[kname], "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        e = {"name": kname, "route": "cuda",
+             "source": f"gstbad_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": launches[kname],
+             "max_abs_err": err[kname], "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+        if mode:   # the source a kernel of two modes was timed on
+            e["mode"] = mode
+        return e
 
     kernels = [
         entry("dilate_zebra_fused", "K1_bcast", "tablefuse_kernels.cu",
-              "gstbad_tpu/ops/chainfuse.py:78"),
+              "gstbad_tpu/ops/chainfuse.py:78", "broadcast"),
+        entry("dilate_zebra_fused", "K1_materialized",
+              "tablefuse_kernels.cu", "gstbad_tpu/ops/chainfuse.py:78",
+              "materialized"),
         entry("apply_word_table", "K2", "tablefuse_kernels.cu",
               "gstbad_tpu/ops/lut.py:91"),
         entry("metrics_default", "K4", "deinterlace_kernels.cu",
@@ -936,7 +1024,9 @@ def main() -> int:
         entry("comb_mask", "K6", "deinterlace_kernels.cu",
               "gstbad_tpu/ops/comb.py:102"),
         entry("gaussian_blur_words", "K3_bcast", "blur_kernels.cu",
-              "gstbad_tpu/ops/blur_pallas.py:56"),
+              "gstbad_tpu/ops/blur_pallas.py:56", "broadcast"),
+        entry("gaussian_blur_words", "K3_materialized", "blur_kernels.cu",
+              "gstbad_tpu/ops/blur_pallas.py:56", "materialized"),
         entry("warp_words", "K7_4k", "warp_kernels.cu",
               "gstbad_tpu/ops/warp_pallas.py:215"),
         entry("vad_powers_serial", "K8_serial", "vad_kernels.cu",

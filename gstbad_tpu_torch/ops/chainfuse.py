@@ -55,9 +55,10 @@ def dilate_zebra_fused(src_word: torch.Tensor, rank_table: torch.Tensor,
                        batch: int | None = None) -> torch.Tensor:
     """[B, H, W] int32 source words -> final AYUV words.
 
-    rank_table/word_table: int32 [256].  erode/thr/phase: per-frame [B]
-    (or scalar) ints.  index: a tablefuse.LinearIndex, the chain head's
-    word -> [0, 256) index.
+    rank_table/word_table: int32 [256]; the ranks lie in [0, 256), as
+    TableChain.rank_table gives them (the kernel packs a rank into 8 bits).
+    erode/thr/phase: per-frame [B] (or scalar) ints.  index: a
+    tablefuse.LinearIndex, the chain head's word -> [0, 256) index.
 
     src_word may be a BROADCAST base of shape [1, H, W] with batch=B (the
     videotestsrc static-pattern path): the single source frame is read for

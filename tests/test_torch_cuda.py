@@ -68,6 +68,61 @@ def test_dilate_zebra_kernel_matches_plain(dev, shape, batch, erode):
         assert torch.equal(got, want)
 
 
+# the index whose weights exceed 255 takes the kernel's wide path
+WIDE_INDEX = LinearIndex((300, 1000, 7, 0), 0, 11)
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 5, 127, 129, 333])
+def test_dilate_zebra_kernel_unaligned_widths(dev, w):
+    """Rows that are not 16-byte aligned (the kernel's scalar path), on a
+    materialized window and a broadcast base, frames mixing erode values
+    and thresholds, with the luma and the wide index."""
+    rng = np.random.default_rng(19)
+    word_t = _i32(rng, 256, dev)
+    rank_t = TableChain.rank_table(_i32(rng, 256, dev, 0, 60000))
+    for shape, batch in (((3, 37, w), None), ((1, 37, w), 5)):
+        b = batch or shape[0]
+        src = _i32(rng, shape, dev)
+        erode = torch.tensor([0, 1, 1, 0, 1][:b], dtype=torch.int32,
+                             device=dev)
+        thr = torch.tensor([120, 0, 255, 256, -3][:b], dtype=torch.int32,
+                           device=dev)
+        phase = _i32(rng, b, dev)
+        for index in (LinearIndex((19, 183, 54, 0), 8, 16), WIDE_INDEX):
+            got = chainfuse.dilate_zebra_fused(src, rank_t, word_t, index,
+                                               erode, thr, phase, batch=batch)
+            want = chainfuse.dilate_zebra_plain(
+                src, rank_t, word_t, index, torch.stack([erode, thr, phase]))
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("index", [LinearIndex((19, 183, 54, 0), 8, 16),
+                                   WIDE_INDEX,
+                                   LinearIndex((1000, 3000, 500, 2), 3, 19)])
+@pytest.mark.parametrize("shape,batch", [((1, 1080, 1920), 64),
+                                         ((64, 1080, 1920), None)])
+def test_dilate_zebra_kernel_mixed_frames(dev, index, shape, batch):
+    """A broadcast base (and a window) whose frames mix erode values and
+    thresholds: the kernel dilates a broadcast tile once and redoes it only
+    where a frame's erode differs from the one before; ranks with ties."""
+    rng = np.random.default_rng(20)
+    word_t = _i32(rng, 256, dev)
+    rank_t = TableChain.rank_table(_i32(rng, 256, dev, 0, 8))
+    b = batch or shape[0]
+    src = _i32(rng, shape, dev)
+    erode = torch.from_numpy(np.arange(b) // 3 % 2).to(torch.int32).to(dev)
+    thr = torch.from_numpy(np.arange(b) * 37 % 300 - 20).to(
+        torch.int32).to(dev)
+    phase = _i32(rng, b, dev)
+    got = chainfuse.dilate_zebra_fused(src, rank_t, word_t, index, erode,
+                                       thr, phase, batch=batch)
+    want = chainfuse.dilate_zebra_plain(src, rank_t, word_t, index,
+                                        torch.stack([erode, thr, phase]))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("shape", [(4, 18, 200), (1,), (5, 3), (2, 8, 256)])
 def test_word_lut_kernel_matches_plain(dev, shape):
     rng = np.random.default_rng(12)
@@ -261,6 +316,24 @@ def test_blur_kernel_matches_plain(dev, shape, batch, sigma):
     want = blur.gaussian_blur_words_plain(src, *tables, batch=batch)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("h", [15, 16, 17, 31, 32, 33, 63, 64, 65])
+@pytest.mark.parametrize("sigma", [1.2, 20.0])
+def test_blur_kernel_at_tile_edges(dev, sigma, h):
+    """Frames one below, at and one above the kernel's tiles: 64 columns,
+    and 64 rows at centre 4 (sigma 1.2), 16 at centre 50 (sigma 20, the
+    largest window); materialized and broadcast."""
+    rng = np.random.default_rng(21)
+    for w in (63, 64, 65):
+        tables = [torch.from_numpy(x).to(dev)
+                  for x in blur.make_blur_tables(sigma, h, w)]
+        for shape, batch in (((2, h, w), None), ((1, h, w), 3)):
+            src = _i32(rng, shape, dev)
+            got = blur.gaussian_blur_words(src, *tables, batch=batch)
+            want = blur.gaussian_blur_words_plain(src, *tables, batch=batch)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (w, shape)
 
 
 def _warp_map(name, h, w, dev, off_edge="ignore"):
