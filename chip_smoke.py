@@ -22,9 +22,10 @@ line):
    frame, carries at the 1000 clamp) at W 1, 31, 33, 1281, 3840 and 8192
    and H 4, 5, 6 and 64, K5 with repeated and out-of-pool pairs; K3
    (gaussian blur) at [64, 1080, 1920], materialized and as a broadcast
-   [1, 1080, 1920] base, at sigma 1.2, -2.0, 8.0 (41 taps) and 20.0 (101
-   taps, the largest window), and at sigma 1.2 and 20.0 on frames one
-   below, at and one above its tiles (H 15-17, 31-33, 63-65; W 63-65); K7 (warp
+   [1, 1080, 1920] base, at sigma 1.2, -2.0, 3.2, 8.0 (41 taps) and 20.0
+   (101 taps, the largest window), and at sigma 1.2, 8.0 and 20.0 on
+   frames one below, at and one above its tiles (H 15-17, 31-33, 63-65;
+   W 63-65); K7 (warp
    gather) at [64, 1080, 1920] and [16, 2160, 3840] through the fisheye
    and twirl maps, with the AYUV and the zero background, materialized
    and broadcast; K8 (the VAD power recurrence) in both modes, serial and
@@ -57,7 +58,9 @@ line):
    a torch.profiler breakdown of each graph's step (device busy time,
    device ops per step, idle share), and each kernel beside its plain
    version, its bound and, where one PyTorch call computes the same
-   function, that call, at the main path's shapes.  A bound is the larger
+   function, that call, at the main path's shapes; K3 also on a
+   materialized window at sigma 2.0, 3.2, 8.0 and 20.0, where its taps are
+   a runtime count (blur_sigma_ms).  A bound is the larger
    of the bytes over the HBM rate and the instructions over their pipe's
    rate on this card (SMs x 128 FP32 or 64 INT32 lanes x the top SM
    clock), or a dependency chain.  K8's line adds its
@@ -104,6 +107,10 @@ FP32_LANES, INT32_LANES = 128, 64
 # and pixel, from cuobjdump -sass of the build: each is one FMUL and four
 # FFMA (Markstein's quotient from the reciprocal of the border sum)
 K3_DIV_INSTR = 10
+# K3's sigmas timed on a materialized window: the cells' 1.2 (centre 4,
+# the one centre compiled with a constant tap count) and four whose taps
+# are a runtime count (centres 5, 9, 20 and 50)
+BLUR_SIGMAS = (1.2, 2.0, 3.2, 8.0, 20.0)
 # the compiled-C audio chain of BASELINE config 3 on the host CPU
 # (BASELINE_C.json audio_chain_realtime_x), the denominator of the
 # audio graphs' realtime factor
@@ -134,6 +141,24 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def blur_sigma_ms(blur, sigmas=BLUR_SIGMAS) -> dict:
+    """K3's mean time in ms (cuda_ms) on a materialized [64, 1080, 1920]
+    window of random words at each sigma, through `blur`, an ops.blur
+    module: this checkout's, or another checkout's, to time two versions
+    of the kernel in one call (PERF.md section 6 gives the command)."""
+    import torch
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    src = torch.randint(-2**31, 2**31 - 1, (WINDOW, H, W), generator=gen,
+                        device=dev, dtype=torch.int64).to(torch.int32)
+    out = {}
+    for sigma in sigmas:
+        tables = [torch.from_numpy(t).to(dev)
+                  for t in blur.make_blur_tables(sigma, H, W)]
+        out[sigma] = cuda_ms(lambda: blur.gaussian_blur_words(src, *tables))
+    return out
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float,
@@ -532,15 +557,15 @@ def main() -> int:
 
     bg_ayuv = remap.background_word(b"\xff\x10\x80\x80")
     src_full, src_bcast = rand_i32(WINDOW, H, W), rand_i32(1, H, W)
-    for sigma in (1.2, -2.0, 8.0, 20.0):
+    for sigma in (1.2, -2.0, 3.2, 8.0, 20.0):
         tables = blur_tables(sigma, H, W)
         check_blur(f"sigma {sigma}", src_full, *tables)
         check_blur(f"sigma {sigma}", src_bcast, *tables, batch=WINDOW)
         check_blur(f"sigma {sigma}", rand_i32(3, 37, 333),
                    *blur_tables(sigma, 37, 333))
     # frames one below, at and one above the tile: 64 columns, and 64 rows
-    # at the main path's centre (4), 32 and 16 rows at larger ones
-    for sigma in (1.2, 20.0):
+    # at centres 4 and 50 (sigma 1.2, 20.0), 32 at centre 20 (sigma 8.0)
+    for sigma in (1.2, 8.0, 20.0):
         before = err["gaussian_blur_words"]
         err["gaussian_blur_words"] = 0
         n = 0
@@ -864,6 +889,10 @@ def main() -> int:
             cuda_ms(lambda: blur.gaussian_blur_words(*args, **kw)),
             cuda_ms(lambda: blur.gaussian_blur_words_plain(*args, **kw),
                     iters=3), None)
+    for sigma, ms in blur_sigma_ms(blur).items():
+        log(f"K3 gaussian_blur_words materialized [{WINDOW}, {H}, {W}] "
+            f"sigma {sigma} ({blur.make_blur_tables(sigma, 1, 1)[0].size} "
+            f"taps): {ms:.4f} ms ({card})")
     # K7 on config4_warp's fisheye input (4K x 16, materialized) and on
     # warp_1080p's (a broadcast base, 64 frames); the library form is the
     # gather alone, index_select, without the background select
@@ -921,24 +950,38 @@ def main() -> int:
                 + torch.unique(bot_mp).numel() * (H5 // 2)) * W5
     n_k5, n_k6 = top_mp.numel(), frames_mp.shape[0]
     cells = (H5 - 4) * W5
-    # the integer kernels' operations on the INT32 pipe
+    # the integer kernels' least instructions on the INT32 pipe, counted
+    # as if every operation on bytes packed four to an instruction and
+    # every one on 16-bit values two (what dp4a, vabsdiff4 and byte
+    # permutes allow, or fewer): so no kernel can need fewer
     bounds = {
-        # write B words; read one source frame; ~12 ops per pixel (index,
-        # three neighbour indices, rank walk, stripe select)
-        "K1_bcast": bound(WINDOW * frame4 + frame4, 12 * WINDOW * H * W,
-                          int32_per_s),
-        "K1_materialized": bound(2 * WINDOW * frame4, 12 * WINDOW * H * W,
+        # write B words; read one source frame.  A pixel: its index (a dp4a
+        # and a shift), the largest of four rank keys (3), the threshold
+        # compare, the stripe phase test and the select (3): 8 a pixel;
+        # a broadcast base dilates once and stripes each frame
+        "K1_bcast": bound(WINDOW * frame4 + frame4,
+                          5 * H * W + 3 * WINDOW * H * W, int32_per_s),
+        "K1_materialized": bound(2 * WINDOW * frame4, 8 * WINDOW * H * W,
                                  int32_per_s),
         "K2": bound(2 * WINDOW * frame4, WINDOW * H * W, int32_per_s),
-        # the distinct frames read; ~20 ops per pixel (ssd, three taps on
-        # half the rows, gates, sums)
+        # the distinct frames read.  A pixel of a frame: the ssd's |y - p|,
+        # gate, select and dp4a square-and-add on bytes (4 ops / 4 = 1);
+        # y and p widened to 16 bits for the taps (2 / 2 = 1); on even
+        # rows (half of them) the three 5-tap sums share y's and p's row
+        # sums (9 ops) and each takes |.|, its gate, select and add (12):
+        # 21 / 2 / 2 = 5.25.  29/4 a pixel
         "K4": bound(k4_frames * hw5 + cur_mp.numel() * 5 * 8,
-                    20 * cur_mp.numel() * hw5, int32_per_s),
-        # the woven rows read; ~10 ops per cell (outlier, scan, clamp);
-        # the chain of H - 4 dependent row steps
-        "K5": bound(k5_bytes + 4 * n_k5, 10 * n_k5 * cells, int32_per_s,
+                    29 * cur_mp.numel() * hw5 / 4, int32_per_s),
+        # the woven rows read.  A cell: the outlier test on bytes (min,
+        # max, two saturating differences, their max, the compare: 6 / 4 =
+        # 1.5) and its mask widened (1 / 2); the recurrence in 16-bit lanes
+        # (a run clamped at 1000 in the row scores as the unclamped one):
+        # the add, the select, the clamp, the compare and the count (5 / 2
+        # = 2.5): 18/4 a cell; K6 narrows its mask to bytes (1 / 4 more).
+        # The chain of H - 4 dependent row steps
+        "K5": bound(k5_bytes + 4 * n_k5, 18 * n_k5 * cells / 4, int32_per_s,
                     comb_chain),
-        "K6": bound(2 * n_k6 * hw5 + 4 * n_k6, 10 * n_k6 * cells,
+        "K6": bound(2 * n_k6 * hw5 + 4 * n_k6, 19 * n_k6 * cells / 4,
                     int32_per_s, comb_chain),
     }
     for label, (args, kw) in zip(("K3_bcast", "K3_materialized"), blur_mp):
@@ -947,13 +990,13 @@ def main() -> int:
         px = b * src.shape[1] * src.shape[2]
         # read the source frames and the tables once, write B frames; per
         # pixel and channel of each distinct source frame (one for a
-        # broadcast base), on the FP32 pipe: 2 (2c + 1) multiplies and as
-        # many adds, the two divisions, the +0.5, the clamp (two) and the
-        # conversion
+        # broadcast base), on the FP32 pipe: 2 (2c + 1) products and
+        # 2 (2c + 1) - 2 sums (the first product starts each sum), the two
+        # divisions, the +0.5 and the saturating conversion (the clamp)
         table_bytes = 4 * (kern.numel() + src.shape[1] + src.shape[2])
         bounds[label] = bound(
             4 * px + src.numel() * 4 + table_bytes,
-            (4 * kern.numel() + K3_DIV_INSTR + 4) * 4 * src.numel(),
+            (4 * kern.numel() - 2 + K3_DIV_INSTR + 2) * 4 * src.numel(),
             fp32_per_s)
     for label, (args, kw) in zip(("K7_4k", "K7_1080p_bcast"),
                                  (warp_mp[0], warp_mp[2])):

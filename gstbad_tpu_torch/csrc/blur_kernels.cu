@@ -41,41 +41,41 @@ namespace {
 //
 // Bound: by operations, on the FP32 pipe (one FMUL, FADD or FFMA a lane a
 // clock, 128 lanes an SM).  Per channel and pixel of each distinct source
-// frame the least is 4 (2c + 1) products and sums over the two passes,
-// the two divisions (5 instructions each as built) and 4 more (+0.5, the
-// clamp, the conversion): 50 at the main path's 9 taps.  The bytes are one
-// read of the source word and one write of the output word.  A broadcast
-// source (a [1, H, W] base for B frames, a static videotestsrc frame) has
-// one frame to compute: the block blurs its tile once and stores it to
-// all B frames, so that case is bound by the output's bytes.
+// frame the least is 2 (2c + 1) products and 2 (2c + 1) - 2 sums over the
+// two passes (the first product starts each sum), the two divisions (one
+// FMUL and four FFMA each) and 2 more (the +0.5, and the saturating
+// conversion that is also the clamp): 46 at the main path's 9 taps.  The
+// bytes are one read of the source word and one write of the output word.
+// A broadcast source (a [1, H, W] base for B frames, a static videotestsrc
+// frame) has one frame to compute: the block blurs its tile once and
+// stores it to all B frames, so that case is bound by the output's bytes.
 //
-// Design: one block per 64-column tile of 64 rows (fewer for wide windows:
-// the host takes the tallest of 64, 32, 16, 8 whose shared memory lets
-// three blocks share an SM).  The block stages its source words plus a
-// c-pixel halo on every side with 4-byte cp.async, whose zero fill gives
-// the out-of-frame 0.0 exactly, and then runs the two channel pairs (bytes
-// 0-1, then 2-3) in turn: the x pass into a float2 tile, one barrier, the
-// y pass.  A pair's x-pass items are (staged row, run of 8 columns), two
-// per thread: the block has 4 (TH + 2c) threads, 288 at c = 4, which
-// divides the x pass evenly.  An item unpacks each staged word once for
-// both channels and keeps eight outputs per channel in registers with a
-// ring of the last eight inputs; the x tile's odd row pitch keeps a warp's
-// stores, one row a lane, on distinct banks.  The y pass's items are
-// (column, run of 8 rows) with the same ring over the x tile; the first
-// pair parks its two output bytes in shared memory, the second packs the
-// words and stores them.  The taps are a compile-time count for centres 1
-// to 8 (|sigma| <= 3.2), so they unroll completely with no branch between
-// them; that halved the time of the same code with a runtime count, whose
-// per-tap branches left each tap's loads and FFMA -> FADD pairs
-// unscheduled.  Two channels a pass (where one pass of all four held 127
-// registers and one block an SM) and the launch bound of three blocks an
-// SM (72 registers; 64 spilled) keep 27 warps on an SM.  A 64-row tile
-// recomputes 2c halo rows in the x pass (12% at c = 4).  What bounds it
-// now: the arithmetic issues
-// at about two thirds of the FP32 rate, and the staging (about a fifth of
-// the time when run alone) overlaps the other blocks' arithmetic only in
-// part; persistent blocks that stage the next tile while computing this
-// one needed a second staging buffer, fit fewer warps, and were slower.
+// Design: one block of 288 threads per 64-column tile.  The host picks the
+// tile's height (64, 32, 16 or 8 rows) that keeps the most output rows in
+// flight: blocks an SM by shared memory, at most three, times the output
+// rows' share of the staged rows (blur_tile_height).  The block stages its
+// source words plus a c-pixel halo on every side with 4-byte cp.async,
+// whose zero fill gives the out-of-frame 0.0 exactly, and then runs the
+// two channel pairs (bytes 0-1, then 2-3) in turn: the x pass into a
+// float2 tile, one barrier, the y pass.  A pair's x-pass items are (staged
+// row, run of 8 columns): 576 at the main path's centre 4 and 64-row
+// tile, two a thread.  An item unpacks each staged word once for both
+// channels and keeps eight outputs per channel in registers with a ring of
+// the last eight inputs; the x tile's odd row pitch keeps a warp's stores,
+// one row a lane, on distinct banks.  The y pass's items are (column, run
+// of 8 rows) with the same ring over the x tile; the first pair parks its
+// two output bytes in shared memory, the second packs the words and stores
+// them.  At the main path's centre (kBlurFixedCenter) the tap count is a
+// compile-time constant and the taps unroll completely; any other centre
+// runs its taps in groups of eight with no branch inside a group (run_taps).
+// Two channels a pass (where one pass of all four held 127 registers and
+// one block an SM) and the launch bound of three blocks an SM (72
+// registers) keep up to 27 warps on an SM.  A 64-row tile recomputes 2c
+// halo rows in the x pass (12% at c = 4).  What holds it at 1.74 ms on a
+// materialized 1080p window of 64 frames (H100 80GB HBM3, 700 W) is not
+// measured: the least FP32 work, 0.73 ms, is 42% of that time, and the
+// staging and the barriers overlap the other blocks' arithmetic only in
+// part.
 // The halo is the kernel's centre, up to 50 (|sigma| <= 20); any H and W
 // are handled by masking the ragged tile.
 // ---------------------------------------------------------------------------
@@ -85,23 +85,24 @@ constexpr int kRun = 8;              // outputs per item in each pass
 constexpr int kRunsPerRow = kBlurTileW / kRun;
 constexpr int kBlurMaxCenter = 50;   // ceil(2.5 * 20)
 constexpr int kBlurMaxTaps = 2 * kBlurMaxCenter + 1;
-constexpr int kBlurMaxThreads = 512;
-// centres compiled with a constant tap count (|sigma| <= 3.2): the taps
-// unroll completely, with no branch between them
-constexpr int kBlurFixedMax = 8;
+// the centre of sigma 1.2 (ceil(2.5 sigma) in float32), the element's
+// default (gstgaussblur.c DEFAULT_SIGMA) and the cells': its taps are a
+// compile-time count and unroll completely
+constexpr int kBlurFixedCenter = 4;
+// 4 (64 + 2 * 4): two x-pass items a thread at the fixed centre; three
+// blocks an SM leave each thread 72 registers
+constexpr int kBlurThreads = 288;
+constexpr int kBlurBlocksPerSm = 3;
 constexpr int kXPitch = kBlurTileW + 1;   // float2 x-tile row pitch, odd
 constexpr float kTwo23 = 8388608.0f;
-// shared memory of one block: at most this much lets three share an SM
-// (228 KB an SM, 1 KB of it reserved a block)
-constexpr size_t kSmemTarget = 75 * 1024;
+// shared memory: 228 KB an SM, 1 KB of it reserved a block, 227 KB at most
+// a block
+constexpr size_t kSmemPerSm = 228 * 1024;
+constexpr size_t kSmemPerBlock = 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
 __host__ __device__ constexpr int staged_pitch(int center) {
   return (kBlurTileW + 2 * center) | 1;   // odd: conflict-free row walks
-}
-
-__host__ __device__ constexpr int block_threads(int th, int center) {
-  return (4 * (th + 2 * center) + 31) / 32 * 32;
 }
 
 size_t blur_smem_bytes(int th, int center) {
@@ -113,17 +114,26 @@ size_t blur_smem_bytes(int th, int center) {
          sizeof(int32_t) * sh * staged_pitch(center);
 }
 
-// the tallest tile whose block fits, preferring one that lets three blocks
-// share an SM; 0 if none fits
+// the tile height (64, 32, 16 or 8 rows) that keeps the most output rows
+// in flight on an SM: its blocks (by shared memory, at most three) times
+// the output rows' share of the x pass's staged rows, th / (th + 2c).
+// 64 rows at centres up to 7 and from 36, 32 from 8 to 35; 0 if none fits
 int blur_tile_height(int center) {
-  int fits = 0;
+  int best = 0;
+  double best_rows = 0.0;
   for (int th = 64; th >= kRun; th /= 2) {
-    if (block_threads(th, center) > kBlurMaxThreads) continue;
     const size_t smem = blur_smem_bytes(th, center);
-    if (smem <= kSmemTarget) return th;
-    if (smem <= kMaxSmem && fits == 0) fits = th;
+    if (smem > kMaxSmem) continue;
+    size_t blocks = kSmemPerSm / (smem + kSmemPerBlock);
+    if (blocks > kBlurBlocksPerSm) blocks = kBlurBlocksPerSm;
+    const double rows =
+        static_cast<double>(blocks) * th / (th + 2 * center);
+    if (rows > best_rows) {
+      best = th;
+      best_rows = rows;
+    }
   }
-  return fits;
+  return best;
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -183,13 +193,14 @@ __device__ __forceinline__ float2 add2(float2 a, float2 b) {
 
 // acc[i] = sum over k of mul(v(i + k), tap k) from 0.0 in tap order,
 // v(j) = load(j).  A ring holds the last eight inputs: after tap k its
-// input v(k) is done with, and the slot takes v(k + 8).  The taps are
-// unrolled by 8 so every ring index is a compile-time register, in one
-// loop body: the kernel's hot code has to stay in the instruction cache.
-// With a fixed tap count (kFixed) the loop unrolls completely, and the
-// first product starts each sum: 0.0 + p is p, but for the sign of a zero
-// sum, which no later step can tell (a quotient of +-0 is +-0, and
-// +-0 + 0.5 rounds to the same byte).
+// input v(k) is done with, and the slot takes v(k + 8).  The taps go in
+// groups of 8, so every ring index is a compile-time register.  With a
+// fixed tap count (kFixed) every group unrolls, and the first product
+// starts each sum: 0.0 + p is p, but for the sign of a zero sum, which no
+// later step can tell (a quotient of +-0 is +-0, and +-0 + 0.5 rounds to
+// the same byte).  With a runtime count the whole groups run in a loop of
+// one body with no branch between its taps, and only the last group
+// checks each tap against the count.
 template <bool kFixed, typename Mul, typename Load>
 __device__ __forceinline__ void run_taps(float2 (&acc)[kRun],
                                          const float2* s_tap, int taps,
@@ -200,21 +211,29 @@ __device__ __forceinline__ void run_taps(float2 (&acc)[kRun],
     ring[i] = load(i);
     if (!kFixed) acc[i] = make_float2(0.0f, 0.0f);
   }
-#pragma unroll
-  for (int k0 = 0; k0 < taps; k0 += kRun) {
+  auto group = [&](int k0, bool whole) {
 #pragma unroll
     for (int j = 0; j < kRun; ++j) {
       const int k = k0 + j;
-      if (k < taps) {
+      if (whole || k < taps) {
         const float2 t = s_tap[k];
 #pragma unroll
         for (int i = 0; i < kRun; ++i) {
           const float2 p = mul(ring[(i + j) % kRun], t);
           acc[i] = kFixed && k == 0 ? p : add2(acc[i], p);
         }
-        if (k + 1 < taps) ring[j] = load(k + kRun);
+        if (whole || k + 1 < taps) ring[j] = load(k + kRun);
       }
     }
+  };
+  if (kFixed) {
+#pragma unroll
+    for (int k0 = 0; k0 < taps; k0 += kRun) group(k0, false);
+  } else {
+    int k0 = 0;
+#pragma unroll 1
+    for (; k0 + kRun < taps; k0 += kRun) group(k0, true);
+    group(k0, false);
   }
 }
 
@@ -321,14 +340,11 @@ __device__ __forceinline__ void blur_pairs(const BlurTile& t,
   }
 }
 
-// kC: the centre as a constant (1 .. kBlurFixedMax), or 0 for any centre.
-// A fixed centre's block (at most 320 threads) leaves registers for three
-// blocks an SM, so that one block's staging and barriers overlap the
-// others' arithmetic.
+// kC: the centre as a constant (kBlurFixedCenter), or 0 for any centre.
+// Three blocks an SM, where shared memory allows, so that one block's
+// staging and barriers overlap the others' arithmetic.
 template <int kC>
-__global__ void __launch_bounds__(kC ? block_threads(64, kC)
-                                     : kBlurMaxThreads,
-                                  kC ? 3 : 1)
+__global__ void __launch_bounds__(kBlurThreads, kBlurBlocksPerSm)
 blur_kernel(const int32_t* __restrict__ src, int32_t* __restrict__ out,
             const float* __restrict__ kern,
             const float* __restrict__ row_sums,
@@ -395,7 +411,7 @@ blur_kernel(const int32_t* __restrict__ src, int32_t* __restrict__ out,
 }  // namespace
 
 template <int kC>
-cudaError_t launch_blur(const dim3& grid, int threads, size_t smem,
+cudaError_t launch_blur(const dim3& grid, size_t smem,
                         cudaStream_t stream, const void* src, void* out,
                         const void* kern, const void* row_sums,
                         const void* col_sums, int B, int H, int W, int center,
@@ -408,30 +424,11 @@ cudaError_t launch_blur(const dim3& grid, int threads, size_t smem,
     if (e != cudaSuccess) return e;
     attr_set = true;
   }
-  blur_kernel<kC><<<grid, threads, smem, stream>>>(
+  blur_kernel<kC><<<grid, kBlurThreads, smem, stream>>>(
       static_cast<const int32_t*>(src), static_cast<int32_t*>(out),
       static_cast<const float*>(kern), static_cast<const float*>(row_sums),
       static_cast<const float*>(col_sums), B, H, W, center, th, bcast);
   return cudaGetLastError();
-}
-
-template <int kC>
-cudaError_t launch_blur_fixed(int center, const dim3& grid, int threads,
-                              size_t smem, cudaStream_t stream,
-                              const void* src, void* out, const void* kern,
-                              const void* row_sums, const void* col_sums,
-                              int B, int H, int W, int th, int bcast) {
-  if constexpr (kC > kBlurFixedMax) {
-    return launch_blur<0>(grid, threads, smem, stream, src, out, kern,
-                          row_sums, col_sums, B, H, W, center, th, bcast);
-  } else {
-    if (center == kC)
-      return launch_blur<kC>(grid, threads, smem, stream, src, out, kern,
-                             row_sums, col_sums, B, H, W, center, th, bcast);
-    return launch_blur_fixed<kC + 1>(center, grid, threads, smem, stream,
-                                     src, out, kern, row_sums, col_sums, B,
-                                     H, W, th, bcast);
-  }
 }
 
 extern "C" int gst_gaussian_blur(const void* src, void* out,
@@ -445,8 +442,13 @@ extern "C" int gst_gaussian_blur(const void* src, void* out,
   if (th == 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((W + kBlurTileW - 1) / kBlurTileW, (H + th - 1) / th,
                   bcast ? 1 : B);
-  return static_cast<int>(launch_blur_fixed<1>(
-      center, grid, block_threads(th, center), blur_smem_bytes(th, center),
-      static_cast<cudaStream_t>(stream), src, out, kern, row_sums, col_sums,
-      B, H, W, th, bcast));
+  const size_t smem = blur_smem_bytes(th, center);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      center == kBlurFixedCenter
+          ? launch_blur<kBlurFixedCenter>(grid, smem, st, src, out, kern,
+                                          row_sums, col_sums, B, H, W,
+                                          center, th, bcast)
+          : launch_blur<0>(grid, smem, st, src, out, kern, row_sums,
+                           col_sums, B, H, W, center, th, bcast));
 }

@@ -36,17 +36,23 @@ constexpr unsigned kFull = 0xffffffffu;
 //         g = H-2 (|2 r(H-4) - 6 r(H-3) + 4 r(H-2)|), as
 //         opposite_parity_5_tap does.
 //
-// Bound: device memory.  The window's minimum traffic is one read of every
-// distinct frame (y and p overlap: p is mostly the frame before y), about
-// 0.92 MB per 1280x720 frame.  Design: the frames are read from the pool
+// Bound: the INT32 pipe at the main path's shape.  The least is 29/4
+// instructions a pixel of each frame, with bytes packed four and 16-bit
+// values two to an instruction (chip_smoke.py lists them: the ssd on
+// bytes, the three 5-tap sums on even rows in 16-bit lanes): 0.051 ms for
+// config 5's 128 frames on an H100 (132 SMs at 1980 MHz), above one read
+// of every distinct frame (y and p overlap: p is mostly the frame before
+// y), 0.92 MB per 1280x720 frame, 0.036 ms at 3.35 TB/s.  The TPU
+// kernel's 4-pixel words are what such packing would take up; this kernel
+// takes a pixel a thread.  Design: the frames are read from the pool
 // by index, so no [B, H, W] gather of the previous frames is built.  Grid
 // (column block, 32-row band, frame); each thread owns one column of a band
 // and slides a five-row register window of y and p down it, so each byte
 // is loaded once per band plus a 2-row halo on each side.  The sums are
 // reduced per block with warp shuffles and added to the frame's five int64
 // totals with one atomicAdd each.  Integer sums make the result exact in
-// any order.  The TPU kernel's 4-pixel words and [8, W/4] accumulators are
-// not carried over.
+// any order.  The TPU kernel's [8, W/4] accumulators are not carried
+// over.
 // ---------------------------------------------------------------------------
 
 constexpr int kMetricThreads = 128;  // columns per block
@@ -157,15 +163,21 @@ __global__ void fieldanalysis_metrics_kernel(
 // min(seg, 1000) equals the reference's clamped cell (comb.py's module
 // note).
 //
-// Bound: device memory at the main paths' shapes.  Down a column, cell
+// Bound, at the main paths' shapes: K6 by device memory (a byte read and
+// a mask byte written a cell), K5 by the INT32 pipe (its pairs reuse the
+// pool's frames, so it reads less than a byte a cell).  The least is 18/4
+// instructions a cell, 19/4 for K6's mask, with bytes packed four and
+// 16-bit values two to an instruction (chip_smoke.py lists them: the
+// outlier test on bytes, the recurrence in 16-bit lanes, as a run clamped
+// at 1000 in the row scores as the unclamped one).  Down a column, cell
 // (j, x) needs (j - 1, x) through one dependent step (the clamp of the
 // carried cell, the select and the add; comb_row_cycles_kernel measures
 // it): the chain bound that chip_smoke.py takes is H - 4 such steps, a
-// few microseconds at 720p, below one read of the frames.  Along a row,
+// few microseconds at 720p, below both.  Along a row,
 // cell (j, x) also needs (j, x - 1): a scan across the row shortens that
 // part to a few shuffle latencies, while this kernel's wavefront walks it,
 // so its own chain is H - 4 rows plus W - 1 columns of steps (about
-// 4.6 us at 720p), still below the read.  A design that finishes a row
+// 4.6 us at 720p), still below both.  A design that finishes a row
 // across the whole width before it starts the next puts a warp-wide scan
 // (six shuffle latencies) and a hand-over between warps on the critical
 // path of every one of the H - 4 rows; this one pipelines the rows

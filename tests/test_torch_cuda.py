@@ -303,7 +303,7 @@ def test_telecine_graph_on_card_equals_cpu_port(dev, graph, fmt):
                                          ((3, 37, 333), None),
                                          ((1, 37, 333), 5),
                                          ((2, 1, 1), None)])
-@pytest.mark.parametrize("sigma", [1.2, -2.0, 8.0, 20.0])
+@pytest.mark.parametrize("sigma", [1.2, -2.0, 3.2, 8.0, 20.0])
 def test_blur_kernel_matches_plain(dev, shape, batch, sigma):
     """Bit exact: the kernel keeps the plain version's float32 order."""
     rng = np.random.default_rng(15)
@@ -319,11 +319,11 @@ def test_blur_kernel_matches_plain(dev, shape, batch, sigma):
 
 
 @pytest.mark.parametrize("h", [15, 16, 17, 31, 32, 33, 63, 64, 65])
-@pytest.mark.parametrize("sigma", [1.2, 20.0])
+@pytest.mark.parametrize("sigma", [1.2, 8.0, 20.0])
 def test_blur_kernel_at_tile_edges(dev, sigma, h):
     """Frames one below, at and one above the kernel's tiles: 64 columns,
-    and 64 rows at centre 4 (sigma 1.2), 16 at centre 50 (sigma 20, the
-    largest window); materialized and broadcast."""
+    and 64 rows at centres 4 and 50 (sigma 1.2 and 20, the largest window),
+    32 at centre 20 (sigma 8); materialized and broadcast."""
     rng = np.random.default_rng(21)
     for w in (63, 64, 65):
         tables = [torch.from_numpy(x).to(dev)
