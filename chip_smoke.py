@@ -31,7 +31,14 @@ line):
    and broadcast; K8 (the VAD power recurrence) in both modes, serial and
    bracket, at [64, 4800] on noise, DC, silence and square-wave rows and
    at [3, 300] and [5, 4801] (the serial plain version runs on a CPU
-   copy: one Python step per sample).
+   copy: one Python step per sample).  K4 also on its hard cases: W 1, 3,
+   5, 12, 15, 17, 127, 129, 1280 and 1281 (both load paths) by H 4, 6, 8,
+   126, 128, 130, 190, 192 and 194 (either side of its band height and of
+   a frame's split into two bands) at noise floors -1, 0, 16, 255, 256 and
+   46341, with indices outside the pool, 300 frames, and pools whose base
+   is not 8-byte aligned; K8's bracket at n 1, 31, 33, 300, 4801 and
+   9600 by nb 1, 64 and 300 on all four kinds of rows, and on rows whose
+   base is not 16-byte aligned.
 4. Drive the port's main paths through parse_launch on the card: the 1080p
    headline graph on bars (broadcast source) and on ball (moving source),
    the headline without zebrastripe (the nine-element prefix, which takes
@@ -58,7 +65,8 @@ line):
    a torch.profiler breakdown of each graph's step (device busy time,
    device ops per step, idle share), and each kernel beside its plain
    version, its bound and, where one PyTorch call computes the same
-   function, that call, at the main path's shapes; K3 also on a
+   function, that call, at the main path's shapes (K4 also by its kernel
+   alone, beside its wrapper); K3 also on a
    materialized window at sigma 2.0, 3.2, 8.0 and 20.0, where its taps are
    a runtime count (blur_sigma_ms).  A bound is the larger
    of the bytes over the HBM rate and the instructions over their pipe's
@@ -111,6 +119,9 @@ K3_DIV_INSTR = 10
 # the one centre compiled with a constant tap count) and four whose taps
 # are a runtime count (centres 5, 9, 20 and 50)
 BLUR_SIGMAS = (1.2, 2.0, 3.2, 8.0, 20.0)
+# cycles of the spin kernel that holds the stream while cuda_ms queues its
+# calls: 2.5 ms at 1980 MHz, longer than 20 calls of a wrapper take the host
+SPIN_CYCLES = 5_000_000
 # the compiled-C audio chain of BASELINE config 3 on the host CPU
 # (BASELINE_C.json audio_chain_realtime_x), the denominator of the
 # audio graphs' realtime factor
@@ -128,13 +139,16 @@ def log(msg: str) -> None:
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() in ms: CUDA events around `iters` calls
-    after `warmup` calls."""
+    after `warmup` calls.  A spin kernel holds the stream while the host
+    queues the calls, so that a kernel shorter than its wrapper's host
+    time (K8's bracket) runs back to back and is timed on the device."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -634,6 +648,85 @@ def main() -> int:
     for nb, n in ((3, 300), (5, 4801)):
         for kind in ("noise", "square"):
             check_vad(kind, vad_rows(kind, nb, n), p0)
+
+    # K4's hard cases: both load paths (8-byte rows at W 1280, bytes at the
+    # rest and on pools whose base is not 8-byte aligned), the smallest
+    # heights, either side of the band height (128) and of the height
+    # where a frame splits into two bands (192), the gates' edges (nf -1
+    # and 0 keep every pixel, 255 and 256 put nf^2 at and past the largest
+    # square, 46341 past int32), frames whose indices lie outside the pool
+    # (zeros), and more frames than the card has SMs
+    def metrics_or_zeros(pool, cur, prev, nf):
+        p = pool.shape[0]
+        inside = (cur >= 0) & (cur < p) & (prev >= 0) & (prev < p)
+        want = [torch.zeros(cur.shape, dtype=torch.float32, device=dev)
+                for _ in range(5)]
+        if inside.any():
+            for a, b in zip(want, fieldanalysis.metrics_default_plain(
+                    pool, cur[inside], prev[inside], nf)):
+                a[inside] = b
+        return want
+
+    def check_k4(pool, cur, prev, nf):
+        got = fieldanalysis.metrics_default(pool, cur, prev, nf)
+        want = metrics_or_zeros(pool, cur, prev, nf)
+        torch.cuda.synchronize()
+        e = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        err["metrics_default"] = max(err["metrics_default"], e)
+        return e
+
+    hard_cur = torch.tensor([1, 2, 3, 4, 0, 5, 2], dtype=torch.int32,
+                            device=dev)
+    hard_prev = torch.tensor([0, 1, 2, 3, -1, 4, 2**31 - 1],
+                             dtype=torch.int32, device=dev)
+    k4_nfs = [torch.tensor(v, dtype=torch.int32, device=dev)
+              for v in (-1, 0, 16, 255, 256, 46341)]
+    n_cases, e4 = 0, 0.0
+    for w in (1, 3, 5, 12, 15, 17, 127, 129, 1280, 1281):
+        for h in (4, 6, 8, 126, 128, 130, 190, 192, 194):
+            pool = rand_frames(5, h, w)
+            for nf in k4_nfs:
+                e4 = max(e4, check_k4(pool, hard_cur, hard_prev, nf))
+                n_cases += 1
+    flat = rand_frames(1, 1, 4 * 40 * 64 + 8).reshape(-1)
+    frames300 = torch.arange(1, 301, dtype=torch.int32, device=dev)
+    for pool, cur in ([(rand_frames(301, 36, 40), frames300)]
+                      + [(flat[o:o + 4 * 40 * 64].view(4, 40, 64),
+                          frames300[:3]) for o in (1, 2, 4)]):
+        e4 = max(e4, check_k4(pool, cur, cur - 1, k4_nfs[2]))
+        n_cases += 1
+    log(f"K4 metrics_default hard cases: {n_cases} (W 1-1281, H 4-194, nf "
+        "-1 to 46341, out-of-pool indices, 300 frames, unaligned pools): "
+        f"max_abs_err {e4}")
+
+    # K8's bracket on its hard cases: rows shorter than a batch of 32
+    # squares and either side of it, across chunks of 2048 squares, odd
+    # lengths (2-byte staging) and 9600 (16-byte staging, five chunks),
+    # one row, the main path's 64 and 300; brackets that close (noise,
+    # silence) and stay open (DC, square); a base that is not 16-byte
+    # aligned
+    def check_bracket(data):
+        lo, hi = audio.vad_powers_bracket(data)
+        want_lo, want_hi = audio.vad_powers_bracket_plain(data)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(lo, want_lo), max_abs_err(hi, want_hi))
+        err["vad_powers_bracket"] = max(err["vad_powers_bracket"], e)
+        return e, int((want_lo == want_hi).sum())
+
+    n_cases, e8, closed = 0, 0, 0
+    for n in (1, 31, 33, 300, 4801, 9600):
+        for nb in (1, WINDOW, 300):
+            for kind in ("noise", "dc", "square", "silence"):
+                e, c = check_bracket(vad_rows(kind, nb, n))
+                e8, closed, n_cases = max(e8, e), closed + c, n_cases + 1
+    flat = vad_rows("noise", 1, WINDOW * AUDIO_BLOCK + 8).reshape(-1)
+    for o in (1, 8):
+        e, c = check_bracket(flat[o:o + WINDOW * AUDIO_BLOCK].view(
+            WINDOW, AUDIO_BLOCK))
+        e8, closed, n_cases = max(e8, e), closed + c, n_cases + 1
+    log(f"K8 vad_powers_bracket hard cases: {n_cases} (n 1-9600, nb 1-300, "
+        f"noise/DC/square/silence, unaligned rows): max_abs_err {e8} "
+        f"({closed} brackets closed)")
     if any(err.values()):
         fail(f"kernels disagree with their plain versions: {err}")
 
@@ -861,6 +954,17 @@ def main() -> int:
             pool_mp, cur_mp, prev_mp, nf_mp)),
         cuda_ms(lambda: fieldanalysis.metrics_default_plain(
             pool_mp, cur_mp, prev_mp, nf_mp), iters=3), None)
+    # K4's kernel alone, on the same inputs: the wrapper adds no device
+    # op of its own when the noise floor is an int32 tensor on the card
+    k4_out = torch.empty((5, cur_mp.numel()), dtype=torch.float32,
+                         device=dev)
+    k4_nf = torch.as_tensor(nf_mp, device=dev).to(torch.int32).reshape(1)
+    k4_alone = cuda_ms(lambda: _cuda.launch(
+        "gst_fieldanalysis_metrics", pool_mp, cur_mp, prev_mp, k4_nf,
+        k4_out, pool_mp.shape[0], cur_mp.numel(), pool_mp.shape[1],
+        pool_mp.shape[2]))
+    log(f"K4 metrics_default: kernel alone {k4_alone:.4f} ms, through its "
+        f"wrapper {times['K4'][0]:.4f} ms ({card})")
     times["K5"] = (
         cuda_ms(lambda: comb.comb_score_pairs(pool5, top_mp, bot_mp)),
         cuda_ms(lambda: comb.comb_score_pairs_plain(pool5, top_mp, bot_mp),

@@ -12,6 +12,7 @@
 // index outside the pool writes zeros for that frame or pair and reads
 // nothing out of bounds.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -27,123 +28,347 @@ constexpr unsigned kFull = 0xffffffffu;
 // Replaces gstbad_tpu/ops/fieldanalysis.py:_metrics_kernel.  For each frame
 // f of a window, y = pool[cur_idx[f]] and p = pool[prev_idx[f]] (its
 // previous valid frame), it sums five exact integer totals:
-//   0, 1  ssd on even / odd rows: (y - p)^2 where > nf^2 (every row);
-//   2     f:   |y[g-2] - 3y[g-1] + 4y[g] - 3y[g+1] + y[g+2]|,
-//   3     t_b: the same tap on interleave(even rows y, odd rows p),
-//   4     b_t: the same tap on interleave(even rows p, odd rows y),
+//   t, b  ssd on even / odd rows: (y - p)^2 where > nf^2 (every row);
+//   f     |y[g-2] - 3y[g-1] + 4y[g] - 3y[g+1] + y[g+2]|,
+//   t_b   the same tap on interleave(even rows y, odd rows p),
+//   b_t   the same tap on interleave(even rows p, odd rows y),
 //         each where > 6 nf, on even rows g in [2, H-2), plus the mirrored
-//         first and last field lines, g = 0 (|2 r2 - 6 r1 + 4 r0|) and
-//         g = H-2 (|2 r(H-4) - 6 r(H-3) + 4 r(H-2)|), as
-//         opposite_parity_5_tap does.
+//         first and last field lines, g = 0 (rows g-2, g-1 read as g+2,
+//         g+1) and g = H-2 (rows g+1, g+2 read as g-1, g-2), as
+//         opposite_parity_5_tap does;
+// and writes them normalised, out[k][f] = float(total) * (1 / norm) in
+// float32 round-to-nearest, as ops/fieldanalysis.py:_normalise does (norm
+// 3WH for f, t_b, b_t and WH/2 for t, b), in the order (f, t, b, t_b, b_t).
 //
 // Bound: the INT32 pipe at the main path's shape.  The least is 29/4
 // instructions a pixel of each frame, with bytes packed four and 16-bit
-// values two to an instruction (chip_smoke.py lists them: the ssd on
-// bytes, the three 5-tap sums on even rows in 16-bit lanes): 0.051 ms for
+// values two to an instruction (chip_smoke.py lists them): 0.051 ms for
 // config 5's 128 frames on an H100 (132 SMs at 1980 MHz), above one read
 // of every distinct frame (y and p overlap: p is mostly the frame before
-// y), 0.92 MB per 1280x720 frame, 0.036 ms at 3.35 TB/s.  The TPU
-// kernel's 4-pixel words are what such packing would take up; this kernel
-// takes a pixel a thread.  Design: the frames are read from the pool
-// by index, so no [B, H, W] gather of the previous frames is built.  Grid
-// (column block, 32-row band, frame); each thread owns one column of a band
-// and slides a five-row register window of y and p down it, so each byte
-// is loaded once per band plus a 2-row halo on each side.  The sums are
-// reduced per block with warp shuffles and added to the frame's five int64
-// totals with one atomicAdd each.  Integer sums make the result exact in
-// any order.  The TPU kernel's [8, W/4] accumulators are not carried
-// over.
+// y), 0.92 MB per 1280x720 frame, 0.036 ms at 3.35 TB/s.
+//
+// Design: packed integer lanes, as that count assumes.
+// - A thread walks 8 columns down a band of about kMetricBandRows rows,
+//   two rows a step (one even, one odd), so a row's parity is static: the
+//   ssd of each row goes to its own sum and the taps run once a step, with
+//   no branch in the loop.  The mirrored first and last field lines are
+//   the band's first and last steps, peeled out of the loop.  A row is
+//   one 8-byte load per frame where W % 8 == 0 (byte loads otherwise),
+//   loaded two steps ahead of its use: with the loads one step ahead,
+//   their latency and not the instructions held the kernel.  The band
+//   re-reads 2 rows above it and 1 below (2% at 720p).
+// - ssd: |y - p| on four bytes at once (vabsdiff4); the gate d^2 > nf^2
+//   is d >= t1 per byte, t1 = isqrt(nf^2) + 1 (0 when nf^2 wrapped below
+//   0, none when nf^2 >= 255^2), a borrow-free byte compare whose top
+//   bits a byte permute spreads into a mask; dp4a squares and adds.
+// - taps: each row unpacked once into two 16-bit lanes a word; with
+//   E = r[g-2] + 4 r[g] + r[g+2] and O3 = 3 (r[g-1] + r[g+1]) of y and of
+//   p (at most 1530, no lane carries), f = |Ey - O3y|, t_b = |Ey - O3p|,
+//   b_t = |Ep - O3y| (16x2 max - min).  The gate v > 6 nf (6 nf clamped to
+//   [-1, 1530], its int32 wrap kept) is bit 15 of v + 0x7fff - 6 nf, a
+//   byte permute turns it into -1 / 0 bytes, and dp2a adds -v of the
+//   lanes that pass.
+// - Sums: int32 a band (at most 8 x 192 x 255^2 < 2^31), int64 a thread.
+//   Each frame is one cluster of kMetricCluster blocks; their sums meet
+//   in block 0's shared memory (distributed shared memory), which
+//   normalises and writes them: no atomics, no zero fill, no launch after.
 // ---------------------------------------------------------------------------
 
-constexpr int kMetricThreads = 128;  // columns per block
-constexpr int kMetricRows = 32;      // rows per band
+constexpr int kMetricCluster = 8;      // blocks per frame (one cluster)
+constexpr int kMetricMaxThreads = 256;
+constexpr int kMetricBandRows = 128;   // rows a band, about
 
 __device__ __forceinline__ long long warp_sum64(long long v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
   return v;
 }
 
-__device__ __forceinline__ int gate(int v, int thr) {
-  return v > thr ? v : 0;
+// a byte permute in PTX's default mode: a selector nibble with its top bit
+// set spreads the top bit of the byte it picks over the result byte
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
 }
 
-__global__ void fieldanalysis_metrics_kernel(
-    const uint8_t* __restrict__ pool, const int32_t* __restrict__ cur_idx,
-    const int32_t* __restrict__ prev_idx, const int32_t* __restrict__ nf_ptr,
-    unsigned long long* __restrict__ tot, int P, int H, int W) {
-  const int f = blockIdx.z;
-  const int ci = cur_idx[f];
-  const int pi = prev_idx[f];
-  if (ci < 0 || ci >= P || pi < 0 || pi >= P) return;  // uniform per block
-  const int nf = *nf_ptr;
-  const int nf2 = nf * nf;
-  const int nt = nf * 6;
-  const size_t plane = static_cast<size_t>(H) * W;
-  const uint8_t* y = pool + plane * ci;
-  const uint8_t* p = pool + plane * pi;
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r0 = blockIdx.y * kMetricRows;
-  const int r1 = min(r0 + kMetricRows, H);
+// |a - b| on two unsigned 16-bit lanes: max - min (Hopper's 16x2 min and
+// max, one instruction each; no lane borrows).  sm_90 has no instruction
+// for __vabsdiffu2, which nvcc emulates.
+__device__ __forceinline__ uint32_t absdiff_u16x2(uint32_t a, uint32_t b) {
+  uint32_t hi, lo;
+  asm("max.u16x2 %0, %1, %2;" : "=r"(hi) : "r"(a), "r"(b));
+  asm("min.u16x2 %0, %1, %2;" : "=r"(lo) : "r"(a), "r"(b));
+  return hi - lo;
+}
 
-  long long s_even = 0, s_odd = 0, s_f = 0, s_tb = 0, s_bt = 0;
-  if (x < W) {
-    auto ld = [&](const uint8_t* q, int r) -> int {
-      return (r >= 0 && r < H) ? q[static_cast<size_t>(r) * W + x] : 0;
-    };
-    int ym2 = ld(y, r0 - 2), ym1 = ld(y, r0 - 1), y0 = ld(y, r0),
-        yp1 = ld(y, r0 + 1), yp2 = ld(y, r0 + 2);
-    int pm2 = ld(p, r0 - 2), pm1 = ld(p, r0 - 1), p0 = ld(p, r0),
-        pp1 = ld(p, r0 + 1), pp2 = ld(p, r0 + 2);
-    for (int g = r0; g < r1; ++g) {
-      const int d = y0 - p0;
-      const int d2 = d * d;
-      if (d2 > nf2) {
-        if (g & 1) s_odd += d2;
-        else s_even += d2;
-      }
-      if ((g & 1) == 0) {
-        int vf, vtb, vbt;
-        if (g == 0) {                 // first field line, mirrored taps
-          vf = abs(2 * yp2 - 6 * yp1 + 4 * y0);
-          vtb = abs(2 * yp2 - 6 * pp1 + 4 * y0);
-          vbt = abs(2 * pp2 - 6 * yp1 + 4 * p0);
-        } else if (g == H - 2) {      // last field line, mirrored taps
-          vf = abs(2 * ym2 - 6 * ym1 + 4 * y0);
-          vtb = abs(2 * ym2 - 6 * pm1 + 4 * y0);
-          vbt = abs(2 * pm2 - 6 * ym1 + 4 * p0);
-        } else if (g < H - 2) {       // interior even row
-          vf = abs(ym2 - 3 * ym1 + 4 * y0 - 3 * yp1 + yp2);
-          vtb = abs(ym2 - 3 * pm1 + 4 * y0 - 3 * pp1 + yp2);
-          vbt = abs(pm2 - 3 * ym1 + 4 * p0 - 3 * yp1 + pp2);
-        } else {
-          vf = vtb = vbt = 0;
-        }
-        s_f += gate(vf, nt);
-        s_tb += gate(vtb, nt);
-        s_bt += gate(vbt, nt);
-      }
-      ym2 = ym1; ym1 = y0; y0 = yp1; yp1 = yp2; yp2 = ld(y, g + 3);
-      pm2 = pm1; pm1 = p0; p0 = pp1; pp1 = pp2; pp2 = ld(p, g + 3);
+// 8 pixels of row r (columns x0 .. x0+7) as two words, bytes past W as 0;
+// kVec: one 8-byte load (W % 8 == 0 and an 8-byte aligned pool)
+template <bool kVec>
+__device__ __forceinline__ void load_row(const uint8_t* __restrict__ q,
+                                         int r, int x0, int W,
+                                         uint32_t (&w)[2]) {
+  const uint8_t* s = q + static_cast<size_t>(r) * W + x0;
+  if (kVec) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(s));
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (x0 + 4 * j + k < W)
+          v |= static_cast<uint32_t>(__ldg(s + 4 * j + k)) << (8 * k);
+      w[j] = v;
     }
   }
-  const long long s[5] = {s_even, s_odd, s_f, s_tb, s_bt};
+}
 
-  __shared__ long long s_part[kMetricThreads / 32][5];
+// one frame's walk of its bands; the tap sums are kept negated (dp2a
+// adds -v for each lane that passes)
+template <bool kVec>
+struct MetricWalk {
+  const uint8_t* y;
+  const uint8_t* p;
+  int H, W, x0;
+  uint32_t t1, t1_lo, t1_not, on, K;
+  // the window: rows g-2, g-1, g of y and p in 16-bit lanes (bytes 0, 2
+  // and 1, 3 of each word); this step's rows g+1, g+2 as loaded (r*), and
+  // the next step's (n*), in flight
+  uint32_t ym2[4], ym1[4], y0[4], pm2[4], pm1[4], p0[4];
+  uint32_t ry1[2], rp1[2], ry2[2], rp2[2];
+  uint32_t ny1[2], np1[2], ny2[2], np2[2];
+  uint32_t a_even, a_odd;
+  int a_f, a_tb, a_bt;
+
+  __device__ __forceinline__ uint32_t ssd(const uint32_t (&yw)[2],
+                                          const uint32_t (&pw)[2],
+                                          uint32_t acc) const {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint32_t d = __vabsdiffu4(yw[j], pw[j]);
+      // top bit of each byte: d >= t1 (no borrow crosses a byte)
+      const uint32_t x = (d | 0x80808080u) - t1_lo;
+      const uint32_t ge = (d & t1_not) | (~(d ^ t1) & x);
+      const uint32_t dm = d & prmt(ge, 0u, 0xBA98u) & on;
+      acc = __dp4a(dm, dm, acc);
+    }
+    return acc;
+  }
+
+  static __device__ __forceinline__ void lanes(const uint32_t (&w)[2],
+                                               uint32_t (&l)[4]) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      l[2 * j] = prmt(w[j], 0u, 0x4240u);
+      l[2 * j + 1] = prmt(w[j], 0u, 0x4341u);
+    }
+  }
+
+  __device__ __forceinline__ int gate(uint32_t v, int acc) const {
+    return __dp2a_lo(static_cast<int>(v),
+                     static_cast<int>(prmt(v + K, 0u, 0x44B9u)), acc);
+  }
+
+  // row r into the window's lanes; kSsd: its ssd into the even sum
+  template <bool kSsd>
+  __device__ __forceinline__ void first_row(int r, uint32_t (&yl)[4],
+                                            uint32_t (&pl)[4]) {
+    uint32_t yw[2], pw[2];
+    load_row<kVec>(y, r, x0, W, yw);
+    load_row<kVec>(p, r, x0, W, pw);
+    if (kSsd) a_even = ssd(yw, pw, a_even);
+    lanes(yw, yl);
+    lanes(pw, pl);
+  }
+
+  // rows g+1 and g+2 for the step at g into n*, clamped to the last row
+  // (the last field line's step reads no row below it, and the last
+  // step's fetch is for a step that does not come)
+  __device__ __forceinline__ void fetch(int g) {
+    const int r1 = min(g + 1, H - 1);
+    load_row<kVec>(y, r1, x0, W, ny1);
+    load_row<kVec>(p, r1, x0, W, np1);
+    const int r2 = min(g + 2, H - 1);
+    load_row<kVec>(y, r2, x0, W, ny2);
+    load_row<kVec>(p, r2, x0, W, np2);
+  }
+
+  __device__ __forceinline__ void advance() {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      ry1[j] = ny1[j];
+      rp1[j] = np1[j];
+      ry2[j] = ny2[j];
+      rp2[j] = np2[j];
+    }
+  }
+
+  // the step at even row g: the ssd of rows g+1 (and g+2 when it lies in
+  // the band), the three taps at g, then the window slides two rows.
+  // kTop: g = 0; kBottom: g = H-2 (no row g+2); kNext: take the next
+  // step's rows and fetch those of the step after it, so that each load
+  // has two steps to arrive
+  template <bool kTop, bool kBottom, bool kSsdEven, bool kNext>
+  __device__ __forceinline__ void step(int g) {
+    a_odd = ssd(ry1, rp1, a_odd);
+    if (kSsdEven) a_even = ssd(ry2, rp2, a_even);
+    uint32_t y1[4], p1[4], y2[4], p2[4];
+    lanes(ry1, y1);
+    lanes(rp1, p1);
+    lanes(ry2, y2);
+    lanes(rp2, p2);
+    if (kNext) {
+      advance();
+      fetch(g + 4);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t y1k = kBottom ? ym1[k] : y1[k];
+      const uint32_t p1k = kBottom ? pm1[k] : p1[k];
+      const uint32_t y2k = kBottom ? ym2[k] : y2[k];
+      const uint32_t p2k = kBottom ? pm2[k] : p2[k];
+      const uint32_t ym1k = kTop ? y1k : ym1[k];
+      const uint32_t pm1k = kTop ? p1k : pm1[k];
+      const uint32_t ym2k = kTop ? y2k : ym2[k];
+      const uint32_t pm2k = kTop ? p2k : pm2[k];
+      const uint32_t ey = ym2k + y2k + (y0[k] << 2);
+      const uint32_t ep = pm2k + p2k + (p0[k] << 2);
+      const uint32_t oy = (ym1k + y1k) * 3u;
+      const uint32_t op = (pm1k + p1k) * 3u;
+      a_f = gate(absdiff_u16x2(ey, oy), a_f);
+      a_tb = gate(absdiff_u16x2(ey, op), a_tb);
+      a_bt = gate(absdiff_u16x2(ep, oy), a_bt);
+      ym2[k] = y0[k];
+      pm2[k] = p0[k];
+      ym1[k] = y1[k];
+      pm1[k] = p1[k];
+      y0[k] = y2[k];
+      p0[k] = p2[k];
+    }
+  }
+
+  // rows [r0, r1) of the 8 columns at x0 (r0, r1 even)
+  __device__ __forceinline__ void band(int r0, int r1) {
+    a_even = a_odd = 0u;
+    a_f = a_tb = a_bt = 0;
+    int g = r0;
+    if (r0 == 0) {          // the first field line; r1 >= 4
+      first_row<true>(0, y0, p0);
+      fetch(0);
+      advance();
+      fetch(2);
+      step<true, false, true, true>(0);
+      g = 2;
+    } else {
+      first_row<false>(r0 - 2, ym2, pm2);
+      first_row<false>(r0 - 1, ym1, pm1);
+      first_row<true>(r0, y0, p0);
+      fetch(r0);
+      advance();
+      fetch(r0 + 2);
+    }
+#pragma unroll 2
+    for (; g + 2 < r1; g += 2) step<false, false, true, true>(g);
+    if (r1 == H)            // the last field line
+      step<false, true, false, false>(g);
+    else                    // row r1 is the next band's
+      step<false, false, false, false>(g);
+  }
+};
+
+template <bool kVec>
+__global__ void __cluster_dims__(kMetricCluster, 1, 1)
+    __launch_bounds__(kMetricMaxThreads)
+    fieldanalysis_metrics_kernel(const uint8_t* __restrict__ pool,
+                                 const int32_t* __restrict__ cur_idx,
+                                 const int32_t* __restrict__ prev_idx,
+                                 const int32_t* __restrict__ nf_ptr,
+                                 float* __restrict__ out, int P, int B,
+                                 int H, int W, int R, int nbands) {
+  namespace cg = cooperative_groups;
+  const int f = blockIdx.y;
+  const unsigned rank = blockIdx.x;   // the grid is one cluster wide
+  const int ci = cur_idx[f];
+  const int pi = prev_idx[f];
+  if (ci < 0 || ci >= P || pi < 0 || pi >= P) {   // uniform per cluster
+    if (rank == 0 && threadIdx.x < 5) out[threadIdx.x * B + f] = 0.0f;
+    return;
+  }
+  // the gates, from nf's int32 products as the plain version forms them
+  const uint32_t nfu = static_cast<uint32_t>(*nf_ptr);
+  const int nf2 = static_cast<int>(nfu * nfu);
+  const int nt = static_cast<int>(nfu * 6u);
+  uint32_t t1 = 0u, on = kFull;
+  if (nf2 >= 255 * 255) {
+    on = 0u;
+  } else if (nf2 >= 0) {
+    int s = static_cast<int>(sqrtf(static_cast<float>(nf2)));
+    while (s * s > nf2) --s;
+    while ((s + 1) * (s + 1) <= nf2) ++s;
+    t1 = static_cast<uint32_t>(s + 1);
+  }
+  const int ntc = min(max(nt, -1), 1530);
+
+  MetricWalk<kVec> w;
+  const size_t plane = static_cast<size_t>(H) * W;
+  w.y = pool + plane * ci;
+  w.p = pool + plane * pi;
+  w.H = H;
+  w.W = W;
+  w.t1 = t1 * 0x01010101u;
+  w.t1_lo = w.t1 & 0x7f7f7f7fu;
+  w.t1_not = ~w.t1;
+  w.on = on;
+  w.K = static_cast<uint32_t>(0x7fff - ntc) * 0x00010001u;
+
+  long long s[5] = {0, 0, 0, 0, 0};   // f, t, b, t_b, b_t
+  const long long G = (W + 7) >> 3;
+  const long long items = G * nbands;
+  for (long long it = rank * blockDim.x + threadIdx.x; it < items;
+       it += kMetricCluster * blockDim.x) {
+    const int band = static_cast<int>(it / G);
+    w.x0 = static_cast<int>(it - band * G) << 3;
+    const int r0 = band * R;
+    w.band(r0, min(r0 + R, H));
+    s[0] -= w.a_f;
+    s[1] += w.a_even;
+    s[2] += w.a_odd;
+    s[3] -= w.a_tb;
+    s[4] -= w.a_bt;
+  }
+
+  __shared__ long long part[kMetricMaxThreads / 32][5];
+  __shared__ long long block_sum[5];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < 5; ++k) {
     const long long v = warp_sum64(s[k]);
-    if (lane == 0) s_part[warp][k] = v;
+    if (lane == 0) part[warp][k] = v;
   }
   __syncthreads();
   if (threadIdx.x < 5) {
     long long v = 0;
-    for (int w = 0; w < static_cast<int>(blockDim.x) / 32; ++w)
-      v += s_part[w][threadIdx.x];
-    if (v) atomicAdd(&tot[static_cast<size_t>(f) * 5 + threadIdx.x],
-                     static_cast<unsigned long long>(v));
+    for (int i = 0; i < static_cast<int>(blockDim.x) / 32; ++i)
+      v += part[i][threadIdx.x];
+    block_sum[threadIdx.x] = v;
   }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (rank == 0 && threadIdx.x < 5) {
+    long long v = 0;
+    for (int r = 0; r < kMetricCluster; ++r)
+      v += cluster.map_shared_rank(block_sum, r)[threadIdx.x];
+    const double hw = static_cast<double>(H) * W;
+    const double norm = threadIdx.x == 1 || threadIdx.x == 2 ? 0.5 * hw
+                                                             : 3.0 * hw;
+    const float recip = __fdiv_rn(1.0f, __double2float_rn(norm));
+    out[threadIdx.x * B + f] = __fmul_rn(__ll2float_rn(v), recip);
+  }
+  cluster.sync();   // block 0 has read every block's sums
 }
 
 // ---------------------------------------------------------------------------
@@ -681,18 +906,38 @@ int comb_launch(const void* pool, const void* top, const void* bot,
 
 extern "C" int gst_fieldanalysis_metrics(const void* pool, const void* cur_idx,
                                          const void* prev_idx, const void* nf,
-                                         void* tot, int P, int B, int H,
+                                         void* out, int P, int B, int H,
                                          int W, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0) return static_cast<int>(cudaSuccess);
-  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((W + kMetricThreads - 1) / kMetricThreads,
-                  (H + kMetricRows - 1) / kMetricRows, B);
-  fieldanalysis_metrics_kernel<<<grid, kMetricThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(pool), static_cast<const int32_t*>(cur_idx),
-      static_cast<const int32_t*>(prev_idx),
-      static_cast<const int32_t*>(nf),
-      static_cast<unsigned long long*>(tot), P, H, W);
+  if (B <= 0) return static_cast<int>(cudaSuccess);
+  if (B > 65535 || H < 4 || H % 2 || W < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // bands of about kMetricBandRows rows, even, as equal as they come
+  int nbands = (H + kMetricBandRows / 2) / kMetricBandRows;
+  if (nbands < 1) nbands = 1;
+  int R = (H + nbands - 1) / nbands;
+  R += R & 1;
+  nbands = (H + R - 1) / R;
+  // threads for one (8-column, band) item each, up to kMetricMaxThreads
+  const long long items = static_cast<long long>((W + 7) / 8) * nbands;
+  const long long per_block = (items + kMetricCluster - 1) / kMetricCluster;
+  const int threads = static_cast<int>(
+      per_block >= kMetricMaxThreads ? kMetricMaxThreads
+      : per_block <= 64              ? 64
+                                     : (per_block + 31) / 32 * 32);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(pool);
+  const dim3 grid(kMetricCluster, B);
+  const auto* q = static_cast<const uint8_t*>(pool);
+  const auto* c = static_cast<const int32_t*>(cur_idx);
+  const auto* v = static_cast<const int32_t*>(prev_idx);
+  const auto* n = static_cast<const int32_t*>(nf);
+  auto* o = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (W % 8 == 0 && base % 8 == 0)
+    fieldanalysis_metrics_kernel<true><<<grid, threads, 0, st>>>(
+        q, c, v, n, o, P, B, H, W, R, nbands);
+  else
+    fieldanalysis_metrics_kernel<false><<<grid, threads, 0, st>>>(
+        q, c, v, n, o, P, B, H, W, R, nbands);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -34,9 +34,8 @@ namespace {
 // block square the samples into shared memory a 4096-sample chunk ahead
 // (double-buffered), and the walk reads the squares from there, 32 steps'
 // worth at a time.  The bracket mode runs each block from 0 and from
-// 2^32 - 1, one thread per (block, bound), so its chain is one block long;
-// the two threads of a block read the same samples, straight from global
-// memory, 32 samples ahead of the chain.
+// 2^32 - 1, so its chain is one block long, n steps; it has a kernel of
+// its own (vad_bracket_kernel, below).
 // ---------------------------------------------------------------------------
 
 constexpr uint32_t kBShifted = 63487u << 16;   // (0xFFFF - 0x0800) << 16
@@ -49,21 +48,6 @@ __device__ __forceinline__ uint32_t alpha_sq(int16_t d) {
 
 __device__ __forceinline__ uint32_t vad_step(uint32_t p, uint32_t a) {
   return __umulhi(p, kBShifted) + a;
-}
-
-// p after the n samples at x, from p (the bracket's walk)
-__device__ __forceinline__ uint32_t walk(const int16_t* __restrict__ x,
-                                         int n, uint32_t p) {
-  int j = 0;
-  for (; j + kAhead <= n; j += kAhead) {
-    uint32_t a[kAhead];
-#pragma unroll
-    for (int k = 0; k < kAhead; ++k) a[k] = alpha_sq(__ldg(x + j + k));
-#pragma unroll
-    for (int k = 0; k < kAhead; ++k) p = vad_step(p, a[k]);
-  }
-  for (; j < n; ++j) p = vad_step(p, alpha_sq(__ldg(x + j)));
-  return p;
 }
 
 constexpr int kSerialThreads = 256;   // warp 0 walks, warps 1-7 stage
@@ -81,69 +65,159 @@ __device__ __forceinline__ void stage_chunk(const int16_t* __restrict__ x,
   }
 }
 
-// kSerial: one block; its thread 0 walks rows 0..nb-1 in order from *p0
-// and writes each row's end power to out_a[r], reading the squares that
-// warps 1-7 stage a chunk ahead.  Otherwise: thread 2r + h walks row r
-// from 0 (h = 0, into out_a[r]) or 2^32 - 1 (h = 1, into out_b[r]).
-template <bool kSerial>
-__global__ void vad_power_kernel(const int16_t* __restrict__ x, int nb,
-                                 int n, const long long* __restrict__ p0,
-                                 long long* __restrict__ out_a,
-                                 long long* __restrict__ out_b) {
-  if (kSerial) {
-    __shared__ uint32_t stage[2][kChunk];
-    const long long total = static_cast<long long>(nb) * n;
-    const int chunks = static_cast<int>((total + kChunk - 1) / kChunk);
-    const bool walker = threadIdx.x == 0;
-    const bool stager = threadIdx.x >= 32;
-    uint32_t p = static_cast<uint32_t>(*p0);
-    if (n == 0) {   // no samples: every block ends on p0
-      for (int r = threadIdx.x; r < nb; r += kSerialThreads) out_a[r] = p;
-      return;
-    }
-    if (stager && chunks > 0) stage_chunk(x, total, 0, stage[0]);
-    __syncthreads();
-    long long row_end = n;   // global index just past row r
-    int r = 0;
-    for (int c = 0; c < chunks; ++c) {
-      if (stager) {
-        if (c + 1 < chunks) stage_chunk(x, total, c + 1, stage[(c + 1) & 1]);
-      } else if (walker) {
-        const uint32_t* a = stage[c & 1];
-        const long long base = static_cast<long long>(c) * kChunk;
-        const int len = static_cast<int>(
-            total - base < kChunk ? total - base : kChunk);
-        int j = 0;
-        while (j < len) {
-          const int stop = static_cast<int>(
-              row_end - base < len ? row_end - base : len);
-          // the squares into registers first, then the steps: loads
-          // interleaved with the steps would put their latency on the chain
-          for (; j + kAhead <= stop; j += kAhead) {
-            uint32_t v[kAhead];
+// One block; its thread 0 walks rows 0..nb-1 in order from *p0 and writes
+// each row's end power to out[r], reading the squares that warps 1-7 stage
+// a chunk ahead.
+__global__ void vad_serial_kernel(const int16_t* __restrict__ x, int nb,
+                                  int n, const long long* __restrict__ p0,
+                                  long long* __restrict__ out) {
+  __shared__ uint32_t stage[2][kChunk];
+  const long long total = static_cast<long long>(nb) * n;
+  const int chunks = static_cast<int>((total + kChunk - 1) / kChunk);
+  const bool walker = threadIdx.x == 0;
+  const bool stager = threadIdx.x >= 32;
+  uint32_t p = static_cast<uint32_t>(*p0);
+  if (n == 0) {   // no samples: every block ends on p0
+    for (int r = threadIdx.x; r < nb; r += kSerialThreads) out[r] = p;
+    return;
+  }
+  if (stager && chunks > 0) stage_chunk(x, total, 0, stage[0]);
+  __syncthreads();
+  long long row_end = n;   // global index just past row r
+  int r = 0;
+  for (int c = 0; c < chunks; ++c) {
+    if (stager) {
+      if (c + 1 < chunks) stage_chunk(x, total, c + 1, stage[(c + 1) & 1]);
+    } else if (walker) {
+      const uint32_t* a = stage[c & 1];
+      const long long base = static_cast<long long>(c) * kChunk;
+      const int len = static_cast<int>(
+          total - base < kChunk ? total - base : kChunk);
+      int j = 0;
+      while (j < len) {
+        const int stop = static_cast<int>(
+            row_end - base < len ? row_end - base : len);
+        // the squares into registers first, then the steps: loads
+        // interleaved with the steps would put their latency on the chain
+        for (; j + kAhead <= stop; j += kAhead) {
+          uint32_t v[kAhead];
 #pragma unroll
-            for (int k = 0; k < kAhead; ++k) v[k] = a[j + k];
+          for (int k = 0; k < kAhead; ++k) v[k] = a[j + k];
 #pragma unroll
-            for (int k = 0; k < kAhead; ++k) p = vad_step(p, v[k]);
-          }
-          for (; j < stop; ++j) p = vad_step(p, a[j]);
-          if (base + j == row_end) {
-            out_a[r++] = p;
-            row_end += n;
-          }
+          for (int k = 0; k < kAhead; ++k) p = vad_step(p, v[k]);
+        }
+        for (; j < stop; ++j) p = vad_step(p, a[j]);
+        if (base + j == row_end) {
+          out[r++] = p;
+          row_end += n;
         }
       }
-      __syncthreads();
+    }
+    __syncthreads();
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// The bracket mode: each row r of [nb, n] walked from 0 (into lo[r]) and
+// from 2^32 - 1 (into hi[r]), both over the whole row.
+//
+// Replaces the XLA scan gstbad_tpu/ops/audio.py:_vad_powers_bracket.  Bound:
+// the chain of one row, n dependent steps (the rows run side by side on
+// their own SMs).  Design: one block a row.  All its threads square the
+// row's first chunk of kBracketChunk samples into shared memory, reading
+// 16 bytes a thread where the rows are 16-byte aligned (n % 8 == 0), 2
+// otherwise; then lanes 0 and 1 of warp 0 walk it (the two walks in one
+// instruction stream; the other lanes walk copies that are dropped), while
+// warps 1-3 square the next chunk into the other buffer, one barrier a
+// chunk.  A walker reads its next 32 squares from shared memory (eight
+// 16-byte loads) before it steps the current 32, so no load latency sits
+// on the chain.
+// ---------------------------------------------------------------------------
+
+constexpr int kBracketThreads = 128;   // warp 0 walks, warps 1-3 stage
+constexpr int kBracketChunk = 2048;    // samples per staged chunk
+
+// the squares of samples [c0, c0 + len) of row q into buf, by threads
+// t = 0 .. nt-1 of the block; kVec: 8 samples a 16-byte load (c0 and len
+// multiples of 8, q 16-byte aligned)
+template <bool kVec>
+__device__ __forceinline__ void stage_bracket(const int16_t* __restrict__ q,
+                                              int c0, int len,
+                                              uint32_t* __restrict__ buf,
+                                              int t, int nt) {
+  if (kVec) {
+    const uint4* q4 = reinterpret_cast<const uint4*>(q + c0);
+    uint4* b4 = reinterpret_cast<uint4*>(buf);
+    for (int i = t; i < len / 8; i += nt) {
+      const uint4 v = __ldg(q4 + i);
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+      uint32_t a[8];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        a[2 * k] = alpha_sq(static_cast<int16_t>(w[k] & 0xFFFFu));
+        a[2 * k + 1] = alpha_sq(static_cast<int16_t>(w[k] >> 16));
+      }
+      b4[2 * i] = make_uint4(a[0], a[1], a[2], a[3]);
+      b4[2 * i + 1] = make_uint4(a[4], a[5], a[6], a[7]);
     }
   } else {
-    const int t = blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= 2 * nb) return;
-    const int r = t >> 1;
-    const bool high = (t & 1) != 0;
-    const uint32_t p = walk(x + static_cast<long long>(r) * n, n,
-                            high ? 0xFFFFFFFFu : 0u);
-    (high ? out_b : out_a)[r] = p;
+    for (int i = t; i < len; i += nt) buf[i] = alpha_sq(__ldg(q + c0 + i));
   }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kBracketThreads)
+    vad_bracket_kernel(const int16_t* __restrict__ x, int n,
+                       long long* __restrict__ lo,
+                       long long* __restrict__ hi) {
+  // kAhead squares of slack past each chunk: the walk loads its next batch
+  // before it knows whether there is one
+  __shared__ __align__(16) uint32_t stage[2][kBracketChunk + kAhead];
+  const int r = blockIdx.x;
+  const int16_t* q = x + static_cast<long long>(r) * n;
+  const int chunks = (n + kBracketChunk - 1) / kBracketChunk;
+  const int warp = threadIdx.x >> 5;
+  uint32_t p = (threadIdx.x & 1) ? 0xFFFFFFFFu : 0u;
+  if (chunks > 0)
+    stage_bracket<kVec>(q, 0, min(n, kBracketChunk), stage[0], threadIdx.x,
+                        kBracketThreads);
+  __syncthreads();
+  for (int c = 0; c < chunks; ++c) {
+    if (warp != 0) {
+      const int c1 = (c + 1) * kBracketChunk;
+      if (c1 < n)
+        stage_bracket<kVec>(q, c1, min(n - c1, kBracketChunk),
+                            stage[(c + 1) & 1], threadIdx.x - 32,
+                            kBracketThreads - 32);
+    } else {
+      const uint32_t* a = stage[c & 1];
+      const int len = min(n - c * kBracketChunk, kBracketChunk);
+      const uint4* a4 = reinterpret_cast<const uint4*>(a);
+      uint4 cur[kAhead / 4];
+#pragma unroll
+      for (int k = 0; k < kAhead / 4; ++k) cur[k] = a4[k];
+      int j = 0;
+      for (; j + kAhead <= len; j += kAhead) {
+        uint4 nxt[kAhead / 4];
+#pragma unroll
+        for (int k = 0; k < kAhead / 4; ++k)
+          nxt[k] = a4[(j + kAhead) / 4 + k];
+#pragma unroll
+        for (int k = 0; k < kAhead / 4; ++k) {
+          p = vad_step(p, cur[k].x);
+          p = vad_step(p, cur[k].y);
+          p = vad_step(p, cur[k].z);
+          p = vad_step(p, cur[k].w);
+        }
+#pragma unroll
+        for (int k = 0; k < kAhead / 4; ++k) cur[k] = nxt[k];
+      }
+      for (; j < len; ++j) p = vad_step(p, a[j]);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x < 2) (threadIdx.x ? hi : lo)[r] = p;
 }
 
 // The latency of the chain: one thread runs `steps` dependent steps (a
@@ -167,29 +241,29 @@ __global__ void vad_step_cycles_kernel(long long* out, int steps) {
   out[1] = p;
 }
 
-constexpr int kBracketThreads = 64;
-
 }  // namespace
 
 extern "C" int gst_vad_powers_serial(const void* x, const void* p0, void* out,
                                      int nb, int n, void* stream) {
   if (nb <= 0) return static_cast<int>(cudaSuccess);
-  vad_power_kernel<true><<<1, kSerialThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  vad_serial_kernel<<<1, kSerialThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(x), nb, n,
-      static_cast<const long long*>(p0), static_cast<long long*>(out),
-      nullptr);
+      static_cast<const long long*>(p0), static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int gst_vad_powers_bracket(const void* x, void* lo, void* hi,
                                       int nb, int n, void* stream) {
   if (nb <= 0) return static_cast<int>(cudaSuccess);
-  const int blocks = (2 * nb + kBracketThreads - 1) / kBracketThreads;
-  vad_power_kernel<false><<<blocks, kBracketThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(x), nb, n, nullptr,
-      static_cast<long long*>(lo), static_cast<long long*>(hi));
+  const auto* q = static_cast<const int16_t*>(x);
+  auto* l = static_cast<long long*>(lo);
+  auto* h = static_cast<long long*>(hi);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (n % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    vad_bracket_kernel<true><<<nb, kBracketThreads, 0, st>>>(q, n, l, h);
+  else
+    vad_bracket_kernel<false><<<nb, kBracketThreads, 0, st>>>(q, n, l, h);
   return static_cast<int>(cudaGetLastError());
 }
 

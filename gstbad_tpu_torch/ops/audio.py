@@ -9,10 +9,10 @@ form for windows at least as long as the longest delay line, whose only
 serial part is a walk over blocks of the shortest comb delay, and a
 128-sample block walk for shorter windows.
 
-The VAD power recurrence is one hand-written CUDA kernel template
-(csrc/vad_kernels.cu) with two entry points: `vad_powers_serial`, the port
-of the TPU kernel, and `vad_powers_bracket`, which runs every block from
-the two extreme powers at once.  CPU tensors take their plain versions.
+The VAD power recurrence has two hand-written CUDA kernels
+(csrc/vad_kernels.cu): `vad_powers_serial`, the port of the TPU kernel,
+and `vad_powers_bracket`, which runs every block from the two extreme
+powers at once.  CPU tensors take their plain versions.
 """
 
 from __future__ import annotations
@@ -411,7 +411,7 @@ def vad_powers_serial(data, p0):
 
     Replaces the TPU kernel gstbad_tpu/ops/audio.py:_vad_power_kernel.
     CPU tensors take vad_powers_serial_plain; CUDA tensors launch
-    csrc/vad_kernels.cu:vad_power_kernel<true> or raise."""
+    csrc/vad_kernels.cu:vad_serial_kernel or raise."""
     _check_vad_data("vad_powers_serial", data)
     if p0.dtype != torch.int64 or p0.numel() != 1:
         raise ValueError("vad_powers_serial: p0 must be one int64 value")
@@ -453,7 +453,7 @@ def vad_powers_bracket(data):
     starts from: the blocks then need no serial chain across them
     (gstbad_tpu/ops/audio.py:_vad_powers_bracket, an XLA scan there).
     CPU tensors take vad_powers_bracket_plain; CUDA tensors launch
-    csrc/vad_kernels.cu:vad_power_kernel<false> or raise."""
+    csrc/vad_kernels.cu:vad_bracket_kernel or raise."""
     _check_vad_data("vad_powers_bracket", data)
     if data.device.type == "cpu":
         return vad_powers_bracket_plain(data)

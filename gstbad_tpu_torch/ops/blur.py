@@ -59,7 +59,11 @@ def _blur_plane(x: torch.Tensor, kern: torch.Tensor, row_sums: torch.Tensor,
     acc = torch.zeros_like(tmp)
     for k in range(kern.shape[0]):
         acc = acc + tp[..., k:k + h, :] * kern[k]
-    return (acc / row_sums[:, None] + 0.5).clamp(0.0, 255.0).to(torch.int32)
+    out = (acc / row_sums[:, None] + 0.5).clamp(0.0, 255.0)
+    # a border sum of 0 (frames narrower than the window) makes a black
+    # pixel 0/0: NaN casts to 0, as the JAX package's XLA blur and the
+    # card's kernel give it (a plain cast gives INT_MIN on the CPU)
+    return torch.nan_to_num(out, nan=0.0).to(torch.int32)
 
 
 def _tables(kern, row_sums, col_sums, device):

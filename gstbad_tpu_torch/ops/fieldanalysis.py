@@ -221,7 +221,9 @@ def metrics_default(pool, cur_idx, prev_idx, noise_floor):
     Replaces the TPU kernel gstbad_tpu/ops/fieldanalysis.py:_metrics_kernel.
     CPU tensors take metrics_default_plain; CUDA tensors launch
     csrc/deinterlace_kernels.cu:fieldanalysis_metrics_kernel or raise.  The
-    kernel sums integers exactly, so both give the same bits."""
+    kernel sums integers exactly and normalises them as _normalise does,
+    so both give the same bits; it writes zeros for a frame whose index
+    lies outside the pool."""
     _check_pool("metrics_default", pool, cur_idx, prev_idx)
     if pool.device.type == "cpu":
         return metrics_default_plain(pool, cur_idx, prev_idx, noise_floor)
@@ -234,15 +236,13 @@ def metrics_default(pool, cur_idx, prev_idx, noise_floor):
     b = cur_idx.shape[0]
     nf = torch.as_tensor(noise_floor, device=pool.device).to(
         torch.int32).reshape(1)
-    # per frame: ssd on even rows, ssd on odd rows, f, t_b, b_t
-    tot = torch.zeros((b, 5), dtype=torch.int64, device=pool.device)
-    _cuda.launch("gst_fieldanalysis_metrics", pool, cur_idx, prev_idx, nf,
-                 tot, p, b, h, w)
-    metrics_default.launches += 1
-    field, frame = 0.5 * w * h, 3.0 * w * h
-    return (_normalise(tot[:, 2], frame), _normalise(tot[:, 0], field),
-            _normalise(tot[:, 1], field), _normalise(tot[:, 3], frame),
-            _normalise(tot[:, 4], frame))
+    # (f, t, b, t_b, b_t), normalised by the kernel (as _normalise does)
+    out = torch.empty((5, b), dtype=torch.float32, device=pool.device)
+    if b:
+        _cuda.launch("gst_fieldanalysis_metrics", pool, cur_idx, prev_idx,
+                     nf, out, p, b, h, w)
+        metrics_default.launches += 1
+    return tuple(out)
 
 
 metrics_default.launches = 0

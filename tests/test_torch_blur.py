@@ -84,6 +84,36 @@ def test_words_plain_matches_xla_blur(sigma):
     assert (diff > 0).mean() < 0.01
 
 
+@pytest.mark.parametrize("sigma,h,w,kind", [
+    (1.0, 2, 3, "black"), (-3.7, 9, 10, "black"), (0.3, 1, 1, "black"),
+    (1.0, 2, 3, "mixed"), (-3.7, 9, 10, "mixed")])
+def test_words_blur_on_frames_narrower_than_the_window(sigma, h, w, kind):
+    """Frames narrower than the window have border sums of 0 (and below):
+    a black pixel there is 0/0 = NaN, which must cast to the word 0 as in
+    the XLA blur, and a lit one is ±inf, which the clamp takes to 255 or
+    0.  Word for word at the positions whose row or column sum is 0, and
+    within the module's tolerance elsewhere; on black frames every word
+    is 0."""
+    rng = np.random.default_rng(24)
+    img = np.zeros((2, h, w, 4), np.uint8)
+    if kind == "mixed":     # half the pixels lit, half black
+        img = rng.integers(0, 256, img.shape, dtype=np.uint8)
+        img[rng.random((2, h, w)) < 0.5] = 0
+    tables = tblur.make_blur_tables(sigma, h, w)
+    zero = (tables[1][:, None] == 0) | (tables[2][None, :] == 0)
+    assert zero.any()
+    want = np.asarray(jblur.gaussian_blur(
+        jnp.asarray(img), *(jnp.asarray(t) for t in tables)))
+    got = tblur.gaussian_blur_words(torch.from_numpy(_words(img)), *tables)
+    np.testing.assert_array_equal(got.numpy()[:, zero], _words(want)[:, zero])
+    if kind == "black":
+        assert not got.numpy().any()
+    got = got.numpy().view(np.uint8).reshape(img.shape)
+    diff = np.abs(got.astype(int) - want.astype(int))
+    assert diff.max() <= 1, f"max diff {diff.max()}"
+    assert (diff > 0).mean() < 0.01
+
+
 def test_byte_blur_equals_words_blur():
     """gaussian_blur on [B, H, W, 4] bytes is the words blur, byte for
     byte."""

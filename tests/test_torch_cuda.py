@@ -204,6 +204,75 @@ def test_fieldanalysis_metrics_kernel_matches_plain(dev, shape):
         assert torch.equal(g, w)
 
 
+def _metrics_or_zeros(pool, cur, prev, nf):
+    """metrics_default_plain on the frames inside the pool; a frame with
+    an index outside it reads 0 (the kernel reads nothing for it)."""
+    p = pool.shape[0]
+    inside = (cur >= 0) & (cur < p) & (prev >= 0) & (prev < p)
+    want = [torch.zeros(cur.shape, dtype=torch.float32, device=cur.device)
+            for _ in range(5)]
+    if inside.any():
+        got = fieldanalysis.metrics_default_plain(pool, cur[inside],
+                                                  prev[inside], nf)
+        for a, b in zip(want, got):
+            a[inside] = b
+    return want
+
+
+# the gates' edges: every pixel kept (-1, 0), the main path's 16, nf^2 at
+# and past the largest square (255, 256) and past int32 (46341: every
+# square kept)
+K4_NOISE_FLOORS = (-1, 0, 16, 255, 256, 46341)
+
+
+@pytest.mark.parametrize("w", [1, 3, 5, 12, 15, 17, 127, 129, 1280, 1281])
+@pytest.mark.parametrize("h", [4, 6, 8, 126, 128, 130, 190, 192, 194])
+def test_fieldanalysis_metrics_kernel_hard_cases(dev, h, w):
+    """Exact at widths of both load paths (8-byte rows at 1280, bytes at the
+    rest, 12 a multiple of 4 but not of 8), at the smallest heights (the first and last field lines
+    in one band), either side of the band height (128) and of the height
+    where a frame splits into two bands (192); at each noise floor of
+    K4_NOISE_FLOORS; with indices below and past the pool (zeros)."""
+    rng = np.random.default_rng(19)
+    pool = _u8(rng, (5, h, w), dev)
+    pool[2] = (pool[1].int() + torch.from_numpy(rng.integers(
+        -20, 21, (h, w))).to(dev)).clamp(0, 255).to(torch.uint8)
+    cur = torch.tensor([1, 2, 3, 4, 0, 5, 2], dtype=torch.int32, device=dev)
+    prev = torch.tensor([0, 1, 2, 3, -1, 4, 2**31 - 1], dtype=torch.int32,
+                        device=dev)
+    for nf in K4_NOISE_FLOORS:
+        nft = torch.tensor(nf, dtype=torch.int32, device=dev)
+        got = fieldanalysis.metrics_default(pool, cur, prev, nft)
+        want = _metrics_or_zeros(pool, cur, prev, nft)
+        torch.cuda.synchronize()
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), nf
+
+
+def test_fieldanalysis_metrics_kernel_more_frames_than_sms(dev):
+    """300 frames (more clusters than the card has SMs), pools whose base
+    is not 8-byte aligned (byte loads at a W that is a multiple of 8), and
+    the main path's shape."""
+    rng = np.random.default_rng(20)
+    pool = _u8(rng, (301, 36, 40), dev)
+    cur = torch.arange(1, 301, dtype=torch.int32, device=dev)
+    nf = torch.tensor(16, dtype=torch.int32, device=dev)
+    cases = [(pool, cur, cur - 1)]
+    flat = _u8(rng, (1, 1, 4 * 40 * 64 + 8), dev).reshape(-1)
+    for off in (1, 2, 4):
+        cases.append((flat[off:off + 4 * 40 * 64].view(4, 40, 64),
+                      cur[:3], cur[:3] - 1))
+    big = _u8(rng, (3, 720, 1280), dev)
+    cases.append((big, torch.tensor([1, 2], dtype=torch.int32, device=dev),
+                  torch.tensor([0, 1], dtype=torch.int32, device=dev)))
+    for pool, c, p in cases:
+        got = fieldanalysis.metrics_default(pool, c, p, nf)
+        want = fieldanalysis.metrics_default_plain(pool, c, p, nf)
+        torch.cuda.synchronize()
+        for g, x in zip(got, want):
+            assert torch.equal(g, x)
+
+
 def _weave(shape, dev):
     """Frames whose rows alternate 0 and 255, so that every cell of the
     band is an outlier (runs as wide as the frame, carries at the 1000
@@ -460,6 +529,41 @@ def test_vad_kernels_match_plain(dev, kind, shape):
         data.cpu(), p0.cpu()))
     want_lo, want_hi = audio.vad_powers_bracket_plain(data)
     assert torch.equal(lo, want_lo) and torch.equal(hi, want_hi)
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 300, 4801, 9600])
+@pytest.mark.parametrize("nb", [1, 64, 300])
+def test_vad_bracket_kernel_hard_cases(dev, nb, n):
+    """The bracket kernel exactly: rows shorter than a batch of 32 squares,
+    one either side of it, across chunks of 2048, odd lengths (the 2-byte
+    staging) and 9600 (16-byte staging over five chunks); rows whose
+    brackets close (noise, silence) and stay open (DC, square)."""
+    for kind in ("noise", "dc", "square", "silence"):
+        data = _vad_rows(kind, (nb, n), dev)
+        before = audio.vad_powers_bracket.launches
+        lo, hi = audio.vad_powers_bracket(data)
+        assert audio.vad_powers_bracket.launches == before + 1
+        want_lo, want_hi = audio.vad_powers_bracket_plain(data)
+        torch.cuda.synchronize()
+        assert torch.equal(lo, want_lo) and torch.equal(hi, want_hi), kind
+
+
+def test_vad_bracket_kernel_unaligned_rows(dev):
+    """A block whose base is not 16-byte aligned takes the 2-byte
+    staging at n % 8 == 0; an empty row ends on the two starts."""
+    rng = np.random.default_rng(21)
+    flat = torch.from_numpy(rng.integers(-32768, 32768, 64 * 4800 + 8)
+                            .astype(np.int16)).to(dev)
+    for off in (1, 8):
+        data = flat[off:off + 64 * 4800].view(64, 4800)
+        lo, hi = audio.vad_powers_bracket(data)
+        want_lo, want_hi = audio.vad_powers_bracket_plain(data)
+        torch.cuda.synchronize()
+        assert torch.equal(lo, want_lo) and torch.equal(hi, want_hi)
+    lo, hi = audio.vad_powers_bracket(
+        torch.zeros((3, 0), dtype=torch.int16, device=dev))
+    torch.cuda.synchronize()
+    assert lo.tolist() == [0] * 3 and hi.tolist() == [2**32 - 1] * 3
 
 
 def test_vad_wrappers_raise_on_bad_input(dev):

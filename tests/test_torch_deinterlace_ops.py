@@ -50,15 +50,16 @@ def _mixed_frames(rng, shape):
     return out
 
 
-@pytest.mark.parametrize("shape", METRIC_SHAPES)
-def test_metrics_default_plain_equals_pallas_and_xla(shape):
+def _metrics_port_and_jax(shape, nf):
+    """metrics_default on a pool of random frames (one close to its
+    predecessor) through the port and the JAX package's Pallas kernel
+    (interpret mode) and vmapped XLA metrics, all under jax.jit."""
     b, h, w = shape
     rng = np.random.default_rng(1)
     pool = _u8(rng, (b + 1, h, w))
     pool[2] = pool[1] // 2 + 60     # a frame close to its predecessor
     cur = np.arange(1, b + 1, dtype=np.int32)
     prev = np.maximum(cur - 1 - (np.arange(b) % 2), 0).astype(np.int32)
-    nf = 16
     got = fa.metrics_default(torch.from_numpy(pool), torch.from_numpy(cur),
                              torch.from_numpy(prev), torch.tensor(nf))
     jy, jp = jnp.asarray(pool[cur]), jnp.asarray(pool[prev])
@@ -74,6 +75,25 @@ def test_metrics_default_plain_equals_pallas_and_xla(shape):
                 jfa.opposite_parity_5_tap(yi, o, pi, n))
 
     xla = jax.jit(jax.vmap(ref))(jy, jp)
+    return got, pallas, xla
+
+
+# the main path's noise floor 16 on each of METRIC_SHAPES (ids shape0..),
+# then the gates' edges at a width that is not a multiple of 4 or 16
+# (ids nf..): every pixel kept (0, -1), nf = 1, the ssd's nf^2 at and past
+# the largest square (255, 256), and nf^2 or 6 nf past int32, where both
+# packages take the wrapped product (46341 and -46341: nf^2 < 0, every
+# square kept; 2^31 - 1: nf^2 = 1; 357913942: 6 nf < 0, every tap kept)
+METRIC_CASES = ([pytest.param(shape, 16, id=f"shape{i}")
+                 for i, shape in enumerate(METRIC_SHAPES)]
+                + [pytest.param((3, 10, 38), nf, id=f"nf{nf}")
+                   for nf in (0, 1, 255, 256, -1, 46341, -46341,
+                              2**31 - 1, 357913942)])
+
+
+@pytest.mark.parametrize("shape,nf", METRIC_CASES)
+def test_metrics_default_plain_equals_pallas_and_xla(shape, nf):
+    got, pallas, xla = _metrics_port_and_jax(shape, nf)
     for name, g, p, x in zip(["f", "t", "b", "t_b", "b_t"], got, pallas,
                              xla):
         assert g.dtype == torch.float32
