@@ -38,7 +38,12 @@ line):
    46341, with indices outside the pool, 300 frames, and pools whose base
    is not 8-byte aligned; K8's bracket at n 1, 31, 33, 300, 4801 and
    9600 by nb 1, 64 and 300 on all four kinds of rows, and on rows whose
-   base is not 16-byte aligned.
+   base is not 16-byte aligned.  freeverb_scan (the per-sample reverb
+   walk below 32 kHz, not a TPU kernel) within 2e-6 of its plain version,
+   which runs on a CPU copy: at [64 x 2205, 2] and [64 x 2205] at 22.05
+   kHz, and at 8 kHz, 16 kHz and 31999 Hz on blocks of 1 sample, of one
+   sample fewer than the shortest ring and of 3000 samples, the state
+   carried across the calls, mono and stereo.
 4. Drive the port's main paths through parse_launch on the card: the 1080p
    headline graph on bars (broadcast source) and on ball (moving source),
    the headline without zebrastripe (the nine-element prefix, which takes
@@ -51,15 +56,26 @@ line):
    audiomixmatrix ! freeverb ! audioconvert ! removesilence, where the
    VAD's power bracket closes: K8's bracket mode once a window, its serial
    mode never) and vad_square (removesilence on a square wave: both modes
-   once a window).  Each path's launch counters are zeroed just before and
-   read just after; each of its kernels must have launched as planned, and
-   its frames must equal the same graph run by the port on the CPU:
-   exactly, but config 3's S16 samples within 1 LSB (with the share that
-   differs printed) and its freeverb output within 2e-6, since the card's
-   float32 matrix products sum in another order.  Config 5's SSIM gate
-   (models/benchmarks.config5_fidelity) must give the same result on the
-   card as on the CPU.  K3 to K8 are also held against their plain
-   versions on the very inputs the main paths gave them.
+   once a window); and this slice's three: the 1080p I420 transcode
+   around gaussianblur (transcode_i420_blur: K3 once a window), the 1080p
+   iqa DSSIM fan-in (iqa_dssim_1080p, window 16: K3 once a window) and
+   freeverb at 22.05 kHz (freeverb_22k, 64 blocks of 2205 samples:
+   freeverb_scan once a window).  Each path's launch counters are zeroed
+   just before and read just after; each of its kernels must have
+   launched as planned, and its frames must equal the same graph run by
+   the port on the CPU: exactly, but config 3's and freeverb_22k's S16
+   samples within 1 LSB (with the share that differs printed), config 3's
+   freeverb output within 2e-6, since the card's float32 matrix products
+   sum in another order, and iqa's dssim fields within 1e-5 (its ssim
+   within 1e-12).  Config 5's SSIM gate (models/benchmarks.config5_fidelity)
+   must give the same result on the card as on the CPU.  K3 to K8 and
+   freeverb_scan are also held against their plain versions on the very
+   inputs the main paths gave them (freeverb_22k's F32 output is that
+   check).  Then every (source, target) pair of videoconvert's 26
+   formats on a random 64x48 window, card against CPU, exact; and the
+   noise sources (videotestsrc pattern=noise at 1920x1080 in AYUV, I420
+   and GRAY8, audiotestsrc wave=white-noise): windows of two sizes, a
+   second run and the CPU port give the same frames and samples.
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
    around 10 steps of a 64-frame window, 16 at 4K, data kept on the card),
    a torch.profiler breakdown of each graph's step (device busy time,
@@ -75,6 +91,9 @@ line):
    dependency chain: samples walked in order times the cycles of one step
    (measured by a probe kernel that runs the step on registers alone) at
    the card's top SM clock; the audio graphs add their realtime factor.
+   freeverb_scan's the same way: the window's samples times the cycles of
+   one comb step (gst_freeverb_step_cycles), its plain time the host
+   clock's around the CPU walk.
    K5 and K6 take their chain bound the same way: the H - 4 rows of a
    column in order, each one dependent step of the row recurrence (the
    clamp of the carried cell, the select and the add; gst_comb_row_cycles
@@ -105,6 +124,9 @@ HEAD = ("coloreffects preset=sepia ! solarize ! chromium ! dodge ! burn "
         "! exclusion ! dilate ! chromahold ! videoconvert format=AYUV")
 AUDIO_BLOCK = 4800          # config 3's samplesperbuffer, 48 kHz
 AUDIO_RATE = 48000
+FV_BLOCK, FV_RATE = 2205, 22050   # freeverb_22k: 100 ms blocks at 22.05 kHz
+WINDOW_IQA = 16             # iqa_dssim_1080p's window
+CONVERT_W, CONVERT_H = 64, 48     # the videoconvert format matrix
 # one H100 SXM, from NVIDIA's data sheet: HBM bytes/s.  The instruction
 # rates come from the card in main(): an SM issues one FP32 instruction
 # (FMUL, FADD or FFMA) on each of its 128 FP32 lanes a clock and one INT32
@@ -259,15 +281,62 @@ def frames_equal(key, got, cpu, shape) -> None:
                 fail(f"{key}: {f} differs from the CPU port")
 
 
-def samples_close(key, got, cpu, got_msgs, cpu_msgs, lsb: int) -> None:
+def planes_equal(key, got, cpu, shapes) -> None:
+    """Host batches of planar frames ({plane: [B, h, w]}) of a card run
+    against the CPU port's: same windows, each plane of shape shapes[plane]
+    (after the frame axis), equal planes, pts, flags and valid."""
+    if len(got) != len(cpu):
+        fail(f"{key}: {len(got)} windows on the card, {len(cpu)} on CPU")
+    for a, c in zip(got, cpu):
+        if sorted(a.data) != sorted(shapes) or sorted(c.data) != sorted(
+                shapes):
+            fail(f"{key}: planes {sorted(a.data)}")
+        for k, shape in shapes.items():
+            if a.data[k].shape[1:] != shape or not (
+                    a.data[k] == c.data[k]).all():
+                fail(f"{key}: plane {k} {a.data[k].shape} differs from the "
+                     "CPU port")
+        for f in ("pts", "flags", "valid"):
+            if getattr(a, f).shape != getattr(c, f).shape or not (
+                    getattr(a, f) == getattr(c, f)).all():
+                fail(f"{key}: {f} differs from the CPU port")
+
+
+def iqa_close(key, got_msgs, cpu_msgs) -> float:
+    """iqa's messages of a card run against the CPU port's: same elements,
+    names, pts, fields and exceeded; dssim fields within 1e-5 (float32
+    reductions in another order), ssim within 1e-12.  Returns the largest
+    dssim difference."""
+    if len(got_msgs) != len(cpu_msgs) or not got_msgs:
+        fail(f"{key}: {len(got_msgs)} messages on the card, "
+             f"{len(cpu_msgs)} on CPU")
+    worst = 0.0
+    for (ge, gn, gp, gf), (ce, cn, cp, cf) in zip(got_msgs, cpu_msgs):
+        if (ge, gn, gp) != (ce, cn, cp) or sorted(gf) != sorted(cf):
+            fail(f"{key}: message {(ge, gn, gp)} != {(ce, cn, cp)}")
+        if gf["exceeded"] != cf["exceeded"] or not abs(
+                gf["ssim"] - cf["ssim"]) <= 1e-12:
+            fail(f"{key}: ssim {gf['ssim']} / {cf['ssim']}, exceeded "
+                 f"{gf['exceeded']} / {cf['exceeded']}")
+        for k in gf:
+            if k.startswith("dssim"):
+                worst = max(worst, abs(gf[k] - cf[k]))
+    if not worst <= 1e-5:
+        fail(f"{key}: dssim {worst:.3e} from the CPU port's (1e-5 allowed)")
+    return worst
+
+
+def samples_close(key, got, cpu, got_msgs, cpu_msgs, lsb: int,
+                  block=(AUDIO_BLOCK, 1)) -> None:
     """Host S16 audio batches of a card run against the CPU port's: same
-    windows and blocks, pts, flags, valid and bus messages equal, samples
-    within `lsb`; prints the share of samples that differ."""
+    windows and blocks of shape `block`, pts, flags, valid and bus
+    messages equal, samples within `lsb`; prints the share of samples that
+    differ."""
     if len(got) != len(cpu):
         fail(f"{key}: {len(got)} windows on the card, {len(cpu)} on CPU")
     worst = n_diff = total = 0
     for a, c in zip(got, cpu):
-        if a.data.shape[1:] != (AUDIO_BLOCK, 1) or a.data.dtype.name != "int16":
+        if a.data.shape[1:] != block or a.data.dtype.name != "int16":
             fail(f"{key}: blocks {a.data.shape} {a.data.dtype}")
         for f in ("pts", "flags", "valid"):
             if getattr(a, f).shape != getattr(c, f).shape or not (
@@ -323,6 +392,7 @@ def capture(module, name: str, store: dict):
 
 
 def main() -> int:
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -403,7 +473,7 @@ def main() -> int:
                           "metrics_default", "comb_score_pairs",
                           "comb_mask", "gaussian_blur_words",
                           "warp_words", "vad_powers_serial",
-                          "vad_powers_bracket")}
+                          "vad_powers_bracket", "freeverb_scan")}
     wide = LinearIndex((300, 1000, 7, 0), 0, 11)     # weights above 255
 
     def check_k1(shape, batch, index, erode, thr):
@@ -727,7 +797,67 @@ def main() -> int:
     log(f"K8 vad_powers_bracket hard cases: {n_cases} (n 1-9600, nb 1-300, "
         f"noise/DC/square/silence, unaligned rows): max_abs_err {e8} "
         f"({closed} brackets closed)")
-    if any(err.values()):
+
+    # freeverb_scan against its plain version, which runs on a CPU copy
+    # (one Python step a sample); both take the C's operation order
+    fv_params = {k: v.to(dev) for k, v in gtt.make(
+        "freeverb").dynamic_params().items()}
+    fv_plain_s = {}
+
+    def check_freeverb(label, rate, mono, xs, params=fv_params):
+        """freeverb_scan over the blocks xs (host float32 arrays), the state
+        carried from block to block, against freeverb_scan_plain on the
+        CPU: the largest difference of any output sample or state value."""
+        cpu_params = {k: v.cpu() for k, v in params.items()}
+        st = audio.freeverb_init_state(rate, dev)
+        ref = audio.freeverb_init_state(rate, "cpu")
+        e = 0.0
+        for x in xs:
+            st, y = audio.freeverb_scan(st, x.to(dev), params, rate, mono)
+            t0 = time.perf_counter()
+            ref, want = audio.freeverb_scan_plain(ref, x, cpu_params, rate,
+                                                  mono)
+            fv_plain_s[label] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            e = max(e, float((y.cpu() - want).abs().max()),
+                    *(float((st[k].cpu().double() - ref[k].double())
+                            .abs().max()) for k in ref))
+        err["freeverb_scan"] = max(err["freeverb_scan"], e)
+        log(f"freeverb_scan {label} at {rate} Hz "
+            f"{'mono' if mono else 'stereo'}, blocks "
+            f"{[tuple(x.shape) for x in xs]}: max_abs_err {e:.3e}")
+        return e
+
+    def fv_noise(n, mono, scale=0.9):
+        shape = (n,) if mono else (n, 2)
+        return ((torch.rand(shape, generator=gen, device=dev) - 0.5)
+                * (2 * scale)).cpu()
+
+    n_fv = WINDOW * FV_BLOCK
+    fv_main = fv_noise(n_fv, False)
+    for mono, x in ((False, fv_main), (True, fv_noise(n_fv, True))):
+        check_freeverb(f"[{n_fv}{'' if mono else ', 2'}]", FV_RATE, mono,
+                       [x])
+    # hard cases: 8 kHz (an allpass ring of 40 samples, shorter than the
+    # kernel's 128-sample chunk), 16 kHz and 31999 Hz (the largest rings);
+    # a block of one sample and one a sample shorter than the shortest
+    # ring, then a long one, the state carried across the three calls;
+    # the element's other corners (damping 0.9, room size 1)
+    for rate in (8000, 16000, 31999):
+        short = int(min(v.min() for v in audio.freeverb_sizes(
+            rate).values())) - 1
+        for mono in (False, True):
+            check_freeverb("hard", rate, mono,
+                           [fv_noise(n, mono) for n in (1, short, 3000)])
+    hard_params = {k: v.to(dev) for k, v in gtt.make(
+        "freeverb", damping=0.9, **{"room-size": 1.0}).dynamic_params()
+        .items()}
+    check_freeverb("damping 0.9, room-size 1", FV_RATE, False,
+                   [fv_noise(2000, False)], hard_params)
+    if not err["freeverb_scan"] <= 2e-6:
+        fail(f"freeverb_scan: {err['freeverb_scan']:.3e} from its plain "
+             "version (2e-6 allowed)")
+    if any(v for k, v in err.items() if k != "freeverb_scan"):
         fail(f"kernels disagree with their plain versions: {err}")
 
     # 4. the main paths through parse_launch on the card
@@ -755,7 +885,13 @@ def main() -> int:
             "config3_audio": lambda device: benchmarks.config3_audio(
                 AUDIO_BLOCK, device=device),
             "vad_square": lambda device: benchmarks.vad_square(
-                AUDIO_BLOCK, device=device)}
+                AUDIO_BLOCK, device=device),
+            "transcode_i420_blur": lambda device:
+                benchmarks.transcode_i420_blur(W, H, device=device),
+            "iqa_dssim_1080p": lambda device: benchmarks.iqa_dssim_1080p(
+                W, H, device=device),
+            "freeverb_22k": lambda device: benchmarks.freeverb_22k(
+                FV_BLOCK, device=device)}
     audio_keys = ("config3_audio", "vad_square")
     counters = {"dilate_zebra_fused": chainfuse.dilate_zebra_fused,
                 "apply_word_table": lut.apply_word_table,
@@ -765,7 +901,8 @@ def main() -> int:
                 "gaussian_blur_words": blur.gaussian_blur_words,
                 "warp_words": remap.warp_words,
                 "vad_powers_serial": audio.vad_powers_serial,
-                "vad_powers_bracket": audio.vad_powers_bracket}
+                "vad_powers_bracket": audio.vad_powers_bracket,
+                "freeverb_scan": audio.freeverb_scan}
     # (windows, window) of each path's counted run, and the launches each
     # kernel must make per window on it
     plan = {"headline_bars": (3, 8, {"dilate_zebra_fused": 1}),
@@ -782,14 +919,19 @@ def main() -> int:
             "config3_audio": (2, WINDOW, {"vad_powers_bracket": 1,
                                           "vad_powers_serial": 0}),
             "vad_square": (2, WINDOW, {"vad_powers_bracket": 1,
-                                       "vad_powers_serial": 1})}
+                                       "vad_powers_serial": 1}),
+            "transcode_i420_blur": (2, 8, {"gaussian_blur_words": 1}),
+            "iqa_dssim_1080p": (2, 4, {"gaussian_blur_words": 1}),
+            # one window: the CPU port walks its 141120 samples one by one
+            "freeverb_22k": (1, WINDOW, {"freeverb_scan": 1})}
     shapes = {"headline_bars": (H, W, 4), "headline_ball": (H, W, 4),
               "prefix_bars": (H, W, 4), "config5_ivtc": (H5, W5),
               "combdetect_720p": (H5, W5), "config2_blur_bars": (H, W, 4),
               "config2_blur_ball": (H, W, 4), "config4_warp": (H4, W4, 4),
-              "warp_1080p": (H, W, 4)}
+              "warp_1080p": (H, W, 4), "iqa_dssim_1080p": (H, W, 4)}
     windows = {key: WINDOW4 if key == "config4_warp" else WINDOW
                for key in runs}
+    windows["iqa_dssim_1080p"] = WINDOW_IQA
 
     # K3 to K7's main-path inputs, recorded on uncounted runs
     inputs = {}
@@ -806,9 +948,11 @@ def main() -> int:
     # K8's: config 3's bracket input and vad_square's serial input; config
     # 3's freeverb output on the card, held against the CPU port's below
     undo += [capture(audio, "vad_powers_bracket", inputs),
-             capture(audio, "vad_powers_serial", inputs)]
+             capture(audio, "vad_powers_serial", inputs),
+             capture(audio, "freeverb_scan", inputs)]
     fv_card = tap_data(runs["config3_audio"]("cuda"), "freeverb", 2, WINDOW)
     runs["vad_square"]("cuda").run(n_frames=WINDOW, window=WINDOW)
+    runs["freeverb_22k"]("cuda").run(n_frames=WINDOW, window=WINDOW)
     for u in undo:
         u()
     torch.cuda.synchronize()
@@ -822,6 +966,18 @@ def main() -> int:
     (x_serial, p0_serial), _ = inputs["vad_powers_serial"][0]
     check_vad("main-path inputs config3_audio", x_bracket, p0_serial)
     check_vad("main-path inputs vad_square", x_serial, p0_serial)
+    # freeverb_22k's window, as the element gives it to the walk: its F32
+    # output within 2e-6 of the plain version's is the path's F32 check
+    if len(inputs["freeverb_scan"]) != 1:
+        fail(f"freeverb_22k gave freeverb_scan "
+             f"{len(inputs['freeverb_scan'])} inputs, 1 expected")
+    fv_args, _ = inputs["freeverb_scan"][0]
+    fv_st_mp, fv_x_mp, fv_p_mp, fv_rate_mp, fv_mono_mp = fv_args
+    check_freeverb("main-path input freeverb_22k", fv_rate_mp, fv_mono_mp,
+                   [fv_x_mp.cpu()], fv_p_mp)
+    if not err["freeverb_scan"] <= 2e-6:
+        fail(f"freeverb_scan: {err['freeverb_scan']:.3e} from its plain "
+             "version on freeverb_22k's input (2e-6 allowed)")
     if len(inputs["vad_powers_bracket"]) != 3 or len(
             inputs["vad_powers_serial"]) != 1:
         fail("main paths gave K8's bracket "
@@ -846,7 +1002,7 @@ def main() -> int:
     if len(blur_mp) != 2 or len(warp_mp) != 3:
         fail(f"main paths gave K3 {len(blur_mp)} and K7 {len(warp_mp)} "
              "inputs, 2 and 3 expected")
-    if any(err.values()):
+    if any(v for k, v in err.items() if k != "freeverb_scan"):
         fail(f"kernels disagree with their plain versions: {err}")
 
     launches = {k: 0 for k in counters}
@@ -876,6 +1032,24 @@ def main() -> int:
             samples_close(key, outs[key], cpu, msgs[key], bus_messages(pipe),
                           1 if key == "config3_audio" else 0)
             continue
+        if key == "freeverb_22k":
+            samples_close(key, outs[key], cpu, msgs[key], bus_messages(pipe),
+                          1, block=(FV_BLOCK, 2))
+            continue
+        if key == "transcode_i420_blur":
+            planes_equal(key, outs[key], cpu, {"y": (H, W),
+                                               "u": (H // 2, W // 2),
+                                               "v": (H // 2, W // 2)})
+            log(f"{key}: {len(cpu)} windows, "
+                f"{sum(len(b.pts) for b in cpu)} I420 frames equal the CPU "
+                "port")
+            continue
+        if key == "iqa_dssim_1080p":
+            worst = iqa_close(key, msgs[key], bus_messages(pipe))
+            log(f"{key}: {len(msgs[key])} IQA messages within {worst:.3e} "
+                "(dssim) of the CPU port's; " + "; ".join(
+                    f"pts {m[2]} dssim {m[3]['dssim']:.6f} ssim "
+                    f"{m[3]['ssim']:.6f}" for m in msgs[key][:2]))
         frames_equal(key, outs[key], cpu, shapes[key])
         log(f"{key}: {len(cpu)} windows, {sum(len(b.pts) for b in cpu)} "
             "frames equal the CPU port")
@@ -884,6 +1058,114 @@ def main() -> int:
     log(f"config5_fidelity card {fid['cuda']} cpu {fid['cpu']}")
     if fid["cuda"] != fid["cpu"]:
         fail("config5_fidelity differs between the card and the CPU port")
+
+    # 4b. videoconvert's format matrix: every (source, target) pair of its
+    # 26 formats on a random 64x48 window of 4 frames, card against CPU
+    from gstbad_tpu_torch.core.frame import FrameBatch
+    from gstbad_tpu_torch.core.spec import MediaSpec, VideoFormat as VF
+    from gstbad_tpu_torch.elements.video.convert import _ALL as CONVERT_ALL
+
+    def random_frames(fmt, b, h, w):
+        def u8(*shape):
+            return rand_i32(*shape, lo=0, hi=256).to(torch.uint8)
+
+        def u16(*shape):
+            return rand_i32(*shape, lo=0, hi=65536).to(torch.uint16)
+        planes = {VF.I420: (h // 2, w // 2), VF.YV12: (h // 2, w // 2),
+                  VF.Y444: (h, w), VF.Y42B: (h, w // 2), VF.Y41B: (h, w // 4)}
+        if fmt in planes:
+            return {"y": u8(b, h, w), "u": u8(b, *planes[fmt]),
+                    "v": u8(b, *planes[fmt])}
+        if fmt in VF.SEMIPLANAR_YUV:
+            return {"y": u8(b, h, w), "uv": u8(b, h // 2, w)}
+        if fmt in VF.PACKED_RGB16:
+            return u16(b, h, w)
+        if fmt == VF.ARGB64:
+            return u16(b, h, w, 4)
+        if fmt == VF.GRAY8:
+            return u8(b, h, w)
+        if fmt in VF.PACKED_YUV422:
+            return u8(b, h, 2 * w)
+        return u8(b, h, w, VF.n_channels(fmt))
+
+    def convert_on(device, src, dst, data):
+        el = gtt.make("videoconvert", format=dst)
+        el.device = torch.device(device)
+        el.set_info(MediaSpec(kind="video", format=src, width=CONVERT_W,
+                              height=CONVERT_H))
+        tree = ({k: v.to(device) for k, v in data.items()}
+                if isinstance(data, dict) else data.to(device))
+        out = el.process(el.dynamic_params(), None,
+                         FrameBatch.make(tree))[1].data
+        return ({k: v.cpu() for k, v in out.items()}
+                if isinstance(out, dict) else out.cpu())
+
+    n_pairs = 0
+    for src in CONVERT_ALL:
+        data = random_frames(src, 4, CONVERT_H, CONVERT_W)
+        for dst in CONVERT_ALL:
+            card_out = convert_on("cuda", src, dst, data)
+            cpu_out = convert_on("cpu", src, dst, data)
+            pairs = ([(card_out[k], cpu_out[k]) for k in cpu_out]
+                     if isinstance(cpu_out, dict) else [(card_out, cpu_out)])
+            if isinstance(cpu_out, dict) != isinstance(card_out, dict) or any(
+                    a.dtype != c.dtype or not torch.equal(a, c)
+                    for a, c in pairs):
+                fail(f"videoconvert {src} -> {dst}: the card differs from "
+                     "the CPU port")
+            n_pairs += 1
+    log(f"videoconvert format matrix: {n_pairs} pairs of "
+        f"{len(CONVERT_ALL)} formats at {CONVERT_W}x{CONVERT_H}, 4 frames: "
+        "card equals CPU")
+
+    # 4c. the noise sources: window independence and determinism on the
+    # card, card against CPU (both draw from the same integer hash)
+    def noise_run(desc, device, n, window):
+        res = gtt.parse_launch(desc, device=device).run(n_frames=n,
+                                                        window=window)
+        first = res[0].data
+        if isinstance(first, dict):
+            return {k: np.concatenate([b.data[k] for b in res])
+                    for k in first}
+        return {"": np.concatenate([b.data for b in res])}
+
+    def same(a, b):
+        return sorted(a) == sorted(b) and all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+            for k in a)
+
+    for fmt in ("AYUV", "I420", "GRAY8"):
+        desc = (f"videotestsrc pattern=noise width={W} height={H} "
+                f"format={fmt} seed=7 ! fakesink")
+        a = noise_run(desc, "cuda", 8, 4)
+        if not (same(a, noise_run(desc, "cuda", 8, 8))
+                and same(a, noise_run(desc, "cuda", 8, 4))
+                and same(a, noise_run(desc, "cpu", 8, 2))):
+            fail(f"videotestsrc pattern=noise {fmt}: windows 4 and 8, a "
+                 "second run and the CPU port do not agree")
+        drawn = a["y"] if "y" in a else a[""]
+        if fmt == "AYUV":
+            drawn = drawn[..., 1:]
+        hist = np.bincount(drawn.ravel(), minlength=256)
+        expect = drawn.size / 256
+        log(f"videotestsrc pattern=noise {fmt} {W}x{H}, 8 frames: windows "
+            "4 and 8, two runs and the CPU port equal; byte chi-squared "
+            f"{((hist - expect) ** 2 / expect).sum():.1f} over 255 degrees "
+            "of freedom")
+    desc = ("audiotestsrc wave=white-noise channels=2 format=F32 seed=7 "
+            f"samplesperbuffer={AUDIO_BLOCK} ! fakesink")
+    a = noise_run(desc, "cuda", WINDOW, 16)
+    if not (same(a, noise_run(desc, "cuda", WINDOW, WINDOW))
+            and same(a, noise_run(desc, "cpu", WINDOW, 32))):
+        fail("audiotestsrc wave=white-noise: windows 16 and 64 and the CPU "
+             "port do not agree")
+    x = a[""][..., 0].astype(np.float64)
+    if not (x[:16] != x[16:32]).mean() > 0.99:
+        fail("audiotestsrc wave=white-noise: consecutive windows repeat")
+    log(f"audiotestsrc wave=white-noise {WINDOW} blocks of {AUDIO_BLOCK}: "
+        f"windows 16 and 64 and the CPU port equal; mean {x.mean():.6f}, "
+        f"variance {x.var():.6f} (uniform on [-0.8, 0.8]: 0, "
+        f"{0.64 / 3:.6f})")
 
     # 5. timing
     def fps_runs(build, window, reps: int = 5, n_steps: int = 10):
@@ -916,6 +1198,10 @@ def main() -> int:
         log(f"realtime {key}: {fps[key]:.1f} source blocks/s of "
             f"{AUDIO_BLOCK} samples = {rt:.2f}x realtime at 48 kHz "
             f"({card})")
+    rt = fps["freeverb_22k"] * FV_BLOCK / FV_RATE
+    log(f"realtime freeverb_22k: {fps['freeverb_22k']:.1f} source blocks/s "
+        f"of {FV_BLOCK} samples = {rt:.2f}x realtime at {FV_RATE} Hz "
+        f"({card})")
     log("realtime config3_audio: the compiled C chain of BASELINE config 3 "
         f"on the host CPU runs {C_AUDIO_REALTIME_X}x realtime "
         f"(BASELINE_C.json): the card's graph is "
@@ -1023,6 +1309,12 @@ def main() -> int:
         cuda_ms(lambda: audio.vad_powers_bracket(x_bracket)),
         cuda_ms(lambda: audio.vad_powers_bracket_plain(x_bracket), iters=1,
                 warmup=1), None)
+    # freeverb_scan on freeverb_22k's window; its plain version is the
+    # Python walk on a CPU copy, timed by the host clock where phase 4 ran
+    # it on the same input; no PyTorch call computes the walk
+    times["freeverb_scan"] = (
+        cuda_ms(lambda: audio.freeverb_scan(*fv_args)),
+        fv_plain_s["main-path input freeverb_22k"] * 1e3, None)
     # the latency of one step of the chain, from the probe kernel
     probe = torch.zeros(2, dtype=torch.int64, device=dev)
     probe_steps = 1 << 20
@@ -1130,6 +1422,27 @@ def main() -> int:
         log(f"{label}: {nb} blocks of {n} samples; chain {in_order} steps "
             f"x {step_cycles:.3f} cycles at {sm_hz / 1e6:.0f} MHz = "
             f"{chains[label]:.4f} ms")
+    # freeverb_scan: its chain is one comb's walk, the window's samples in
+    # order, each one dependent step (a multiply and an add) of the
+    # filterstore recurrence, measured by a probe kernel on registers.
+    # Bytes: the window read once, the output and the state written once;
+    # operations: per sample and side, 8 combs (5 each: 3 products and 2
+    # sums), 8 tap sums, 4 allpasses (3 each), the offset and the mix (4)
+    fv_steps = 1 << 18
+    _cuda.launch("gst_freeverb_step_cycles", probe, fv_steps)
+    torch.cuda.synchronize()
+    fv_cycles = probe[0].item() / fv_steps
+    n_fv_mp = fv_x_mp.shape[0]
+    chains["freeverb_scan"] = n_fv_mp * fv_cycles / sm_hz * 1e3
+    state_bytes = 2 * 4 * sum(v.numel() for v in fv_st_mp.values())
+    bounds["freeverb_scan"] = bound(
+        4 * fv_x_mp.numel() + 8 * n_fv_mp + state_bytes,
+        2 * (8 * 5 + 8 + 4 * 3 + 4) * n_fv_mp, fp32_per_s,
+        chains["freeverb_scan"])
+    log(f"freeverb_scan: {n_fv_mp} samples at {fv_rate_mp} Hz; comb step "
+        f"{fv_cycles:.3f} cycles ({fv_steps} steps on registers); chain "
+        f"{n_fv_mp} steps = {chains['freeverb_scan']:.4f} ms at "
+        f"{sm_hz / 1e6:.0f} MHz; plain version on the host CPU")
     for label, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bounds[label]
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
@@ -1180,6 +1493,9 @@ def main() -> int:
               "gstbad_tpu/ops/audio.py:585"),
         entry("vad_powers_bracket", "K8_bracket", "vad_kernels.cu",
               "gstbad_tpu/ops/audio.py:653"),
+        # not a TPU kernel: the JAX package's XLA lax.scan
+        entry("freeverb_scan", "freeverb_scan", "freeverb_kernels.cu",
+              "gstbad_tpu/ops/audio.py:500"),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

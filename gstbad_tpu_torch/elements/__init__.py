@@ -1,6 +1,7 @@
 """Element families; importing this package registers every factory."""
 
 from gstbad_tpu_torch.elements import debugutils  # noqa: F401
+from gstbad_tpu_torch.elements.analysis import compare  # noqa: F401
 from gstbad_tpu_torch.elements.audio import (  # noqa: F401
     convert as audio_convert, freeverb, mixmatrix, removesilence)
 from gstbad_tpu_torch.elements.geometry import geometrictransform  # noqa: F401

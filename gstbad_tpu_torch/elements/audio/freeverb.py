@@ -16,7 +16,9 @@ from gstbad_tpu_torch.ops import audio as ops
 class Freeverb(AudioFilter):
     """room-size/damping/width/level all default per the reference
     (gstfreeverb.c:403-421); mono or stereo in, stereo out; S16 or F32.
-    Rates below 32 kHz are not ported yet (ops.freeverb_process raises)."""
+    Below 32 kHz the reverb runs the C's per-sample loop (the CUDA kernel
+    ops.freeverb_scan on the card), with the ring lengths of
+    ops.freeverb_sizes(rate)."""
 
     NAME = "freeverb"
     FORMATS = (AudioFormat.F32, AudioFormat.S16)

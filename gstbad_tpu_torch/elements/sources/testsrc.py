@@ -2,9 +2,14 @@
 
 The reference consumes gst-plugins-base's videotestsrc in every launch line
 and test; this one generates batched frames directly on the pipeline's
-device so benchmarks aren't host-transfer bound.  videotestsrc's noise
-pattern and audiotestsrc's white noise (drawn from JAX's PRNG in the JAX
-package, which torch cannot reproduce) are not ported yet.
+device so benchmarks aren't host-transfer bound.
+
+videotestsrc's noise pattern and audiotestsrc's white noise come from a
+counter-based integer hash keyed by `seed` (the JAX package draws them from
+JAX's PRNG, which torch cannot reproduce, so the two agree in distribution
+only): frame n's bytes are a function of (seed, n) and sample i's value of
+(seed, i), whatever the window, and the hash is int64 torch arithmetic with
+every product below 2^63, so the card and the CPU give the same bits.
 """
 
 from __future__ import annotations
@@ -25,6 +30,54 @@ from gstbad_tpu_torch.ops.pointops import unpack32
 _BARS_RGB = np.array([
     [191, 191, 191], [191, 191, 0], [0, 191, 191], [0, 191, 0],
     [191, 0, 191], [191, 0, 0], [0, 0, 191], [0, 0, 0]], np.uint8)
+
+
+_M32 = 0xFFFFFFFF
+_HASH_MUL = 0x45D9F3B       # below 2^27: a 32-bit value times it < 2^59
+_VIDEO_STREAM, _AUDIO_STREAM_HI, _AUDIO_STREAM_LO = (0x9E3779B9, 0x85EBCA6B,
+                                                     0xC2B2AE35)
+
+
+def _mix32(x):
+    """A bijective 32-bit integer hash (two multiply-xorshift rounds) of
+    x in [0, 2^32): a Python int or an int64 tensor."""
+    x = (((x >> 16) ^ x) * _HASH_MUL) & _M32
+    x = (((x >> 16) ^ x) * _HASH_MUL) & _M32
+    return (x >> 16) ^ x
+
+
+def _counter_key(seed: int, stream: int, counter):
+    """The 32-bit key of (seed, stream, counter), counter an int64 tensor
+    of frame or sample numbers (any sign, any size)."""
+    s = seed & 0xFFFFFFFFFFFFFFFF
+    k = _mix32(_mix32((s & _M32) ^ stream) ^ (s >> 32))
+    k = _mix32(k ^ (counter & _M32))
+    return _mix32(k ^ ((counter >> 32) & _M32))
+
+
+def noise_frames(seed: int, frames, shape, dtype) -> torch.Tensor:
+    """Uniform random frames [B, *shape] of `dtype` (uint8 or uint16) for
+    the frame numbers `frames` (int64 [B]): every byte of frame n is a
+    function of (seed, n) and its position alone.  One 32-bit hash a word
+    of four bytes, its bytes in little-endian order."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = int(np.prod(shape)) * itemsize
+    j = torch.arange((nbytes + 3) // 4, dtype=torch.int64,
+                     device=frames.device)
+    key = _counter_key(seed, _VIDEO_STREAM, frames)[:, None]
+    h = _mix32((_mix32(j[None, :] ^ key) + key) & _M32)
+    h = h - ((h >> 31) << 32)          # the same bits as an int32 value
+    raw = h.to(torch.int32).view(torch.uint8)[:, :nbytes]
+    return raw.contiguous().view(dtype).reshape((len(frames),) + tuple(shape))
+
+
+def noise_uniform(seed: int, idx) -> torch.Tensor:
+    """Uniform float64 in [0, 1) on the 2^-53 grid for the sample numbers
+    idx (int64 tensor), as numpy forms a double from two 32-bit draws
+    (53 = 27 + 26 bits)."""
+    a = _mix32(_counter_key(seed, _AUDIO_STREAM_HI, idx))
+    b = _mix32(_counter_key(seed, _AUDIO_STREAM_LO, idx))
+    return ((a >> 5) * 67108864 + (b >> 6)).to(torch.float64) * 2.0 ** -53
 
 
 def _rgb_to_yuv_bt601(rgb: np.ndarray) -> np.ndarray:
@@ -80,10 +133,10 @@ class VideoTestSrc(Element):
             yy, xx = np.mgrid[:h, :w]
             c = (((yy // 8) + (xx // 8)) % 2) * 255
             rgb = np.stack([c, c, c], -1).astype(np.uint8)
-        elif pattern in ("black", "solid-color", "white", "ball"):
+        elif pattern in ("black", "solid-color", "white", "ball", "noise"):
             if pattern == "white":
                 color = (255, 255, 255)
-            elif pattern == "black":
+            elif pattern in ("black", "noise"):
                 color = (0, 0, 0)
             elif pattern == "ball":
                 color = (32, 32, 32)
@@ -92,9 +145,6 @@ class VideoTestSrc(Element):
                 color = ((fg >> 16) & 0xFF, (fg >> 8) & 0xFF, fg & 0xFF)
             rgb = np.broadcast_to(np.array(color, np.uint8)[None, None, :],
                                   (h, w, 3))
-        elif pattern == "noise":
-            raise ValueError("videotestsrc: pattern=noise is not ported to "
-                             "gstbad_tpu_torch yet")
         else:
             raise ValueError(f"unknown pattern {pattern!r}")
         self._bg_rgb = np.ascontiguousarray(rgb)
@@ -219,6 +269,8 @@ class VideoTestSrc(Element):
                 data = unpack32(word)
             else:
                 data = self._apply_luma_overlay(broadcast(self._bg), mask)
+        elif pattern == "noise":
+            data = self._noise(n)
         elif self._bg_word is not None:
             word = self._bg_word.expand(window, h, w)
             word_base = self._bg_word[None]  # [1, H, W] broadcast base
@@ -231,6 +283,25 @@ class VideoTestSrc(Element):
         if word is not None:
             batch = batch.replace(word=word, word_base=word_base)
         return state + window, batch
+
+    def _noise(self, n):
+        """Uniform bytes for frames n: the luma plane of a planar format
+        (its chroma planes 128), every byte of a packed one (AYUV's alpha
+        255).  16-bit formats take 16 random bits a component, where the
+        JAX package draws 0-255 into uint8 frames (ROADMAP queue 3)."""
+        seed = self.props["seed"]
+        if isinstance(self._bg, dict):
+            data = {"y": noise_frames(seed, n, self._bg["y"].shape,
+                                      torch.uint8)}
+            for k, v in self._bg.items():
+                if k != "y":
+                    data[k] = torch.full((len(n),) + v.shape, 128,
+                                         dtype=torch.uint8, device=v.device)
+            return data
+        data = noise_frames(seed, n, self._bg.shape, self._bg.dtype)
+        if self._is_ayuv:
+            data[..., 0] = 255
+        return data
 
     def _apply_luma_overlay(self, data, mask):
         fmt = self.out_spec.format
@@ -257,9 +328,11 @@ _AUDIO_DTYPES = {AudioFormat.S16: torch.int16, AudioFormat.S32: torch.int32,
 
 @register
 class AudioTestSrc(Element):
-    """Sine/square/silence PCM generator, [B, S, C] blocks of S =
-    samplesperbuffer samples.  The waveform is float64, as in the JAX
-    package, and converted to the sample format at the end."""
+    """Sine/square/silence/white-noise PCM generator, [B, S, C] blocks of
+    S = samplesperbuffer samples.  The waveform is float64, as in the JAX
+    package, and converted to the sample format at the end.  White noise is
+    drawn per absolute sample index, so consecutive windows differ (the JAX
+    package repeats one draw every window, ROADMAP queue 3)."""
 
     NAME = "audiotestsrc"
     KIND = "source"
@@ -281,10 +354,7 @@ class AudioTestSrc(Element):
 
     def prepare(self):
         wave = self.props["wave"]
-        if wave == "white-noise":
-            raise ValueError("audiotestsrc: wave=white-noise is not ported "
-                             "to gstbad_tpu_torch yet (ROADMAP queue 1)")
-        if wave not in ("sine", "square", "silence"):
+        if wave not in ("sine", "square", "silence", "white-noise"):
             raise ValueError(f"unknown wave {wave!r}")
         if self.out_spec.format not in _AUDIO_DTYPES:
             raise ValueError(f"audiotestsrc: unknown format "
@@ -305,6 +375,8 @@ class AudioTestSrc(Element):
         if wave == "silence":
             x = torch.zeros((window, s), dtype=torch.float64,
                             device=self.device)
+        elif wave == "white-noise":
+            x = vol * (noise_uniform(self.props["seed"], idx) * 2 - 1)
         else:
             # 2*pi*freq * (idx / rate) as the JAX package's compiled form
             # evaluates it: XLA folds the two constants into one factor

@@ -1,13 +1,14 @@
-"""videofilters — zebrastripe (gst/videofilters/).  scenechange, videodiff
-and smooth are not ported yet."""
+"""videofilters — scenechange, zebrastripe, videodiff (gst/videofilters/)
+plus smooth (gst/smooth/)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from gstbad_tpu_torch.core import tablefuse
 from gstbad_tpu_torch.core.element import Property, VideoFilter
-from gstbad_tpu_torch.core.frame import FrameBatch
+from gstbad_tpu_torch.core.frame import FrameBatch, to_device, to_host
 from gstbad_tpu_torch.core.registry import register
 from gstbad_tpu_torch.core.spec import MediaSpec, VideoFormat, require
 from gstbad_tpu_torch.ops import chainfuse, pointops
@@ -111,3 +112,181 @@ class ZebraStripe(_LumaFilter):
         zebra = (word & pointops.i32(0xFFFF00FF)) | (16 << 8)
         out = torch.where(stripe & (y >= thr), zebra, word)
         return state + b, pointops.unpack32(out)
+
+
+def _previous_valid(y, valid, prev):
+    """For each slot of a window, the luma of the last VALID frame before
+    it (invalid slots, the window adapter's rate padding, are not buffer
+    arrivals), else the carried `prev`; and whether one was found.
+    Returns (prevs [B, H, W], found [B], last valid slot or -1)."""
+    b = y.shape[0]
+    pos = torch.arange(b, dtype=torch.int64, device=y.device)
+    vpos = torch.where(valid, pos, -1)
+    last_v = torch.cat([vpos.new_full((1,), -1),
+                        torch.cummax(vpos, dim=0).values[:-1]])
+    found = last_v >= 0
+    prevs = torch.where(found[:, None, None], y[last_v.clamp(min=0)],
+                        prev[None])
+    return prevs, found, vpos.max()
+
+
+@register
+class VideoDiff(_LumaFilter):
+    """gstvideodiff.c: highlight luma deltas above threshold=10 vs the
+    previous frame; first frame passes through (gstvideodiff.c:128-174).
+    The reference never increments its stripe phase t, so t=0."""
+
+    NAME = "videodiff"
+    # "{ I420, Y444, Y42B, Y41B }" (gstvideodiff.c:51) + GRAY8 extension
+    FORMATS = (VideoFormat.I420, VideoFormat.Y444, VideoFormat.Y42B,
+               VideoFormat.Y41B, VideoFormat.GRAY8)
+
+    def init_state(self, batch: int):
+        h, w = self.in_spec.height, self.in_spec.width
+        return {"prev": torch.zeros((h, w), dtype=torch.uint8,
+                                    device=self.device),
+                "have_prev": torch.zeros((), dtype=torch.bool,
+                                         device=self.device)}
+
+    def process(self, params, state, batch: FrameBatch):
+        y = self._get_luma(batch.data)
+        prevs, found, last = _previous_valid(y, batch.valid, state["prev"])
+        have = found | state["have_prev"]
+        diff = pointops.videodiff(y, prevs, 10, 0)
+        out = torch.where(have[:, None, None], diff, y)
+        any_v = batch.valid.any()
+        new_state = {
+            "prev": torch.where(any_v, y[last.clamp(min=0)], state["prev"]),
+            "have_prev": state["have_prev"] | any_v}
+        return new_state, batch.with_data(self._set_luma(batch.data, out))
+
+
+def _scene_decisions(scores, valid, have_prev, diffs, n_diffs, count):
+    """gstscenechange.c's decision tree over one window, on the host: the
+    5-score ring, the adaptive threshold 1.8*max - 0.8*min of its first
+    four, and the score tests, in float64 as the JAX package's scan
+    computes them.  Invalid slots change nothing and post nothing.
+    Returns (changes [B] bool, counts [B] int32, have_prev, diffs,
+    n_diffs, count)."""
+    changes = np.zeros(len(scores), bool)
+    counts = np.zeros(len(scores), np.int32)
+    diffs = np.array(diffs, np.float64)
+    for i, (score, ok) in enumerate(zip(scores, valid)):
+        change = False
+        if ok and have_prev:
+            d = np.concatenate([diffs[1:], [score]])
+            n = n_diffs + 1
+            smin, smax = d[:4].min(), d[:4].max()
+            threshold = np.float64(1.8) * smax - np.float64(0.8) * smin
+            with np.errstate(divide="ignore", invalid="ignore"):
+                if n <= 4 or score < 5 or score / threshold < 1.0:
+                    change = False
+                elif score > 30 and score / d[3] > 1.4:
+                    change = True
+                elif score / threshold > 2.3:
+                    change = True
+                else:
+                    change = bool(score > 50)
+            diffs, n_diffs = ((np.zeros(5), 0) if change else (d, n))
+        have_prev = have_prev or bool(ok)
+        count += int(change)
+        changes[i] = change
+        counts[i] = count - 1
+    return changes, counts, have_prev, diffs, n_diffs, count
+
+
+@register
+class SceneChange(_LumaFilter):
+    """gstscenechange.c: SAD of consecutive luma frames, 5-score ring,
+    adaptive threshold 1.8*max - 0.8*min + decision tree; posts a
+    scenechange message where the reference sends force-key-unit events.
+    The scores are taken on the device; the decision tree runs on the host
+    (one copy of B scores and the small state per window)."""
+
+    NAME = "scenechange"
+    # "{ I420, Y42B, Y41B, Y444 }" (gstscenechange.c:107) + GRAY8 extension
+    FORMATS = (VideoFormat.I420, VideoFormat.Y42B, VideoFormat.Y41B,
+               VideoFormat.Y444, VideoFormat.GRAY8)
+
+    def init_state(self, batch: int):
+        h, w = self.in_spec.height, self.in_spec.width
+        dev = self.device
+        return {"prev": torch.zeros((h, w), dtype=torch.uint8, device=dev),
+                "have_prev": torch.zeros((), dtype=torch.bool, device=dev),
+                "diffs": torch.zeros((5,), dtype=torch.float64, device=dev),
+                "n_diffs": torch.zeros((), dtype=torch.int32, device=dev),
+                "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+    def process(self, params, state, batch: FrameBatch):
+        y = self._get_luma(batch.data)
+        prevs, _, last = _previous_valid(y, batch.valid, state["prev"])
+        scores, valid, have_prev, diffs, n_diffs, count = to_host(
+            pointops.sad(y, prevs), batch.valid, state["have_prev"],
+            state["diffs"], state["n_diffs"], state["count"])
+        changes, counts, have_prev, diffs, n_diffs, count = \
+            _scene_decisions(scores, valid, bool(have_prev), diffs,
+                             int(n_diffs), int(count))
+        dev = y.device
+        changes_t, counts_t, have_t, diffs_t, n_t, count_t = to_device(
+            dev, changes, counts, (have_prev, np.bool_), (diffs, np.float64),
+            (n_diffs, np.int32), (count, np.int32))
+        new_state = {"prev": (y[last.clamp(min=0)] if valid.any()
+                              else state["prev"]),
+                     "have_prev": have_t, "diffs": diffs_t,
+                     "n_diffs": n_t, "count": count_t}
+        msgs = {"scenechange": {"_emit": changes_t, "count": counts_t}}
+        return new_state, batch, msgs
+
+
+@register
+class Smooth(_LumaFilter):
+    """gst/smooth/gstsmooth.c: tolerance-gated window mean on luma.
+
+    Faithful to the reference's pointer arithmetic (as the JAX package's
+    golden.videofilters.smooth_y): output row r takes its window from rows
+    [r-filtersize, r+filtersize+3) and the last row is passed through.
+    """
+
+    NAME = "smooth"
+    FORMATS = (VideoFormat.I420, VideoFormat.GRAY8)
+    PROPERTIES = (
+        Property("active", bool, True),
+        Property("tolerance", int, 8, static=True),
+        Property("filter-size", int, 3, static=True),
+        Property("luma-only", bool, True, static=True),
+    )
+
+    def process(self, params, state, batch: FrameBatch):
+        y = self._get_luma(batch.data)
+        data = self._set_luma(batch.data, self._smooth_plane(y, params))
+        if not self.props["luma-only"] and isinstance(batch.data, dict):
+            for k in ("u", "v"):  # smooth_filter on planes 1 and 2
+                data = {**data,
+                        k: self._smooth_plane(batch.data[k], params)}
+        return state, batch.with_data(data)
+
+    def _smooth_plane(self, y, params):
+        fs = self.props["filter-size"]
+        tol = self.props["tolerance"]
+        h, w = y.shape[-2:]
+        dev = y.device
+        src = y.to(torch.int32)
+        ssum = torch.zeros_like(src)
+        num = torch.zeros_like(src)
+        rows = torch.arange(h, device=dev)
+        cols = torch.arange(w, device=dev)
+        for dy in range(-fs, fs + 3):
+            jr = rows + dy
+            shifted = src[..., jr.clamp(0, h - 1), :]
+            for dx in range(-fs, fs + 1):
+                jc = cols + dx
+                inb = (((jr >= 0) & (jr < h))[:, None]
+                       & ((jc >= 0) & (jc < w))[None, :])
+                v = shifted[..., jc.clamp(0, w - 1)]
+                within = (src - tol - v) * (src + tol - v) < 0
+                m = (inb & within).to(torch.int32)
+                ssum += v * m
+                num += m
+        out = ((src + ssum) // (1 + num)).to(torch.uint8)
+        out[..., h - 1, :] = y[..., h - 1, :]  # last row untouched
+        return torch.where(params["active"], out, y)

@@ -1,7 +1,8 @@
 """The benchmark pipeline graphs of the port (the JAX package's
 models/benchmarks.py: the headline graph, configs 1, 2, 2b (gaussianblur),
 3 (the audio chain), 4 (bayer and warps) and 5, the single-warp graphs and
-combdetect; and vad_square), and config 5's quality gate.
+combdetect; and vad_square, the I420 transcode around gaussianblur, the
+iqa DSSIM fan-in and freeverb at 22.05 kHz), and config 5's quality gate.
 
 Each entry builds a Pipeline in launch-string form, so the element API is
 exercised exactly the way users drive it, on `device`.
@@ -46,6 +47,34 @@ def config2_blur(width=1920, height=1080, device="cuda") -> Pipeline:
     return parse_launch(
         f"videotestsrc pattern=bars width={width} height={height} "
         "format=AYUV ! gaussianblur sigma=1.2 ! fakesink", device=device)
+
+
+def transcode_i420_blur(width=1920, height=1080, device="cuda") -> Pipeline:
+    """I420 in, gaussianblur on AYUV, I420 out: the transcode chain every
+    y4m file takes (all y4m input is I420)."""
+    return parse_launch(
+        f"videotestsrc pattern=ball width={width} height={height} "
+        "format=I420 ! videoconvert format=AYUV ! gaussianblur sigma=1.2 "
+        "! videoconvert format=I420 ! fakesink", device=device)
+
+
+def iqa_dssim_1080p(width=1920, height=1080, device="cuda") -> Pipeline:
+    """A stream scored against its source by iqa's multiscale DSSIM: the
+    source (the reference pad) fans in beside its blurred copy
+    (BASELINE's quality oracle)."""
+    return parse_launch(
+        f"videotestsrc pattern=ball width={width} height={height} "
+        "format=AYUV name=ref ! m.  ref. ! gaussianblur sigma=1.2 ! m.  "
+        "iqa name=m ! fakesink", device=device)
+
+
+def freeverb_22k(samplesperbuffer=2205, device="cuda") -> Pipeline:
+    """freeverb on 22.05 kHz stereo: below 32 kHz the reverb runs its
+    per-sample walk (ops.audio.freeverb_scan)."""
+    return parse_launch(
+        "audiotestsrc wave=sine channels=2 format=F32 rate=22050 "
+        f"samplesperbuffer={samplesperbuffer} ! freeverb "
+        "! audioconvert format=S16 ! fakesink", device=device)
 
 
 def config3_audio(samplesperbuffer=4800, device="cuda") -> Pipeline:
@@ -167,6 +196,9 @@ BENCHMARKS: Dict[str, Callable[..., Pipeline]] = {
     "config5_ivtc": config5_ivtc,
     "combdetect_720p": combdetect_720p,
     "ten_element": ten_element_graph,
+    "transcode_i420_blur": transcode_i420_blur,
+    "iqa_dssim_1080p": iqa_dssim_1080p,
+    "freeverb_22k": freeverb_22k,
 }
 
 

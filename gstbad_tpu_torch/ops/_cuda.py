@@ -47,6 +47,8 @@ SIGNATURES = {
     "gst_vad_powers_serial": (_P, _P, _P, _I, _I),
     "gst_vad_powers_bracket": (_P, _P, _P, _I, _I),
     "gst_vad_step_cycles": (_P, _I),
+    "gst_freeverb_scan": (_P,) * 17 + (_I,) * 5,
+    "gst_freeverb_step_cycles": (_P, _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

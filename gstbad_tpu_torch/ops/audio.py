@@ -2,12 +2,15 @@
 removesilence VAD power recurrence (gstbad_tpu/ops/audio.py).
 
 freeverb's sample-serial feedback (8 parallel combs and 4 series
-allpasses per side, gstfreeverb.c:288-330) runs as plain torch ops in two
-forms, both exact rewrites of the serial loop up to float32 reassociation
-(within 2e-6 of the serial C, the JAX package's own gate): a whole-window
-form for windows at least as long as the longest delay line, whose only
-serial part is a walk over blocks of the shortest comb delay, and a
-128-sample block walk for shorter windows.
+allpasses per side, gstfreeverb.c:288-330) runs at 32 kHz and above as
+plain torch ops in two forms, both exact rewrites of the serial loop up to
+float32 reassociation (within 2e-6 of the serial C, the JAX package's own
+gate): a whole-window form for windows at least as long as the longest
+delay line, whose only serial part is a walk over blocks of the shortest
+comb delay, and a 128-sample block walk for shorter windows.  Below 32 kHz,
+as in the JAX package, it runs the serial loop itself: the hand-written
+CUDA kernel `freeverb_scan` (csrc/freeverb_kernels.cu) on the card, its
+plain per-sample version on the CPU.
 
 The VAD power recurrence has two hand-written CUDA kernels
 (csrc/vad_kernels.cu): `vad_powers_serial`, the port of the TPU kernel,
@@ -138,10 +141,7 @@ def freeverb_process(state, x, params, rate: int, mono: bool):
     params: 0-d float32 tensors feedback, damp1, damp2, wet1, wet2, dry,
     gain (gst_freeverb_set_property, gstfreeverb.c:536-570)."""
     if rate < 32000:
-        raise NotImplementedError(
-            f"freeverb at {rate} Hz: the per-sample form the JAX package "
-            "takes below 32 kHz is not ported to gstbad_tpu_torch yet "
-            "(ROADMAP queue 1)")
+        return freeverb_scan(state, x, params, rate, mono)
     sizes = freeverb_sizes(rate)
     dmax = int(max(sizes["combR"].max(), sizes["apR"].max()))
     with _full_fp32_matmul():
@@ -365,6 +365,123 @@ def _freeverb_process_blocked(state, x, params, sizes, mono):
                  "storeL": store[:8].clone(), "storeR": store[8:].clone(),
                  "t": t}
     return new_state, torch.cat(outs)
+
+
+# the order of freeverb_scan's packed coefficients
+FREEVERB_PARAMS = ("feedback", "damp1", "damp2", "wet1", "wet2", "dry",
+                   "gain")
+
+
+def _scan_sizes(rate: int):
+    sizes = freeverb_sizes(rate)
+    if min(int(v.min()) for v in sizes.values()) < 1:
+        raise ValueError(f"freeverb: {rate} Hz leaves a delay line shorter "
+                         "than one sample")
+    return sizes
+
+
+def freeverb_scan_plain(state, x, params, rate: int, mono: bool):
+    """The plain form of freeverb_scan: the C's per-sample loop
+    (gstbad_tpu/ops/audio.py:_freeverb_process_scan) as a Python loop over
+    the samples, on x's device.  Each step reads and writes the 16 combs'
+    and then each allpass stage's two rings with one gather and one
+    scatter (flat ring indices computed before the loop); every product
+    and sum is its own op, in the C's order (the 8 taps summed one by
+    one).  The comb inputs and the wet/dry mix, elementwise, run before
+    and after the loop."""
+    sizes = _scan_sizes(rate)
+    dev = x.device
+    n = int(x.shape[0])
+    t0 = int(state["t"])
+    in1l, in1r, in2l, in2r = _inputs(x, params, mono)
+    inp = torch.cat([in1l.expand(8, n), in1r.expand(8, n)]).T.contiguous()
+    bufs = torch.cat([state["combL_buf"], state["combR_buf"]]).clone()
+    ap = torch.stack([state["apL_buf"], state["apR_buf"]]).clone()
+    store = torch.cat([state["storeL"], state["storeR"]]).clone()
+    # flat indices of each sample's ring positions (t0 + s) mod D
+    steps = np.arange(t0, t0 + n, dtype=np.int64)[:, None]
+    d16 = np.concatenate([sizes["combL"], sizes["combR"]]).astype(np.int64)
+    a8 = np.stack([sizes["apL"], sizes["apR"]], axis=1).astype(np.int64)
+    comb_idx, ap_idx = to_device(
+        dev, np.arange(16) * bufs.shape[1] + steps % d16,
+        ((np.arange(2) * 4)[None, :] + np.arange(4)[:, None]) * ap.shape[2]
+        + steps[:, :, None] % a8[None])
+    comb_flat, ap_flat = bufs.view(-1), ap.view(-1)
+    feedback, damp1, damp2 = (params[k] for k in ("feedback", "damp1",
+                                                  "damp2"))
+    out = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    for s, ci, ai, xin in zip(range(n), comb_idx.unbind(0),
+                              ap_idx.unbind(0), inp.unbind(0)):
+        tmp = comb_flat.take(ci)
+        store = tmp * damp2 + store * damp1
+        comb_flat.put_(ci, xin + store * feedback)
+        taps = tmp.view(2, 8).T.unbind(0)
+        sig = taps[0]
+        for tap in taps[1:]:
+            sig = sig + tap
+        for stage in ai.unbind(0):
+            bufout = ap_flat.take(stage)
+            ap_flat.put_(stage, sig + bufout * 0.5)
+            sig = bufout - sig
+        out[s] = sig
+    outl = out[:, 0] - DC_OFFSET
+    outr = out[:, 1] - DC_OFFSET
+    yl = outl * params["wet1"] + outr * params["wet2"] + in2l * params["dry"]
+    yr = outr * params["wet1"] + outl * params["wet2"] + in2r * params["dry"]
+    new_state = {"combL_buf": bufs[:8], "combR_buf": bufs[8:],
+                 "apL_buf": ap[0], "apR_buf": ap[1],
+                 "storeL": store[:8], "storeR": store[8:],
+                 "t": state["t"] + n}
+    return new_state, torch.stack([yl, yr], dim=-1)
+
+
+def freeverb_scan(state, x, params, rate: int, mono: bool):
+    """freeverb's per-sample walk over one window, the form the reverb
+    takes below 32 kHz: x [N] (mono) or [N, 2] float32 -> (state,
+    [N, 2] float32), in the C's operation order.
+
+    Not a TPU kernel: it replaces the XLA lax.scan
+    gstbad_tpu/ops/audio.py:_freeverb_process_scan.  CPU tensors take
+    freeverb_scan_plain; CUDA tensors launch
+    csrc/freeverb_kernels.cu:freeverb_scan_kernel or raise.  The state is
+    not written: the kernel writes a new one."""
+    _scan_sizes(rate)
+    if x.device.type == "cpu":
+        return freeverb_scan_plain(state, x, params, rate, mono)
+    from gstbad_tpu_torch.ops import _cuda
+    want = (x.shape[0],) if mono else (x.shape[0], 2)
+    if x.dtype != torch.float32 or x.ndim != len(want) or x.shape != want:
+        raise ValueError(f"freeverb_scan: x must be float32 "
+                         f"{'[N]' if mono else '[N, 2]'}, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    bufs = [state[k] for k in ("combL_buf", "combR_buf", "apL_buf",
+                               "apR_buf", "storeL", "storeR")]
+    rows = (8, 8, 4, 4)
+    if any(b.dtype != torch.float32 or not b.is_contiguous() for b in bufs) \
+            or state["t"].dtype != torch.int32 or state["t"].numel() != 1 \
+            or bufs[0].shape != bufs[1].shape \
+            or bufs[2].shape != bufs[3].shape \
+            or any(b.ndim != 2 or b.shape[0] != r
+                   for b, r in zip(bufs, rows)) \
+            or any(b.shape != (8,) for b in bufs[4:]):
+        raise ValueError("freeverb_scan: the state must be contiguous "
+                         "float32 rings [8, cmax] and [4, amax], stores "
+                         "[8] and one int32 t")
+    x = x.contiguous()
+    y = torch.empty((x.shape[0], 2), dtype=torch.float32, device=x.device)
+    new = [torch.empty_like(b) for b in bufs]
+    t_new = torch.empty_like(state["t"])
+    prm = torch.stack([params[k].reshape(()) for k in FREEVERB_PARAMS]
+                      ).to(torch.float32)
+    _cuda.launch("gst_freeverb_scan", x, y, *bufs, state["t"], prm, *new,
+                 t_new, x.shape[0], int(mono), rate, bufs[0].shape[1],
+                 bufs[2].shape[1])
+    freeverb_scan.launches += 1
+    return dict(zip(("combL_buf", "combR_buf", "apL_buf", "apR_buf",
+                     "storeL", "storeR", "t"), new + [t_new])), y
+
+
+freeverb_scan.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -326,3 +326,27 @@ def zebrastripe(y: torch.Tensor, y_threshold: torch.Tensor, t: torch.Tensor
     per frame ([..., 1, 1] for a batch)."""
     stripe = stripe_mask(y.shape[-2], y.shape[-1], t)
     return y.masked_fill((y >= y_threshold.to(torch.uint8)) & stripe, 16)
+
+
+def videodiff(cur: torch.Tensor, old: torch.Tensor, threshold: int,
+              t: int) -> torch.Tensor:
+    """gstvideodiff.c:91-116 on luma planes [..., H, W]: a pixel that moved
+    by more than threshold from `old` turns 16 on the stripe, else 240."""
+    s1 = old.to(torch.int32)
+    s2 = cur.to(torch.int32)
+    moved = (s2 < s1 - threshold) | (s2 > s1 + threshold)
+    stripe = stripe_mask(cur.shape[-2], cur.shape[-1],
+                         torch.tensor(t, dtype=torch.int32,
+                                      device=cur.device))
+    mark = torch.where(stripe, 16, 240).to(torch.uint8)
+    return torch.where(moved, mark, cur)
+
+
+def sad(f1: torch.Tensor, f2: torch.Tensor) -> torch.Tensor:
+    """orc_sad_nxm_u8 (gstscenechangeorc.orc) over [..., H, W] luma ->
+    [...] float64 mean score (gstscenechange.c:146-160).  The mean is the
+    total times the reciprocal of the area, as the JAX package's compiled
+    window computes total / area."""
+    d = (f1.to(torch.int32) - f2.to(torch.int32)).abs()
+    total = d.sum(dim=(-2, -1), dtype=torch.int64)
+    return total.to(torch.float64) * (1.0 / (f1.shape[-2] * f1.shape[-1]))

@@ -66,6 +66,18 @@ def ssim_plane(a, b):
     return ssim.mean(dim=-1)
 
 
+def ssim_weights(n_comps: int, is_yuv: bool):
+    """Component weights (gstcompare.c:437-445): luma weighs as much as
+    all chroma components together in YUV."""
+    w = [1.0] * n_comps
+    if is_yuv and n_comps > 1:
+        w[0] = n_comps - 1
+        norm = 2.0 * (n_comps - 1)
+    else:
+        norm = float(n_comps)
+    return [x / norm for x in w]
+
+
 def dssim_plane(a, b):
     """DSSIM = (1 - ssim) / 2 — the iqa scoring convention
     (ext/iqa/iqa.c wraps pornel/dssim; same scale)."""

@@ -62,10 +62,17 @@ def test_audiotestsrc(wave, fmt):
 
 
 def test_audiotestsrc_white_noise_is_not_ported():
-    p = gtt.parse_launch("audiotestsrc wave=white-noise ! fakesink",
-                         device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        p.negotiate()
+    """White noise is ported now (a counter hash, not JAX's PRNG, so
+    tests/test_torch_noise.py holds it to the JAX package in
+    distribution): it negotiates and fills every channel with one
+    uniform draw within the volume."""
+    p = gtt.parse_launch("audiotestsrc wave=white-noise channels=2 "
+                         "samplesperbuffer=64 ! fakesink", device="cpu")
+    p.negotiate()
+    data = p.run(n_frames=2, window=2)[0].data
+    assert data.shape == (2, 64, 2) and data.dtype == np.float32
+    np.testing.assert_array_equal(data[..., 0], data[..., 1])
+    assert np.abs(data).max() <= 0.8 and np.unique(data).size > 100
 
 
 def _blocks(fmt, n, s, c, seed):

@@ -129,7 +129,14 @@ def test_freeverb_against_jax_and_serial_c(n, windows, damping, layout):
 
 
 def test_freeverb_below_32khz_is_not_ported():
+    """Below 32 kHz freeverb_process no longer raises: it takes the
+    per-sample walk, freeverb_scan, as the JAX package takes its scan
+    (tests/test_torch_freeverb_scan.py holds that walk against it)."""
     _, tp = _params(0.2)
     st = audio.freeverb_init_state(22050)
-    with pytest.raises(NotImplementedError, match="22050"):
-        audio.freeverb_process(st, torch.zeros(64, 2), tp, 22050, False)
+    x = torch.linspace(-0.5, 0.5, 128).reshape(64, 2)
+    got_st, got = audio.freeverb_process(st, x, tp, 22050, False)
+    want_st, want = audio.freeverb_scan(st, x, tp, 22050, False)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert_states_close(numpy_tree(got_st), numpy_tree(want_st))
+    assert int(got_st["t"]) == 64

@@ -1,7 +1,8 @@
 """gstbad_tpu_torch on a CUDA card: each hand-written kernel against its
 plain version, and the headline, config-5, combdetect, config-2b (blur),
-config-3 (audio), vad_square, config-4 and warp graphs on the card against
-the CPU port.
+config-3 (audio), vad_square, config-4, warp, I420 transcode, iqa DSSIM
+and 22.05 kHz freeverb graphs, videoconvert's formats and the noise
+sources on the card against the CPU port.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  They
 import neither jax nor gstbad_tpu, so they run on a machine that has only
@@ -10,7 +11,10 @@ the port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance: bit exact (integer kernels), but config3_audio's S16 samples,
-within 1 LSB (freeverb's float32 sums, stated at its test).
+within 1 LSB (freeverb's float32 sums, stated at its test); freeverb_scan
+within 2e-6 of its plain version (the JAX package's freeverb gate; both
+take the C's operation order, so they are in fact expected to agree bit
+for bit); iqa's dssim within 1e-5 (float32 reductions in another order).
 """
 
 import numpy as np
@@ -606,3 +610,162 @@ def test_audio_graph_on_card_equals_cpu_port(dev, name):
         assert diff.max() <= (1 if name == "config3_audio" else 0)
     assert [(m.element, m.name, m.pts, m.fields) for m in card.bus.messages] \
         == [(m.element, m.name, m.pts, m.fields) for m in cpu.bus.messages]
+
+
+def _fv_params(dev, damping=0.2, room=0.5):
+    p = gtt.make("freeverb", damping=damping, **{"room-size": room})
+    return {k: v.to(dev) for k, v in p.dynamic_params().items()}
+
+
+def _fv_state_close(a, b, atol):
+    for k in a:
+        got, want = a[k].cpu(), b[k].cpu()
+        assert got.dtype == want.dtype and got.shape == want.shape, k
+        assert float((got.double() - want.double()).abs().max()) <= atol, k
+
+
+@pytest.mark.parametrize("rate", [8000, 16000, 22050, 31999])
+@pytest.mark.parametrize("mono", [False, True])
+@pytest.mark.parametrize("blocks", [(1, 7), (150, 3000), (5000,)])
+def test_freeverb_scan_kernel_matches_plain(dev, rate, mono, blocks):
+    """Blocks of one sample, shorter than the shortest ring and longer than
+    every ring, the state carried from call to call; the plain version on
+    a CPU copy."""
+    rng = np.random.default_rng(rate + len(blocks))
+    params = _fv_params(dev, damping=0.7 if mono else 0.2)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    st = audio.freeverb_init_state(rate, dev)
+    ref = audio.freeverb_init_state(rate, "cpu")
+    for n in blocks:
+        shape = (n,) if mono else (n, 2)
+        x = torch.from_numpy(((rng.random(shape) - 0.5) * 1.8)
+                             .astype(np.float32))
+        before = audio.freeverb_scan.launches
+        st, y = audio.freeverb_scan(st, x.to(dev), params, rate, mono)
+        torch.cuda.synchronize()
+        assert audio.freeverb_scan.launches == before + 1
+        ref, want = audio.freeverb_scan(ref, x, cpu_params, rate, mono)
+        assert y.shape == (n, 2) and y.dtype == torch.float32
+        assert float((y.cpu() - want).abs().max()) <= 2e-6
+        _fv_state_close(st, ref, 2e-6)
+        assert int(st["t"]) == int(ref["t"])
+
+
+def test_freeverb_scan_raises_on_bad_input(dev):
+    params = _fv_params(dev)
+    st = audio.freeverb_init_state(22050, dev)
+    x = torch.zeros((64, 2), device=dev)
+    with pytest.raises(ValueError):
+        audio.freeverb_scan(st, x.double(), params, 22050, False)
+    with pytest.raises(ValueError):
+        audio.freeverb_scan(st, x, params, 22050, True)     # not [N]
+    with pytest.raises(ValueError):
+        audio.freeverb_scan(st, x, params, 100, False)      # rings < 1
+    bad = dict(st, t=st["t"].long())
+    with pytest.raises(ValueError):
+        audio.freeverb_scan(bad, x, params, 22050, False)
+
+
+# (graph, size, launches of (gaussian_blur_words, freeverb_scan) a window)
+SLICE8_GRAPHS = {"transcode_i420_blur": (1, 0), "iqa_dssim_1080p": (1, 0),
+                 "freeverb_22k": (0, 1)}
+
+
+@pytest.mark.parametrize("name", sorted(SLICE8_GRAPHS))
+def test_new_path_graph_on_card_equals_cpu_port(dev, name):
+    """The transcode exact; iqa's fields within 1e-5 (dssim) and 1e-12
+    (ssim); freeverb_22k's S16 within 1 LSB."""
+    per_window = SLICE8_GRAPHS[name]
+    kw = ({"samplesperbuffer": 500} if name == "freeverb_22k"
+          else {"width": 256, "height": 64})
+    before = (blur.gaussian_blur_words.launches,
+              audio.freeverb_scan.launches)
+    card = benchmarks.build(name, device="cuda", **kw)
+    got = card.run(n_frames=8, window=4)
+    assert (blur.gaussian_blur_words.launches - before[0],
+            audio.freeverb_scan.launches - before[1]) == tuple(
+                2 * k for k in per_window)
+    cpu = benchmarks.build(name, device="cpu", **kw)
+    want = cpu.run(n_frames=8, window=4)
+    assert len(got) == len(want) == 2
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.pts, b.pts)
+        np.testing.assert_array_equal(a.valid, b.valid)
+        if isinstance(b.data, dict):
+            for k in b.data:
+                np.testing.assert_array_equal(a.data[k], b.data[k])
+            continue
+        diff = np.abs(a.data.astype(int) - b.data.astype(int))
+        assert diff.max() <= (1 if name == "freeverb_22k" else 0)
+    cm, tm = card.bus.messages, cpu.bus.messages
+    assert len(cm) == len(tm)
+    for a, b in zip(cm, tm):
+        assert (a.element, a.name, a.pts) == (b.element, b.name, b.pts)
+        assert abs(a["dssim"] - b["dssim"]) <= 1e-5
+        assert abs(a["ssim"] - b["ssim"]) <= 1e-12
+
+
+def test_videoconvert_formats_on_card_equal_cpu(dev):
+    """Every source format to every target, on the card and on the CPU."""
+    from gstbad_tpu_torch.core.frame import FrameBatch
+    from gstbad_tpu_torch.elements.video.convert import _ALL
+    from gstbad_tpu_torch.core.spec import MediaSpec
+    from gstbad_tpu_torch.core.spec import VideoFormat as VF
+    rng = np.random.default_rng(3)
+    for src in _ALL:
+        shape = {VF.ARGB64: (2, 8, 32, 4), VF.GRAY8: (2, 8, 32),
+                 VF.YUY2: (2, 8, 64), VF.UYVY: (2, 8, 64),
+                 VF.RGB: (2, 8, 32, 3), VF.BGR: (2, 8, 32, 3)}.get(
+                     src, (2, 8, 32) if src in VF.PACKED_RGB16
+                     else (2, 8, 32, 4))
+        wide = src == VF.ARGB64 or src in VF.PACKED_RGB16
+        planes = {VF.I420: (4, 16), VF.YV12: (4, 16), VF.Y444: (8, 32),
+                  VF.Y42B: (8, 16), VF.Y41B: (8, 8)}
+        if src in planes:
+            data = {k: rng.integers(0, 256, (2,) + hw, dtype=np.uint8)
+                    for k, hw in (("y", (8, 32)), ("u", planes[src]),
+                                  ("v", planes[src]))}
+        elif src in VF.SEMIPLANAR_YUV:
+            data = {"y": rng.integers(0, 256, (2, 8, 32), dtype=np.uint8),
+                    "uv": rng.integers(0, 256, (2, 4, 32), dtype=np.uint8)}
+        else:
+            data = rng.integers(0, 65536 if wide else 256, shape).astype(
+                np.uint16 if wide else np.uint8)
+        for dst in _ALL:
+            outs = []
+            for d in ("cuda", "cpu"):
+                el = gtt.make("videoconvert", format=dst)
+                el.device = torch.device(d)
+                el.set_info(MediaSpec(kind="video", format=src, width=32,
+                                      height=8))
+                tree = ({k: torch.from_numpy(v).to(d) for k, v in
+                         data.items()} if isinstance(data, dict)
+                        else torch.from_numpy(data).to(d))
+                out = el.process({}, None, FrameBatch.make(tree))[1].data
+                outs.append({k: v.cpu() for k, v in out.items()}
+                            if isinstance(out, dict) else out.cpu())
+            a, b = outs
+            if isinstance(b, dict):
+                for k in b:
+                    assert torch.equal(a[k], b[k]), (src, dst, k)
+            else:
+                assert torch.equal(a, b), (src, dst)
+
+
+def test_noise_sources_on_card_equal_cpu(dev):
+    for fmt in ("AYUV", "I420", "GRAY8", "RGB16"):
+        desc = (f"videotestsrc pattern=noise width=64 height=16 "
+                f"format={fmt} seed=5 ! fakesink")
+        a = gtt.parse_launch(desc, device="cuda").run(n_frames=6, window=3)
+        b = gtt.parse_launch(desc, device="cpu").run(n_frames=6, window=2)
+        ga = np.concatenate([x.data["y"] if isinstance(x.data, dict)
+                             else x.data for x in a])
+        gb = np.concatenate([x.data["y"] if isinstance(x.data, dict)
+                             else x.data for x in b])
+        np.testing.assert_array_equal(ga, gb)
+    desc = ("audiotestsrc wave=white-noise seed=5 samplesperbuffer=333 "
+            "format=F32 ! fakesink")
+    a = gtt.parse_launch(desc, device="cuda").run(n_frames=6, window=3)
+    b = gtt.parse_launch(desc, device="cpu").run(n_frames=6, window=2)
+    np.testing.assert_array_equal(np.concatenate([x.data for x in a]),
+                                  np.concatenate([x.data for x in b]))

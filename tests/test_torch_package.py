@@ -30,6 +30,9 @@ def test_import_leaves_jax_out():
             "assert 'gstbad_tpu_torch.ops.audio' in sys.modules\n"
             "assert 'gstbad_tpu_torch.elements.audio.removesilence' in "
             "sys.modules\n"
+            "assert 'gstbad_tpu_torch.elements.analysis.compare' in "
+            "sys.modules\n"
+            "assert 'gstbad_tpu_torch.ops.dssim' in sys.modules\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'gstbad_tpu.')) "
             "or m == 'gstbad_tpu']\n"
@@ -79,14 +82,15 @@ def test_unported_parts_refuse_cleanly():
     with pytest.raises(KeyError):
         gtt.parse_launch("videotestsrc ! facedetect ! fakesink",
                          device="cpu")
-    p = gtt.parse_launch("videotestsrc ! videoconvert format=I420 "
+    # formats and patterns that neither package knows
+    p = gtt.parse_launch("videotestsrc ! videoconvert format=NV16 "
                          "! fakesink", device="cpu")
     from gstbad_tpu_torch.core.spec import SpecError
     with pytest.raises(SpecError):
         p.negotiate()
-    p = gtt.parse_launch("videotestsrc pattern=noise ! fakesink",
+    p = gtt.parse_launch("videotestsrc pattern=pinwheel ! fakesink",
                          device="cpu")
-    with pytest.raises(ValueError, match="noise"):
+    with pytest.raises(ValueError, match="pinwheel"):
         p.negotiate()
 
 
@@ -94,16 +98,20 @@ def test_launch_counters_stay_zero_on_cpu():
     from gstbad_tpu_torch.models import benchmarks
     from gstbad_tpu_torch.ops import (audio, blur, chainfuse, comb,
                                       fieldanalysis, lut, remap)
+    audio_graphs = {"config3_audio": 1, "vad_square": 1, "freeverb_22k": 2}
     for name in benchmarks.BENCHMARKS:
-        if name in ("config3_audio", "vad_square"):   # audio: [B, S, C]
+        if name in audio_graphs:   # audio: [B, S, C]
             p = benchmarks.build(name, samplesperbuffer=300, device="cpu")
             res = p.run(n_frames=4, window=2)
-            assert len(res) == 2 and res[0].data.shape == (2, 300, 1)
+            assert len(res) == 2 and res[0].data.shape == (
+                2, 300, audio_graphs[name])
             continue
         p = benchmarks.build(name, width=64, height=8, device="cpu")
         res = p.run(n_frames=4, window=2)
         if name in ("config5_ivtc", "combdetect_720p"):   # GRAY8, telecine
             assert res and res[0].data.shape[1:] == (8, 64)
+        elif name == "transcode_i420_blur":
+            assert len(res) == 2 and res[0].data["u"].shape == (2, 4, 32)
         else:
             assert len(res) == 2 and res[0].data.shape == (2, 8, 64, 4)
     assert chainfuse.dilate_zebra_fused.launches == 0
@@ -115,6 +123,7 @@ def test_launch_counters_stay_zero_on_cpu():
     assert remap.warp_words.launches == 0
     assert audio.vad_powers_serial.launches == 0
     assert audio.vad_powers_bracket.launches == 0
+    assert audio.freeverb_scan.launches == 0
 
 
 def test_audio_elements_are_registered():
