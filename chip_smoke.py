@@ -76,6 +76,25 @@ line):
    noise sources (videotestsrc pattern=noise at 1920x1080 in AYUV, I420
    and GRAY8, audiotestsrc wave=white-noise): windows of two sizes, a
    second run and the CPU port give the same frames and samples.
+   Then the runtime surface (runtime_surface), each path with the counts
+   set to 0 just before it and read just after: transcode_y4m_1080p (64
+   seeded I420 frames at 1920x1080 written with the port's io/y4m.py, run
+   through the port's CLI, transcode_main --device cuda --window 64, with
+   videoconvert format=AYUV ! gaussianblur sigma=1.2 ! videoconvert
+   format=I420: K3 once; the output file equals the CPU port's transcode
+   of the first 16 frames byte for byte; frames/s end to end, and the
+   device step's, the upload's and the download's shares of it);
+   checkpoint_config5 (config 5 at 1280x720, window 64: 2 windows,
+   save_checkpoint, a fresh pipeline, load_checkpoint, 2 windows, equal
+   to 4 uninterrupted windows with their bus messages; K4 and K5 once a
+   window); edit_headline (the 1080p headline on ball, then
+   remove("zebrastripe"): the prefix chain, K2 twice; then
+   insert_after("videoconvert", zebrastripe): K1 once; each window equal
+   to the graph built fresh with the source at the same frame);
+   validate_scenarios (the six tests/validate scenarios on the card
+   against their committed flow expectations); then profile_elements,
+   the marginal ms of each element of the headline and of
+   config2_blur_ball (CUDA events).
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
    around 10 steps of a 64-frame window, 16 at 4K, data kept on the card),
    a torch.profiler breakdown of each graph's step (device busy time,
@@ -106,6 +125,7 @@ line):
 
 from __future__ import annotations
 
+import glob
 import importlib.metadata
 import json
 import os
@@ -266,19 +286,20 @@ def launch_line(pattern: str, tail: str) -> str:
             f"format=BGRx ! {tail} ! fakesink")
 
 
-def frames_equal(key, got, cpu, shape) -> None:
-    """Host batches of a card run against the CPU port's: same windows,
-    frames of `shape` (after the frame axis), equal data, pts, flags and
-    valid."""
+def frames_equal(key, got, cpu, shape, against="the CPU port") -> None:
+    """Host batches of a card run against another run's (the CPU port's):
+    same windows, frames of `shape` (after the frame axis), equal data,
+    pts, flags and valid."""
     if len(got) != len(cpu):
-        fail(f"{key}: {len(got)} windows on the card, {len(cpu)} on CPU")
+        fail(f"{key}: {len(got)} windows on the card, {len(cpu)} in "
+             f"{against}")
     for a, c in zip(got, cpu):
         if a.data.shape[1:] != shape or a.data.dtype.name != "uint8":
             fail(f"{key}: frames {a.data.shape} {a.data.dtype}")
         for f in ("data", "pts", "flags", "valid"):
             if getattr(a, f).shape != getattr(c, f).shape or not (
                     getattr(a, f) == getattr(c, f)).all():
-                fail(f"{key}: {f} differs from the CPU port")
+                fail(f"{key}: {f} differs from {against}")
 
 
 def planes_equal(key, got, cpu, shapes) -> None:
@@ -389,6 +410,221 @@ def capture(module, name: str, store: dict):
     spy.launches = 0
     setattr(module, name, spy)
     return lambda: setattr(module, name, orig)
+
+
+def runtime_surface(gtt, benchmarks, runs, counters, launches, card):
+    """Phase 4d: the port's runtime surface on the card, each path with
+    the launch counts set to 0 just before it and read just after (its
+    counts join `launches`): a 1080p y4m file through the CLI against the
+    CPU port, a checkpoint of config 5 against an uninterrupted run, live
+    edits of the headline against fresh graphs, the committed validate
+    scenarios; then a per-element profile of two graphs."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gstbad_tpu_torch.cli import transcode_main
+    from gstbad_tpu_torch.core.frame import map_tensors, upload_frames
+    from gstbad_tpu_torch.core.spec import MediaSpec
+    from gstbad_tpu_torch.io import y4m
+    from gstbad_tpu_torch.utils.trace import PipelineTracer
+    from gstbad_tpu_torch.utils.validate import run_validatetest
+
+    def counted(key, fn, need):
+        """fn() with every count at 0 just before and read just after;
+        each kernel in `need` must have launched that many times."""
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        delta = {k: c.launches for k, c in counters.items()}
+        log(f"{key}: launches {delta}")
+        for k, n in need.items():
+            if delta[k] != n:
+                fail(f"{key}: {k} launched {delta[k]} times, {n} expected")
+        for k in launches:
+            launches[k] += delta[k]
+        return out
+
+    t_phase = time.perf_counter()
+    blur_chain = ("videoconvert format=AYUV ! gaussianblur sigma=1.2 "
+                  "! videoconvert format=I420")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # transcode_y4m_1080p: 64 frames of seeded noise (one window), the
+        # card's output file against the CPU port's over the first 16
+        rng = np.random.default_rng(9)
+        planes = {"y": rng.integers(0, 256, (WINDOW, H, W), dtype=np.uint8),
+                  "u": rng.integers(0, 256, (WINDOW, H // 2, W // 2),
+                                    dtype=np.uint8),
+                  "v": rng.integers(0, 256, (WINDOW, H // 2, W // 2),
+                                    dtype=np.uint8)}
+        i420 = MediaSpec(kind="video", format="I420", width=W, height=H)
+        paths = {k: os.path.join(tmp, f"{k}.y4m")
+                 for k in ("in", "in16", "card", "cpu16")}
+        y4m.write_y4m(paths["in"], i420, planes)
+        y4m.write_y4m(paths["in16"], i420,
+                      {k: v[:16] for k, v in planes.items()})
+        t0 = time.perf_counter()
+        counted("transcode_y4m_1080p", lambda: transcode_main(
+            [paths["in"], paths["card"], "--filters", blur_chain,
+             "--device", "cuda", "--window", str(WINDOW)]),
+            {"gaussian_blur_words": 1})
+        e2e_s = time.perf_counter() - t0
+        transcode_main([paths["in16"], paths["cpu16"], "--filters",
+                        blur_chain, "--device", "cpu", "--window", "16"])
+        with open(paths["card"], "rb") as f:
+            card_bytes = f.read()
+        with open(paths["cpu16"], "rb") as f:
+            cpu_bytes = f.read()
+        frame_bytes = 6 + W * H * 3 // 2       # "FRAME\n" and the planes
+        header = len(cpu_bytes) - 16 * frame_bytes
+        if (len(card_bytes) != header + WINDOW * frame_bytes
+                or card_bytes[:len(cpu_bytes)] != cpu_bytes):
+            fail("transcode_y4m_1080p: the card's y4m file differs from the "
+                 "CPU port's over the first 16 frames")
+        # the same work in parts: the file's read and parse, the window's
+        # upload (its stack into one host buffer, then the copy), the step
+        # on it (CUDA events), the download of its output and the write
+        t0 = time.perf_counter()
+        y4m.read_y4m(paths["in"])
+        read_ms = (time.perf_counter() - t0) * 1e3
+        p = gtt.parse_launch(f"appsrc name=tsrc format=I420 width={W} "
+                             f"height={H} ! {blur_chain} ! appsink",
+                             device="cuda")
+        p.negotiate()
+        src = p.get_by_name("tsrc")
+        src.push_frames(planes)
+        t0 = time.perf_counter()
+        upload_frames("cpu", [{k: v[i] for k, v in planes.items()}
+                              for i in range(WINDOW)],
+                      np.zeros(WINDOW, np.int64), np.zeros(WINDOW, np.int32),
+                      np.ones(WINDOW, bool))
+        stack_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        win = src.pull_window(WINDOW)
+        torch.cuda.synchronize()
+        up_ms = (time.perf_counter() - t0) * 1e3
+        step = p.compile(WINDOW)
+        params, states = p.params(), p.init_states(WINDOW)
+        holder = {}
+
+        def one_step():
+            holder["out"] = step(params, states, win)[1][0]
+
+        step_ms = cuda_ms(one_step, iters=5, warmup=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = holder["out"].to_numpy()
+        down_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        y4m.write_y4m(os.path.join(tmp, "write.y4m"), i420, out.data)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        e2e_ms = e2e_s * 1e3
+        parts = {"file read": read_ms, "upload": up_ms,
+                 "device step": step_ms, "download": down_ms,
+                 "write": write_ms}
+        log(f"transcode_y4m_1080p: {WINDOW} I420 frames {W}x{H} through "
+            f"the CLI in {e2e_ms:.1f} ms = {WINDOW / e2e_s:.1f} frames/s "
+            "end to end; its parts, each alone, in ms and as shares of it: "
+            + ", ".join(f"{k} {v:.3f} ({v / e2e_ms:.4f})"
+                        for k, v in parts.items())
+            + f" (the upload's host stack {stack_ms:.3f}), the rest "
+            f"{e2e_ms - sum(parts.values()):.3f}; the first 16 frames "
+            f"equal the CPU port's byte for byte ({card})")
+
+        # checkpoint_config5: 2 windows, a checkpoint, a fresh pipeline,
+        # 2 more windows, against 4 windows uninterrupted
+        def config5():
+            return benchmarks.config5_ivtc(W5, H5, device="cuda")
+
+        telecine = {"metrics_default": 4, "comb_score_pairs": 4}
+        whole = config5()
+        ref = counted("checkpoint_config5 uninterrupted", lambda: whole.run(
+            n_frames=4 * WINDOW, window=WINDOW), telecine)
+        ck = os.path.join(tmp, "config5.ckpt")
+        first, second = config5(), config5()
+
+        def resumed():
+            out = first.run(n_frames=2 * WINDOW, window=WINDOW)
+            first.save_checkpoint(ck)
+            second.load_checkpoint(ck)
+            return out + second.run(n_frames=2 * WINDOW, window=WINDOW)
+
+        got = counted("checkpoint_config5", resumed, telecine)
+        frames_equal("checkpoint_config5", got, ref, (H5, W5),
+                     "the uninterrupted run")
+        if bus_messages(first) + bus_messages(second) != bus_messages(whole):
+            fail("checkpoint_config5: bus messages differ from the "
+                 "uninterrupted run's")
+        log(f"checkpoint_config5: {len(ref)} windows, "
+            f"{sum(len(b.pts) for b in ref)} frames and "
+            f"{len(whole.bus.messages)} bus messages equal the "
+            f"uninterrupted run ({os.path.getsize(ck)} checkpoint bytes)")
+
+        # edit_headline: the 1080p headline on ball, then without
+        # zebrastripe (the prefix chain: K2), then with a new zebrastripe
+        # after videoconvert; each window against the same graph built
+        # fresh with the source at the same frame
+        full = launch_line("ball", HEAD + " ! zebrastripe")
+        prefix = launch_line("ball", HEAD)
+
+        def fresh_at(desc, pos):
+            p = gtt.parse_launch(desc, device="cuda")
+            p.compile(WINDOW)
+            st = p.init_states(WINDOW)
+            st[0] = st[0] + pos        # videotestsrc's frame counter
+            p.load_states(map_tensors(lambda t: t.cpu().numpy(), st))
+            return p.run(n_frames=WINDOW, window=WINDOW)
+
+        p = gtt.parse_launch(full, device="cuda")
+        k1, k2 = {"dilate_zebra_fused": 1, "apply_word_table": 0}, \
+            {"dilate_zebra_fused": 0, "apply_word_table": 2}
+        edits = [("edit_headline full", None, full, k1),
+                 ("edit_headline remove", lambda: p.remove("zebrastripe"),
+                  prefix, k2),
+                 ("edit_headline insert_after", lambda: p.insert_after(
+                     "videoconvert", gtt.make("zebrastripe")), full, k1)]
+        for i, (key, edit, desc, need) in enumerate(edits):
+            if edit:
+                edit()
+            got = counted(key, lambda: p.run(n_frames=WINDOW, window=WINDOW),
+                          need)
+            frames_equal(key, got, fresh_at(desc, i * WINDOW), (H, W, 4),
+                         "a fresh graph")
+        log(f"edit_headline: 3 windows of {WINDOW} frames equal fresh "
+            "graphs at the same source frame")
+
+        # validate_scenarios: the committed scenarios on the card
+        scenarios = sorted(glob.glob(os.path.join(
+            ROOT, "tests", "validate", "*.validatetest")))
+        if len(scenarios) != 6:
+            fail(f"validate_scenarios: {len(scenarios)} scenarios, 6 "
+                 "expected")
+        for path in scenarios:
+            name = os.path.basename(path)
+            report = counted(f"validate_scenarios {name}",
+                             lambda: run_validatetest(path, device="cuda"),
+                             {})
+            if not report.ok or report.recorded:
+                fail(f"validate_scenarios {name}: " + "; ".join(
+                    report.details))
+        log(f"validate_scenarios: all {len(scenarios)} match their "
+            "committed flow expectations on the card")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # profile_elements: the marginal device ms of each element (CUDA
+    # events around 3 steps of each topological prefix)
+    for key in ("headline_bars", "config2_blur_ball"):
+        rep = PipelineTracer(runs[key]("cuda")).profile_elements(
+            window=WINDOW, reps=3)
+        log(f"profile_elements {key} window {WINDOW}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in rep.items())
+            + f" ms ({card})")
+    log(f"runtime_surface: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1166,6 +1402,9 @@ def main() -> int:
         f"windows 16 and 64 and the CPU port equal; mean {x.mean():.6f}, "
         f"variance {x.var():.6f} (uniform on [-0.8, 0.8]: 0, "
         f"{0.64 / 3:.6f})")
+
+    # 4d. the runtime surface (runtime_surface)
+    runtime_surface(gtt, benchmarks, runs, counters, launches, card)
 
     # 5. timing
     def fps_runs(build, window, reps: int = 5, n_steps: int = 10):

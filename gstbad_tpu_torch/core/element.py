@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gstbad_tpu_torch.core.frame import FrameBatch
+from gstbad_tpu_torch.core.frame import FrameBatch, same_layout
 from gstbad_tpu_torch.core.spec import MediaSpec, SpecError, fixate_format, \
     require
 
@@ -67,10 +67,21 @@ class Element:
     """Base element. Subclasses define NAME, PROPERTIES, and the hooks below.
 
     `device` is where prepare() puts its tables and dynamic_params() its
-    tensors; the Pipeline sets it on every element it holds."""
+    tensors; the Pipeline sets it on every element it holds.
+
+    Host-side hooks the Pipeline calls where an element defines them:
+      KIND = "host-source": pull_window(window) -> FrameBatch on
+        self.device, or None at the end of the stream (a TimeoutError is a
+        stall: the run ends and posts a `stall` message);
+      HOST = True: host_process(np_batch, bus) receives the valid frames
+        of this element's own node on the host after every window;
+      close(): release host resources (Pipeline.close);
+      save_position() / restore_position(pos): a host source's stream
+        position for checkpoints (Pipeline.save_checkpoint)."""
 
     NAME: str = ""
-    KIND: str = "filter"  # 'filter' | 'source' | 'sink' | 'analysis'
+    KIND: str = "filter"  # 'filter' | 'source' | 'host-source' | 'sink'
+    HOST: bool = False
     PROPERTIES: Sequence[Property] = ()
 
     def __init__(self, **props):
@@ -231,6 +242,20 @@ class Element:
         final selects like zebrastripe), return (new_state, out_data);
         else None and the chain is materialized for process()."""
         return None
+
+    # -- live rebuild (runtime graph edits / static-property changes) -------
+    def carry_state(self, old_state, window: int):
+        """Carry a live state across a pipeline rebuild (an insertbin-style
+        graph edit or set_static_property).  Kept as it is when its
+        containers, tensor shapes and dtypes still match a fresh
+        init_state; otherwise delegated to migrate_state."""
+        if same_layout(self.init_state(window), old_state):
+            return old_state
+        return self.migrate_state(old_state, window)
+
+    def migrate_state(self, old_state, window: int):
+        """Shape-changing state migration hook; default starts fresh."""
+        return self.init_state(window)
 
     # convenience for tests / direct use
     def __call__(self, batch: FrameBatch, state=None):

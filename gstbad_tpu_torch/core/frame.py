@@ -59,6 +59,14 @@ class FrameBatch:
     # (ops/chainfuse.py) reads it instead of B copies.  Like `word`, any
     # with_data() drops it.
     word_base: Optional[Array] = None
+    # optional [B, 2] int32 (head, tail) samples logically REMOVED from
+    # audio blocks — the gst_audio_buffer_clip analog for static shapes.
+    # Gating elements (avwait, audiosegmentclip) set it on boundary
+    # blocks; the runner slices it away on the host when compacting, so
+    # sinks and run() callers observe the sample-exact clipped stream.
+    # with_data() keeps it only while the sample axis is unchanged;
+    # elements that re-chunk must translate or drop it themselves.
+    trim: Optional[Array] = None
 
     @staticmethod
     def make(data, pts=None, flags=None, valid=None) -> "FrameBatch":
@@ -79,8 +87,13 @@ class FrameBatch:
         return self.data.shape[0]
 
     def with_data(self, data) -> "FrameBatch":
+        trim = self.trim
+        if trim is not None and (isinstance(data, dict)
+                                 or isinstance(self.data, dict)
+                                 or data.shape != self.data.shape):
+            trim = None
         return dataclasses.replace(self, data=data, word=None,
-                                   word_base=None)
+                                   word_base=None, trim=trim)
 
     def replace(self, **kw) -> "FrameBatch":
         return dataclasses.replace(self, **kw)
@@ -102,7 +115,8 @@ class FrameBatch:
         return FrameBatch(data=conv(self.data), pts=conv(self.pts),
                           flags=conv(self.flags), valid=conv(self.valid),
                           word=conv(self.word),
-                          word_base=conv(self.word_base))
+                          word_base=conv(self.word_base),
+                          trim=conv(self.trim))
 
 
 def pts_ramp(batch: int, spec, start_ns: int = 0,
@@ -126,6 +140,89 @@ def tensors_from_numpy(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tensors_from_numpy(v, device) for v in tree)
     return torch.tensor(np.asarray(tree), device=device)
+
+
+_TORCH_DTYPES = {np.dtype(k): v for k, v in (
+    (np.uint8, torch.uint8), (np.int8, torch.int8),
+    (np.uint16, torch.uint16), (np.int16, torch.int16),
+    (np.int32, torch.int32), (np.int64, torch.int64),
+    (np.float32, torch.float32), (np.float64, torch.float64),
+    (np.bool_, torch.bool))}
+
+
+def upload_frames(device, frames, pts, flags, valid) -> FrameBatch:
+    """A FrameBatch on `device` from host frames: `frames` is a list of
+    per-frame numpy arrays (or of {plane: array} dicts), stacked straight
+    into one host buffer with the pts (int64), flags (int32) and valid
+    (bool) arrays, which goes to the device in ONE copy; the fields are
+    views of it there."""
+    first = frames[0]
+    keys = sorted(first) if isinstance(first, dict) else [None]
+    b = len(frames)
+    parts = [(np.dtype(np.int64), (b,)), (np.dtype(np.int32), (b,)),
+             (np.dtype(np.bool_), (b,))]
+    for k in keys:
+        f = first[k] if k is not None else first
+        parts.append((f.dtype, (b,) + f.shape))
+    offsets, off = [], 0
+    for dt, shape in parts:
+        off = -(-off // 8) * 8      # every field 8-byte aligned
+        offsets.append(off)
+        off += dt.itemsize * int(np.prod(shape))
+    buf = np.empty(off, np.uint8)
+
+    def host_view(i):
+        dt, shape = parts[i]
+        n = dt.itemsize * int(np.prod(shape))
+        return buf[offsets[i]:offsets[i] + n].view(dt).reshape(shape)
+
+    host_view(0)[:] = pts
+    host_view(1)[:] = flags
+    host_view(2)[:] = valid
+    for j, k in enumerate(keys):
+        np.stack([f[k] if k is not None else f for f in frames],
+                 out=host_view(3 + j))
+    dev_buf = torch.from_numpy(buf).to(device)
+
+    def dev_view(i):
+        dt, shape = parts[i]
+        n = dt.itemsize * int(np.prod(shape))
+        t = dev_buf[offsets[i]:offsets[i] + n]
+        return t.view(_TORCH_DTYPES[dt]).reshape(shape)
+
+    planes = [dev_view(3 + j) for j in range(len(keys))]
+    data = dict(zip(keys, planes)) if keys != [None] else planes[0]
+    return FrameBatch(data=data, pts=dev_view(0), flags=dev_view(1),
+                      valid=dev_view(2))
+
+
+def map_tensors(fn, tree):
+    """`tree` with fn applied to every tensor or numpy array leaf of its
+    dicts, lists and tuples; any other leaf (a Python number, None) is
+    kept as it is."""
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(tree)
+    return tree
+
+
+def same_layout(a, b) -> bool:
+    """True when trees a and b have the same containers (dict keys, list
+    and tuple lengths), tensors of the same shapes and dtypes at the same
+    places, and leaves of the same Python types elsewhere."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_layout(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(same_layout(x, y) for x, y in zip(a, b)))
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and a.dtype == b.dtype)
+    return type(a) is type(b)
 
 
 def to_host(*tensors) -> list:

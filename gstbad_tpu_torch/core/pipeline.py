@@ -17,6 +17,7 @@ named elements and branch links:
 
 from __future__ import annotations
 
+import pickle
 import shlex
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -25,7 +26,8 @@ import torch
 
 from gstbad_tpu_torch.core.bus import Bus, Message
 from gstbad_tpu_torch.core.element import Element
-from gstbad_tpu_torch.core.frame import FrameBatch, tensors_from_numpy
+from gstbad_tpu_torch.core.frame import FrameBatch, map_tensors, \
+    tensors_from_numpy
 from gstbad_tpu_torch.core.registry import make
 from gstbad_tpu_torch.core.spec import MediaSpec, SpecError
 
@@ -51,6 +53,41 @@ class Node:
 
     def __repr__(self):
         return f"<node {self.name or self.element.NAME}>"
+
+
+def _split_trimmed(nb: FrameBatch) -> List[FrameBatch]:
+    """Apply FrameBatch.trim on the host (the gst_audio_buffer_clip cut):
+    blocks with head/tail trims split out as their own shorter batches;
+    untrimmed runs stay stacked.  PTS are the element's responsibility
+    (the gating element already stamps the clipped-buffer PTS)."""
+    tr = nb.trim
+    if tr is None:
+        return [nb]
+    data = nb.data
+    if isinstance(data, dict) or data.ndim < 2 or not tr.any():
+        return [nb.replace(trim=None)]
+    b, s = data.shape[0], data.shape[1]
+    out: List[FrameBatch] = []
+    i = 0
+    while i < b:
+        if tr[i].any():
+            h, t = int(tr[i, 0]), int(tr[i, 1])
+            h = min(max(h, 0), s)
+            t = min(max(t, 0), s - h)
+            if s - h - t > 0:
+                out.append(FrameBatch(
+                    data=data[i:i + 1, h:s - t], pts=nb.pts[i:i + 1],
+                    flags=nb.flags[i:i + 1], valid=nb.valid[i:i + 1]))
+            i += 1
+        else:
+            j = i
+            while j < b and not tr[j].any():
+                j += 1
+            out.append(FrameBatch(
+                data=data[i:j], pts=nb.pts[i:j], flags=nb.flags[i:j],
+                valid=nb.valid[i:j]))
+            i = j
+    return out
 
 
 class Pipeline:
@@ -81,6 +118,7 @@ class Pipeline:
         self._in_spec: Optional[MediaSpec] = None
         self._order: Optional[List[Node]] = None
         self._tap_route: Dict[str, int] = {}
+        self._host_route: List[Tuple[Element, int]] = []
 
     # -- convenience views --------------------------------------------------
     @property
@@ -125,11 +163,12 @@ class Pipeline:
     # -- negotiation ---------------------------------------------------------
     def negotiate(self, in_spec: Optional[MediaSpec] = None) -> MediaSpec:
         """Spec fixation in topological order (caps negotiation analog)."""
-        self._in_spec = in_spec
+        if in_spec is not None:
+            self._in_spec = in_spec
         self._order = self._toposort()
         for n in self._order:
             el = n.element
-            if el.KIND == "source":
+            if el.KIND in ("source", "host-source"):
                 n.spec = el.set_info(in_spec or MediaSpec())
             elif not n.inputs:
                 if in_spec is None:
@@ -169,6 +208,17 @@ class Pipeline:
         leaves = self._leaves()
         leaf_index = {id(n): i for i, n in enumerate(leaves)}
 
+        # HOST elements (host_process sinks and taps) receive the batch
+        # flowing through THEIR node, not every leaf's (a tee fan-out must
+        # not feed branch A's frames to branch B's filesink).  Host nodes
+        # that are leaves reuse the leaf output; mid-graph host nodes get
+        # their node value appended after the leaves.
+        host_nodes = [n for n in order if n.element.HOST]
+        extra_nodes = [n for n in host_nodes if id(n) not in leaf_index]
+        self._host_route = [
+            (n.element, leaf_index[id(n)] if id(n) in leaf_index
+             else len(leaves) + extra_nodes.index(n)) for n in host_nodes]
+
         # debug taps: materialize named nodes' outputs as extra leaf slots
         def node_named(name: str) -> Node:
             for n in order:
@@ -182,22 +232,26 @@ class Pipeline:
         for t, n in zip(taps, tap_nodes):
             if id(n) in leaf_index:
                 self._tap_route[t] = leaf_index[id(n)]
+            elif n in extra_nodes:
+                self._tap_route[t] = len(leaves) + extra_nodes.index(n)
             else:
                 if n not in tap_extra:
                     tap_extra.append(n)
-                self._tap_route[t] = len(leaves) + tap_extra.index(n)
+                self._tap_route[t] = (len(leaves) + len(extra_nodes)
+                                      + tap_extra.index(n))
 
         # Table-state fusion (core/tablefuse.py, Element.byte_map/word_map/
         # table_head/index_stencil/table_tail): runs of per-pixel elements
         # get their work COMPOSED into 256-entry table math instead of each
         # traversing the frame.  A run extends only through nodes whose
         # sole consumer is the next run member and that nothing else
-        # observes (leaves, taps); everything else flushes.
+        # observes (leaves, host nodes, taps); everything else flushes.
         consumers: Dict[int, List[Node]] = {}
         for n in order:
             for i in n.inputs:
                 consumers.setdefault(id(i), []).append(n)
-        protected = {id(n) for n in leaves} | {id(n) for n in tap_nodes}
+        protected = ({id(n) for n in leaves} | {id(n) for n in extra_nodes}
+                     | {id(n) for n in tap_nodes})
 
         def step(params: List[Dict[str, Any]], states: List[Any],
                  in_batch: Optional[FrameBatch]):
@@ -245,6 +299,7 @@ class Pipeline:
                     return True
                 return False
 
+            feed_idx = 0
             for si, n in enumerate(order):
                 el = n.element
                 if fuse_luts and len(n.inputs) == 1 and el.KIND != "source":
@@ -280,7 +335,14 @@ class Pipeline:
                     out = el.generate(params[si], states[si], window)
                 else:
                     if not n.inputs:
-                        batch = in_batch
+                        # several host sources feed as a list, one entry
+                        # per input-less node in traversal order (run()'s
+                        # pull order); a single batch broadcasts
+                        if isinstance(in_batch, (list, tuple)):
+                            batch = in_batch[feed_idx]
+                            feed_idx += 1
+                        else:
+                            batch = in_batch
                     elif len(n.inputs) == 1:
                         batch = value_of(n.inputs[0])
                     else:
@@ -295,6 +357,7 @@ class Pipeline:
                 new_states[si] = st
                 values[id(n)] = val
             leaf_out = ([value_of(n) for n in leaves]
+                        + [value_of(n) for n in extra_nodes]
                         + [value_of(n) for n in tap_extra])
             return new_states, leaf_out, messages
 
@@ -329,7 +392,9 @@ class Pipeline:
         {leaf_index: [batches]}.
 
         Invalid (masked-out) frames are compacted away host-side between
-        windows, the analog of GST_BASE_TRANSFORM_FLOW_DROPPED.
+        windows, the analog of GST_BASE_TRANSFORM_FLOW_DROPPED; trimmed
+        audio blocks are cut there too (FrameBatch.trim).  Every HOST
+        element then sees its own node's frames.
         """
         if inputs is not None:
             window = window or inputs.batch
@@ -345,10 +410,30 @@ class Pipeline:
         outs: Dict[int, List[FrameBatch]] = {i: [] for i in
                                              range(len(leaves))}
 
+        # Windows are pulled LAZILY and interleaved with execution, so a
+        # host source's backpressure applies end to end (no unbounded
+        # pre-pull) and output is emitted incrementally.  A pull timeout
+        # is a recoverable stall: output already processed is kept, a
+        # warning is posted, and the run ends cleanly.
         def window_iter():
             if inputs is not None:
                 for i in range(0, inputs.batch, window):
                     yield _slice_batch(inputs, i, i + window)
+                return
+            host_sources = [n.element for n in order
+                            if n.element.KIND == "host-source"]
+            if host_sources:
+                while True:
+                    try:
+                        ws = [hs.pull_window(window) for hs in host_sources]
+                    except TimeoutError as e:
+                        self.bus.post(Message(
+                            "pipeline", "stall", 0,
+                            {"reason": f"source pull timed out: {e}"}))
+                        return
+                    if any(x is None for x in ws):
+                        return
+                    yield ws if len(ws) > 1 else ws[0]
             else:
                 for _ in range(-(-n_frames // window)):
                     yield None
@@ -362,7 +447,8 @@ class Pipeline:
             if has_controls:
                 # stream-time sync (gst_object_sync_values analog)
                 if w is not None:
-                    pts = w.pts.cpu().numpy()
+                    first = w[0] if isinstance(w, (list, tuple)) else w
+                    pts = first.pts.cpu().numpy()
                 else:
                     pts = (frame_counter
                            + np.arange(window, dtype=np.int64)) * dur
@@ -372,10 +458,19 @@ class Pipeline:
                 frame_counter += window
             states, leaf_batches, messages = self._step(params, states, w)
             self._drain_messages(leaf_batches[len(leaves) - 1], messages)
+            host: Dict[int, List[FrameBatch]] = {}
+
+            def compacted(oi: int) -> List[FrameBatch]:
+                if oi not in host:
+                    host[oi] = _host_batches(leaf_batches[oi])
+                return host[oi]
+
             for li in range(len(leaves)):
-                np_batch = _host_batch(leaf_batches[li])
-                if np_batch is not None:
-                    outs[li].append(np_batch)
+                outs[li].extend(compacted(li))
+            # each HOST element sees only its own node's stream
+            for el, oi in self._host_route:
+                for np_batch in compacted(oi):
+                    el.host_process(np_batch, self.bus)
         self._states = states
         if len(leaves) == 1:
             return outs[0]
@@ -386,13 +481,33 @@ class Pipeline:
         fieldanalysis flush path, gstfieldanalysis.c:744-781) through their
         optional `drain(state) -> (state, FrameBatch or None)` hook.
 
-        Returns the drained frames as host batches per element name.
-        Downstream elements do not re-process drained frames (as for an
-        analyzer in tail position)."""
+        Returns the drained frames as host batches per element name.  The
+        drained frames also go to the HOST elements downstream of the
+        drained node (and to no other: a tee branch's flush must not reach
+        the other branch); other downstream elements do not re-process
+        them (as for an analyzer in tail position)."""
         drained: Dict[str, List[FrameBatch]] = {}
         if self._states is None:
             return drained
         order = self._order or self._toposort()
+        children: Dict[int, List[Node]] = {}
+        for n in order:
+            for i in n.inputs:
+                children.setdefault(id(i), []).append(n)
+
+        def downstream_hosts(node: Node) -> List[Element]:
+            out, stack, seen = [], [node], set()
+            while stack:
+                cur = stack.pop()
+                for ch in children.get(id(cur), []):
+                    if id(ch) in seen:
+                        continue
+                    seen.add(id(ch))
+                    if ch.element.HOST:
+                        out.append(ch.element)
+                    stack.append(ch)
+            return out
+
         for idx, n in enumerate(order):
             el = n.element
             if not hasattr(el, "drain"):
@@ -400,8 +515,149 @@ class Pipeline:
             st, batch = el.drain(self._states[idx])
             self._states[idx] = st
             if batch is not None:
-                drained.setdefault(el.NAME, []).append(batch.to_numpy())
+                np_batch = batch.to_numpy()
+                for h in downstream_hosts(n):
+                    h.host_process(np_batch, self.bus)
+                drained.setdefault(el.NAME, []).append(np_batch)
         return drained
+
+    def close(self) -> None:
+        """Tear down to NULL (gst_element_set_state(NULL) analog): every
+        element with a close() hook flushes and releases its host
+        resources (file sinks write their files)."""
+        for n in self.nodes:
+            if hasattr(n.element, "close"):
+                n.element.close()
+
+    # -- runtime graph editing (insertbin analog) ------------------------------
+    # gst-libs/gst/insertbin/gstinsertbin.c exposes insert_before/after and
+    # remove on a RUNNING bin.  Here an edit mutates the DAG, renegotiates
+    # and rebuilds the step on the next run, with live element states
+    # carried across by node identity (Element.carry_state handles shape
+    # changes).  The same path makes STATIC properties settable live
+    # (set_static_property).
+
+    def _node_named(self, name: str) -> Node:
+        for n in self.nodes:
+            if n.name == name or n.element.NAME == name:
+                return n
+        raise KeyError(f"no element named {name!r}")
+
+    def _snapshot_states(self) -> Dict[int, Any]:
+        if self._states is None or self._order is None:
+            return {}
+        return {id(n): s for n, s in zip(self._order, self._states)}
+
+    def _rebuild(self, saved: Dict[int, Any]) -> None:
+        for n in self.nodes:
+            n.element.device = self.device
+        self._step = None
+        self._order = None
+        self.negotiate(self._in_spec)
+        if saved and self._window:
+            self._states = [
+                n.element.carry_state(saved[id(n)], self._window)
+                if id(n) in saved else n.element.init_state(self._window)
+                for n in self._order]
+        else:
+            self._states = None
+
+    def insert_after(self, name: str, element: Element,
+                     new_name: Optional[str] = None) -> None:
+        """Insert `element` after node `name`; every consumer of that node
+        (all tee branches) is rerouted through the new element."""
+        saved = self._snapshot_states()
+        anchor = self._node_named(name)
+        node = Node(element, new_name)
+        node.inputs.append(anchor)
+        for n in self.nodes:
+            n.inputs = [node if i is anchor else i for i in n.inputs]
+        self.nodes.insert(self.nodes.index(anchor) + 1, node)
+        self._rebuild(saved)
+
+    def insert_before(self, name: str, element: Element,
+                      new_name: Optional[str] = None) -> None:
+        """Insert `element` on every input edge of node `name` (the linear
+        chain's single edge in the common case)."""
+        saved = self._snapshot_states()
+        anchor = self._node_named(name)
+        node = Node(element, new_name)
+        node.inputs = list(anchor.inputs)
+        anchor.inputs = [node]
+        self.nodes.insert(self.nodes.index(anchor), node)
+        self._rebuild(saved)
+
+    def remove(self, name: str) -> Element:
+        """Remove node `name`, splicing its (single) input to its
+        consumers; its carried state is dropped, everyone else's kept."""
+        saved = self._snapshot_states()
+        node = self._node_named(name)
+        if len(node.inputs) > 1:
+            raise SpecError(
+                f"remove({name!r}): aggregation points cannot be spliced "
+                "out (insertbin handles linear segments)")
+        repl = node.inputs[0] if node.inputs else None
+        for n in self.nodes:
+            if node in n.inputs:
+                n.inputs = [x for x in
+                            (repl if i is node else i for i in n.inputs)
+                            if x is not None]
+        self.nodes.remove(node)
+        saved.pop(id(node), None)
+        self._rebuild(saved)
+        return node.element
+
+    def set_static_property(self, name: str, prop: str, value) -> None:
+        """Change a STATIC (table- or shape-baked) property on a running
+        pipeline: renegotiate and rebuild, carrying every element's state
+        across (shape-affected states go through migrate_state)."""
+        saved = self._snapshot_states()
+        self._node_named(name).element.set_property(prop, value)
+        self._rebuild(saved)
+
+    # -- checkpoint/resume ----------------------------------------------------
+    # Element state is an explicit carry, so a checkpoint is the carry plus
+    # the host sources' stream positions.
+    def save_checkpoint(self, path) -> None:
+        """Pickle the carried states (tensors as numpy arrays, other
+        leaves as they are), the window and the host sources' positions."""
+        if self._states is None:
+            raise SpecError("nothing to checkpoint; run a window first")
+        states_np = map_tensors(
+            lambda t: t.detach().cpu().numpy()
+            if isinstance(t, torch.Tensor) else t, self._states)
+        # host-source stream positions (frame indices) via the
+        # save_position hook, so a resume does not replay the input; live
+        # sources have no position and are named instead
+        positions = {i: n.element.save_position()
+                     for i, n in enumerate(self.nodes)
+                     if hasattr(n.element, "save_position")}
+        unresumable = [n.element.NAME for n in self.nodes
+                       if n.element.KIND == "host-source"
+                       and not hasattr(n.element, "save_position")]
+        with open(path, "wb") as f:
+            pickle.dump({"states": states_np, "window": self._window,
+                         "positions": positions,
+                         "unresumable_sources": unresumable}, f)
+
+    def load_checkpoint(self, path) -> None:
+        """Resume from save_checkpoint's file: every array leaf goes back
+        to this pipeline's device as a tensor, other leaves stay as they
+        are; host sources take back their positions."""
+        with open(path, "rb") as f:
+            ck = pickle.load(f)
+        if self._order is None:
+            self.negotiate()
+        self._states = map_tensors(
+            lambda a: torch.from_numpy(np.array(a)).to(self.device),
+            ck["states"])
+        for i, v in ck.get("positions", {}).items():
+            self.nodes[i].element.restore_position(v)
+        for name in ck.get("unresumable_sources", ()):
+            self.bus.post(Message(
+                "pipeline", "resume-warning", 0,
+                {"reason": f"{name} is a live source; its stream resumes "
+                           "from the current producer position"}))
 
     def _drain_messages(self, batch: FrameBatch, messages) -> None:
         if not messages:
@@ -436,14 +692,16 @@ def _slice_batch(batch: FrameBatch, lo: int, hi: int) -> FrameBatch:
         return x[lo:hi]
     return FrameBatch(data=cut(batch.data), pts=cut(batch.pts),
                       flags=cut(batch.flags), valid=cut(batch.valid),
-                      word=cut(batch.word), word_base=batch.word_base)
+                      word=cut(batch.word), word_base=batch.word_base,
+                      trim=cut(batch.trim))
 
 
-def _host_batch(batch: FrameBatch) -> Optional[FrameBatch]:
-    """A leaf batch on the host with its invalid frames dropped (None when
-    none is valid).  A word-keeping sink (fakesink over a packed word)
-    returns the int32 word; the byte view is restored here (a free numpy
-    view of the same bytes)."""
+def _host_batches(batch: FrameBatch) -> List[FrameBatch]:
+    """A leaf batch on the host with its invalid frames dropped and its
+    trimmed blocks cut (_split_trimmed): no batch when none is valid.  A
+    word-keeping sink (fakesink over a packed word) returns the int32
+    word; the byte view is restored here (a free numpy view of the same
+    bytes)."""
     np_batch = batch.to_numpy()
     d = np_batch.data
     if (np_batch.word is not None and not isinstance(d, dict)
@@ -453,22 +711,22 @@ def _host_batch(batch: FrameBatch) -> Optional[FrameBatch]:
             data=np.ascontiguousarray(d).view(np.uint8)
             .reshape(d.shape + (4,)), word=None, word_base=None)
     mask = np.asarray(np_batch.valid)
-    if mask.all():
-        return np_batch
     if not mask.any():
-        return None
+        return []
+    if not mask.all():
+        def keep(x):
+            if isinstance(x, dict):
+                return {k: keep(v) for k, v in x.items()}
+            if getattr(x, "ndim", 0) >= 1 and x.shape[0] == mask.shape[0]:
+                return x[mask]
+            return x
 
-    def keep(x):
-        if isinstance(x, dict):
-            return {k: keep(v) for k, v in x.items()}
-        if getattr(x, "ndim", 0) >= 1 and x.shape[0] == mask.shape[0]:
-            return x[mask]
-        return x
-
-    return FrameBatch(data=keep(np_batch.data), pts=keep(np_batch.pts),
-                      flags=keep(np_batch.flags), valid=keep(np_batch.valid),
-                      word=keep(np_batch.word),
-                      word_base=np_batch.word_base)
+        np_batch = FrameBatch(
+            data=keep(np_batch.data), pts=keep(np_batch.pts),
+            flags=keep(np_batch.flags), valid=keep(np_batch.valid),
+            word=keep(np_batch.word), word_base=np_batch.word_base,
+            trim=keep(np_batch.trim))
+    return _split_trimmed(np_batch)
 
 
 def parse_launch(description: str, device="cuda") -> Pipeline:

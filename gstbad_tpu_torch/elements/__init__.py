@@ -1,6 +1,7 @@
 """Element families; importing this package registers every factory."""
 
-from gstbad_tpu_torch.elements import debugutils  # noqa: F401
+from gstbad_tpu_torch.elements import (  # noqa: F401
+    bridges, debugutils, files, misc, observability)
 from gstbad_tpu_torch.elements.analysis import compare  # noqa: F401
 from gstbad_tpu_torch.elements.audio import (  # noqa: F401
     convert as audio_convert, freeverb, mixmatrix, removesilence)
@@ -8,4 +9,4 @@ from gstbad_tpu_torch.elements.geometry import geometrictransform  # noqa: F401
 from gstbad_tpu_torch.elements.sources import testsrc  # noqa: F401
 from gstbad_tpu_torch.elements.video import (  # noqa: F401
     bayer, coloreffects, convert, fieldanalysis, gaudieffects, interlace,
-    ivtc, videofilters)
+    ivtc, videofilters, videosignal)

@@ -1,9 +1,10 @@
-"""debugutils — identity/fakesink/tee/queue (gst/debugutils/ and the
-core elements every launch line uses)."""
+"""debugutils — identity, fakesink and its video/audio/app variants,
+errorignore, tee and queue (gst/debugutils/ and the core elements every
+launch line uses)."""
 
 from __future__ import annotations
 
-from gstbad_tpu_torch.core.element import Element
+from gstbad_tpu_torch.core.element import Element, Property
 from gstbad_tpu_torch.core.frame import FrameBatch
 from gstbad_tpu_torch.core.registry import register
 
@@ -32,6 +33,35 @@ class FakeSink(Element):
     def process(self, params, state, batch: FrameBatch):
         if batch.word is not None and not isinstance(batch.data, dict):
             return state, batch.replace(data=batch.word)
+        return state, batch
+
+
+@register
+class FakeVideoSink(FakeSink):
+    NAME = "fakevideosink"
+
+
+@register
+class FakeAudioSink(FakeSink):
+    NAME = "fakeaudiosink"
+
+
+@register
+class AppSink(FakeSink):
+    """Collects frames for the host (the appsink analog); the Pipeline
+    runner returns every window's valid frames, so this is a marker."""
+    NAME = "appsink"
+
+
+@register
+class ErrorIgnore(Element):
+    """gsterrorignore.c: convert downstream errors into OK.  In the graph
+    it is a passthrough (errors here are Python exceptions of host
+    hooks)."""
+    NAME = "errorignore"
+    PROPERTIES = (Property("ignore-error", bool, True),)
+
+    def process(self, params, state, batch: FrameBatch):
         return state, batch
 
 

@@ -2,7 +2,9 @@
 plain version, and the headline, config-5, combdetect, config-2b (blur),
 config-3 (audio), vad_square, config-4, warp, I420 transcode, iqa DSSIM
 and 22.05 kHz freeverb graphs, videoconvert's formats and the noise
-sources on the card against the CPU port.
+sources on the card against the CPU port; and the runtime surface: the
+transcode CLI, a config-5 checkpoint, live headline edits and the validate
+scenarios on the card.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  They
 import neither jax nor gstbad_tpu, so they run on a machine that has only
@@ -769,3 +771,83 @@ def test_noise_sources_on_card_equal_cpu(dev):
     b = gtt.parse_launch(desc, device="cpu").run(n_frames=6, window=2)
     np.testing.assert_array_equal(np.concatenate([x.data for x in a]),
                                   np.concatenate([x.data for x in b]))
+
+
+# -- the runtime surface on the card (chip_smoke.py phase 4d, small) ------
+
+BLUR_CHAIN = ("videoconvert format=AYUV ! gaussianblur sigma=1.2 "
+              "! videoconvert format=I420")
+
+
+def test_transcode_cli_on_card_equals_cpu(dev, tmp_path):
+    from gstbad_tpu_torch.cli import transcode_main
+    from gstbad_tpu_torch.core.spec import MediaSpec
+    from gstbad_tpu_torch.io import y4m
+    rng = np.random.default_rng(2)
+    y4m.write_y4m(tmp_path / "in.y4m", MediaSpec(
+        kind="video", format="I420", width=66, height=50),
+        {"y": rng.integers(0, 256, (10, 50, 66), dtype=np.uint8),
+         "u": rng.integers(0, 256, (10, 25, 33), dtype=np.uint8),
+         "v": rng.integers(0, 256, (10, 25, 33), dtype=np.uint8)})
+    before = blur.gaussian_blur_words.launches
+    for d in ("cuda", "cpu"):
+        transcode_main([str(tmp_path / "in.y4m"), str(tmp_path / f"{d}.y4m"),
+                        "--filters", BLUR_CHAIN, "--window", "4",
+                        "--device", d])
+        if d == "cuda":
+            assert blur.gaussian_blur_words.launches - before == 3
+    assert (tmp_path / "cuda.y4m").read_bytes() == \
+        (tmp_path / "cpu.y4m").read_bytes()
+
+
+def test_checkpoint_config5_on_card(dev, tmp_path):
+    def build():
+        return benchmarks.config5_ivtc(64, 48, device="cuda")
+    whole = build()
+    ref = whole.run(n_frames=32, window=8)
+    a, b = build(), build()
+    got = a.run(n_frames=16, window=8)
+    a.save_checkpoint(tmp_path / "ck.pkl")
+    b.load_checkpoint(tmp_path / "ck.pkl")
+    assert b._states[2]["prev"]["y"].is_cuda
+    got += b.run(n_frames=16, window=8)
+    assert len(got) == len(ref)
+    for x, y in zip(got, ref):
+        for f in ("data", "pts", "flags", "valid"):
+            np.testing.assert_array_equal(getattr(x, f), getattr(y, f))
+    assert a.bus.messages + b.bus.messages == whole.bus.messages
+
+
+def test_headline_edits_on_card_equal_cpu(dev):
+    desc = ("videotestsrc pattern=ball width=200 height=18 format=BGRx ! "
+            + HEAD + " ! zebrastripe ! fakesink")
+    outs = {}
+    for d in ("cuda", "cpu"):
+        p = gtt.parse_launch(desc, device=d)
+        k = (chainfuse.dilate_zebra_fused.launches,
+             lut.apply_word_table.launches)
+        res = [p.run(n_frames=4, window=4)]
+        p.remove("zebrastripe")
+        res.append(p.run(n_frames=4, window=4))
+        p.insert_after("videoconvert", gtt.make("zebrastripe"))
+        res.append(p.run(n_frames=4, window=4))
+        if d == "cuda":
+            assert (chainfuse.dilate_zebra_fused.launches - k[0],
+                    lut.apply_word_table.launches - k[1]) == (2, 2)
+        outs[d] = res
+    for a, b in zip(outs["cuda"], outs["cpu"]):
+        for x, y in zip(a, b):
+            for f in ("data", "pts", "flags", "valid"):
+                np.testing.assert_array_equal(getattr(x, f), getattr(y, f))
+
+
+def test_validate_scenarios_on_card(dev):
+    import glob
+    import os
+    from gstbad_tpu_torch.utils.validate import run_validatetest
+    paths = sorted(glob.glob(os.path.join(os.path.dirname(__file__),
+                                          "validate", "*.validatetest")))
+    assert len(paths) == 6
+    for path in paths:
+        report = run_validatetest(path, device="cuda")
+        assert report.ok, (path, report.details)

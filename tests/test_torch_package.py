@@ -33,6 +33,11 @@ def test_import_leaves_jax_out():
             "assert 'gstbad_tpu_torch.elements.analysis.compare' in "
             "sys.modules\n"
             "assert 'gstbad_tpu_torch.ops.dssim' in sys.modules\n"
+            "for m in ('core.harness', 'io.y4m', 'elements.bridges', "
+            "'elements.files', 'elements.misc', 'elements.observability', "
+            "'elements.video.videosignal', 'utils.trace', 'utils.validate', "
+            "'session.transcoder', 'cli', '__main__'):\n"
+            "    assert 'gstbad_tpu_torch.' + m in sys.modules, m\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'gstbad_tpu.')) "
             "or m == 'gstbad_tpu']\n"
@@ -76,6 +81,32 @@ def test_cuda_device_without_a_card_raises():
         gtt.parse_launch("videotestsrc ! fakesink", device="cuda")
     with pytest.raises(RuntimeError, match="CUDA"):
         gtt.parse_launch("videotestsrc ! fakesink")    # the default
+
+
+@pytest.mark.parametrize("entry", ["harness", "transcoder", "validate",
+                                   "cli_transcode", "cli_launch"])
+def test_entry_points_default_to_the_card(entry, tmp_path):
+    """Without device="cpu" (--device cpu) every entry point asks for the
+    card, and without one it raises: nothing falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    from gstbad_tpu_torch.cli import launch_main, transcode_main
+    from gstbad_tpu_torch.core.harness import Harness
+    from gstbad_tpu_torch.session import Transcoder
+    from gstbad_tpu_torch.utils.validate import run_validatetest
+    src, dest = str(tmp_path / "in.y4m"), str(tmp_path / "out.y4m")
+    calls = {
+        "harness": lambda: Harness("identity"),
+        "transcoder": lambda: Transcoder(src, dest),
+        "validate": lambda: run_validatetest(os.path.join(
+            ROOT, "tests", "validate", "gaussianblur.validatetest")),
+        "cli_transcode": lambda: transcode_main([src, dest]),
+        "cli_launch": lambda: launch_main(["videotestsrc", "!",
+                                           "fakesink"]),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+    assert not os.path.exists(dest)
 
 
 def test_unported_parts_refuse_cleanly():
