@@ -95,11 +95,41 @@ line):
    against their committed flow expectations); then profile_elements,
    the marginal ms of each element of the headline and of
    config2_blur_ball (CUDA events).
+   Then the opencv family, digitalzoom, lcms and codecalpha (cv_slice),
+   each path with the counts set to 0 just before it and read just after,
+   and every count must still be 0 (these paths hold no hand-written
+   kernel: no TPU kernel lies on them):
+   cv_edges_1080p (ball RGB 1920x1080 ! cvsmooth gaussian 5x5 !
+   edgedetect), cv_median_1080p (ball GRAY8 ! cvsmooth median 5 !
+   cvequalizehist), undistort_1080p (ball RGB ! cameraundistort of a
+   wide-angle lens) and dewarp_1080p (ball RGBA ! dewarp to a 1992x448
+   panorama), window 16, and lcms_motion_720p (ball BGRx 1280x720 ! lcms
+   to a gamma-2.2 wide-gamut profile written into a temporary directory
+   ! videoconvert format=RGB ! motioncells), 4 windows of 64: frames and
+   bus messages against the CPU port's (exact; lcms_motion_720p's frames
+   within 1 LSB on under 1% of the bytes), the counted run's peak device
+   memory and frames/s (median of 5).  Then the
+   equality sweep: every new element under its properties (cvsmooth's
+   four types and an ROI, cvsobel and cvlaplace at apertures 3, 5 and 7
+   masked and not, cvdilate/cverode 1 and 3 iterations, edgedetect 3, 5
+   and 7, retinex basic and multiscale, templatematch's six methods,
+   cameraundistort at alpha 0, 0.5 and 1 with crop on GRAY8, RGB and
+   BGRx, dewarp's three modes by both interpolations, skindetect's two
+   methods with and without post-processing, digitalzoom at zoom 1, 1.7
+   and 4 and a per-frame ramp on BGRx and I420, lcms's four intents and
+   preserve-black, motioncells over two windows, alphacombine and
+   codecalphademux) on 4-frame 1280x720 windows, card against CPU port:
+   exact, but bilateral, retinex, lcms and digitalzoom within 1 LSB on
+   under 1% of the bytes, and templatematch's result within 1e-5 of the
+   score map's largest (its best location equal unless a near tie on the
+   CPU port's map, its rectangle's green byte within 1).
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
    around 10 steps of a 64-frame window, 16 at 4K, data kept on the card),
-   a torch.profiler breakdown of each graph's step (device busy time,
-   device ops per step, idle share), and each kernel beside its plain
-   version, its bound and, where one PyTorch call computes the same
+   a torch.profiler breakdown of each graph's step, the fourteen and the
+   five cv paths (device busy time, device ops per step, idle share),
+   traced in a second process that runs nothing else (chip_smoke.py
+   --profile, which the run starts and waits for), and each kernel
+   beside its plain version, its bound and, where one PyTorch call computes the same
    function, that call, at the main path's shapes (K4 also by its kernel
    alone, beside its wrapper); K3 also on a
    materialized window at sigma 2.0, 3.2, 8.0 and 20.0, where its taps are
@@ -164,6 +194,8 @@ BLUR_SIGMAS = (1.2, 2.0, 3.2, 8.0, 20.0)
 # cycles of the spin kernel that holds the stream while cuda_ms queues its
 # calls: 2.5 ms at 1980 MHz, longer than 20 calls of a wrapper take the host
 SPIN_CYCLES = 5_000_000
+# host seconds of idle time before and after the steps a trace records
+PROFILE_PAD_S = 0.02
 # the compiled-C audio chain of BASELINE config 3 on the host CPU
 # (BASELINE_C.json audio_chain_realtime_x), the denominator of the
 # audio graphs' realtime factor
@@ -241,6 +273,46 @@ def byte_err(a, b) -> int:
     return max_abs_err(a.view(torch.uint8), b.view(torch.uint8))
 
 
+def main_graphs(gtt, benchmarks):
+    """The fourteen graphs of phases 4 and 5: ({key: build(device) ->
+    Pipeline}, {key: window})."""
+    def launch(desc):
+        return lambda device: gtt.parse_launch(desc, device=device)
+
+    runs = {"headline_bars": lambda device: benchmarks.ten_element_graph(
+                W, H, device=device),
+            "headline_ball": launch(launch_line("ball", HEAD
+                                                + " ! zebrastripe")),
+            "prefix_bars": launch(launch_line("bars", HEAD)),
+            "config5_ivtc": lambda device: benchmarks.config5_ivtc(
+                W5, H5, device=device),
+            "combdetect_720p": lambda device: benchmarks.combdetect_720p(
+                W5, H5, device=device),
+            "config2_blur_bars": lambda device: benchmarks.config2_blur(
+                W, H, device=device),
+            "config2_blur_ball": launch(
+                f"videotestsrc pattern=ball width={W} height={H} "
+                "format=AYUV ! gaussianblur sigma=1.2 ! fakesink"),
+            "config4_warp": lambda device: benchmarks.config4_warp(
+                W4, H4, device=device),
+            "warp_1080p": lambda device: benchmarks.warp_1080p(
+                W, H, device=device),
+            "config3_audio": lambda device: benchmarks.config3_audio(
+                AUDIO_BLOCK, device=device),
+            "vad_square": lambda device: benchmarks.vad_square(
+                AUDIO_BLOCK, device=device),
+            "transcode_i420_blur": lambda device:
+                benchmarks.transcode_i420_blur(W, H, device=device),
+            "iqa_dssim_1080p": lambda device: benchmarks.iqa_dssim_1080p(
+                W, H, device=device),
+            "freeverb_22k": lambda device: benchmarks.freeverb_22k(
+                FV_BLOCK, device=device)}
+    windows = {key: WINDOW4 if key == "config4_warp" else WINDOW
+               for key in runs}
+    windows["iqa_dssim_1080p"] = WINDOW_IQA
+    return runs, windows
+
+
 def profile_step(p, step_ms: float, key: str, window: int,
                  steps: int = 3) -> None:
     """Device time per step of pipeline `p` from a torch.profiler trace of
@@ -256,11 +328,15 @@ def profile_step(p, step_ms: float, key: str, window: int,
     for _ in range(2):
         states, _, _ = step(params, states, None)
     torch.cuda.synchronize()
+    # idle time at both ends of the capture window: without it a trace
+    # now and then lacks the device records of its first kernels
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         for _ in range(steps):
             states, _, _ = step(params, states, None)
         torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev_events:
         log(f"profile {key}: device time not measured (the profiler saw no "
@@ -279,6 +355,73 @@ def profile_step(p, step_ms: float, key: str, window: int,
         "ops/step; top: " + "; ".join(
             f"{name[:48]} x{c // steps} {t / steps:.3f} ms"
             for name, (c, t) in top))
+
+
+def profile_graphs(step_ms: dict) -> None:
+    """Phase 5's traces, taken by profile_step in a process of their own
+    (`chip_smoke.py --profile`, profile_main) that runs nothing else:
+    torch.profiler lost device records when it traced these graphs after
+    every earlier phase had run in the same process.  step_ms: {key:
+    (untraced step ms, window)}."""
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--profile", json.dumps(step_ms)], cwd=ROOT,
+                          timeout=600)
+    if proc.returncode != 0:
+        fail(f"the profile process exited with {proc.returncode}")
+    log(f"profiles: {len(step_ms)} graphs in a process of their own, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def profile_main(spec: str) -> int:
+    """`chip_smoke.py --profile SPEC`, SPEC a JSON {key: [untraced step
+    ms, window]}: profile_step of each graph named there."""
+    import shutil
+    import tempfile
+
+    sys.path.insert(0, ROOT)
+    import gstbad_tpu_torch as gtt
+    from gstbad_tpu_torch.models import benchmarks
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    try:
+        wide = os.path.join(tmp, "wide.icc")
+        with open(wide, "wb") as f:
+            f.write(benchmarks.wide_gamma22_icc())
+        builds = dict(main_graphs(gtt, benchmarks)[0])
+        builds.update((k, v[0]) for k, v in cv_graphs(benchmarks,
+                                                      wide).items())
+        for key, (ms, window) in json.loads(spec).items():
+            profile_step(builds[key]("cuda"), ms, key, window)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
+def fps_runs(build, window, reps: int = 5, n_steps: int = 10):
+    """Source frames/s of the pipeline build("cuda"): the median of `reps`
+    runs of CUDA events around n_steps steps of a `window`-frame window
+    (its data kept on the card), and every run's figure."""
+    import torch
+    p = build("cuda")
+    step = p.compile(window)
+    params, states = p.params(), p.init_states(window)
+    holder = {"states": states}
+
+    def one():
+        holder["states"], leaves, _ = step(params, holder["states"], None)
+        holder["out"] = leaves[0]
+
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        ms = cuda_ms(one, iters=n_steps, warmup=0)
+        out.append(window * 1000.0 / ms)
+    return statistics.median(out), out
 
 
 def launch_line(pattern: str, tail: str) -> str:
@@ -625,6 +768,331 @@ def runtime_surface(gtt, benchmarks, runs, counters, launches, card):
             + ", ".join(f"{k} {v:.4f}" for k, v in rep.items())
             + f" ms ({card})")
     log(f"runtime_surface: {time.perf_counter() - t_phase:.1f} s")
+
+
+WINDOW_CV = 16                  # the 1080p cv paths' window
+WINDOW_LM, WINDOWS_LM = 64, 4   # lcms_motion_720p: 4 windows of 64
+SWEEP_FRAMES = 4                # the equality sweep: 4-frame windows at 720p
+
+
+def batches_close(key, got, cpu, lsb: int = 0, share: float = 0.01,
+                  skip=None):
+    """Host batches of a card run against the CPU port's: same windows,
+    pts, flags and valid; data (an array or {plane: array}) of the same
+    shapes and dtype, within `lsb`, with under `share` of its values
+    differing where lsb > 0.  skip(window, frame) -> True leaves a frame's
+    data out.  Returns (largest difference, values differing, values)."""
+    import numpy as np
+    if len(got) != len(cpu):
+        fail(f"{key}: {len(got)} windows on the card, {len(cpu)} on CPU")
+    worst = n_diff = total = 0
+    for wi, (a, c) in enumerate(zip(got, cpu)):
+        for f in ("pts", "flags", "valid"):
+            if getattr(a, f).shape != getattr(c, f).shape or not (
+                    getattr(a, f) == getattr(c, f)).all():
+                fail(f"{key}: {f} differs from the CPU port")
+        ad = a.data if isinstance(a.data, dict) else {"": a.data}
+        cd = c.data if isinstance(c.data, dict) else {"": c.data}
+        if sorted(ad) != sorted(cd):
+            fail(f"{key}: planes {sorted(ad)} on the card, {sorted(cd)}")
+        for k in ad:
+            x, y = ad[k], cd[k]
+            if x.shape != y.shape or x.dtype != y.dtype:
+                fail(f"{key}: {k} {x.shape} {x.dtype} on the card, "
+                     f"{y.shape} {y.dtype} on CPU")
+            d = np.abs(x.astype(np.int64) - y.astype(np.int64))
+            if skip is not None:
+                for fi in range(d.shape[0]):
+                    if skip(wi, fi):
+                        d[fi] = 0
+            worst = max(worst, int(d.max(initial=0)))
+            n_diff += int((d > 0).sum())
+            total += d.size
+    if worst > lsb or (lsb and n_diff > share * total):
+        fail(f"{key}: {n_diff} of {total} values differ from the CPU "
+             f"port's, by up to {worst} ({lsb} LSB on under {share} "
+             "allowed)")
+    return worst, n_diff, total
+
+
+def messages_close(key, got, cpu, rtol: float = 0.0) -> None:
+    """Bus messages of a card run against the CPU port's: the same
+    elements, names, pts and fields; values equal, floats within rtol
+    (arrays compared element by element)."""
+    import numpy as np
+    if len(got) != len(cpu):
+        fail(f"{key}: {len(got)} bus messages on the card, {len(cpu)} on "
+             "CPU")
+    for (ge, gn, gp, gf), (ce, cn, cp, cf) in zip(got, cpu):
+        if (ge, gn, gp) != (ce, cn, cp) or sorted(gf) != sorted(cf):
+            fail(f"{key}: message {(ge, gn, gp)} != {(ce, cn, cp)}")
+        for k in gf:
+            x, y = np.asarray(gf[k]), np.asarray(cf[k])
+            ok = x.shape == y.shape and (
+                np.allclose(x, y, rtol=rtol, atol=0) if x.dtype.kind == "f"
+                else (x == y).all())
+            if not ok:
+                fail(f"{key}: field {k} of {(ge, gn, gp)}: {gf[k]} on the "
+                     f"card, {cf[k]} on CPU")
+
+
+def cv_graphs(benchmarks, wide: str):
+    """The five graphs of phase 4e, lcms_motion_720p's to the profile at
+    path `wide`: {key: (build(device) -> Pipeline, window, windows of the
+    counted run, frame shape, LSB allowed against the CPU port)}."""
+    import numpy as np
+    # dewarp's panorama: ROUND_UP_8 of the donut's mean circumference
+    # and of its depth (1992 x 448 at 1920 wide)
+    r1, r2 = W * 0.05, W * 0.28
+    pano_w = (int(2.0 * np.pi * ((r2 + r1) / 2.0)) + 7) & ~7
+    pano_h = (int(r2 - r1) + 7) & ~7
+    return {
+        "cv_edges_1080p": (lambda d: benchmarks.cv_edges_1080p(
+            W, H, device=d), WINDOW_CV, 1, (H, W, 3), 0),
+        "cv_median_1080p": (lambda d: benchmarks.cv_median_1080p(
+            W, H, device=d), WINDOW_CV, 1, (H, W), 0),
+        "undistort_1080p": (lambda d: benchmarks.undistort_1080p(
+            W, H, device=d), WINDOW_CV, 1, (H, W, 3), 0),
+        "dewarp_1080p": (lambda d: benchmarks.dewarp_1080p(
+            W, H, device=d), WINDOW_CV, 1, (pano_h, pano_w, 4), 0),
+        "lcms_motion_720p": (lambda d: benchmarks.lcms_motion_720p(
+            wide, W5, H5, device=d), WINDOW_LM, WINDOWS_LM, (H5, W5, 3),
+            1),
+    }
+
+
+def cv_slice(gtt, benchmarks, counters, card) -> dict:
+    """Phase 4e: the opencv family, digitalzoom, lcms and codecalpha.
+
+    Five paths through parse_launch on the card, each with the launch
+    counts set to 0 just before its run and read just after: these paths
+    hold no hand-written kernel, so every count must stay 0.  Their
+    frames and bus messages against the same graph on the CPU port, the
+    run's peak device memory and frames/s (median of 5); returns {key:
+    (untraced step ms, window)} for the profile process (phase 5).
+    Then the equality sweep: every new element under its properties on
+    4-frame 1280x720 windows, card against CPU port (exact, but retinex,
+    bilateral, lcms and digitalzoom within 1 LSB on under 1% of the bytes
+    and templatematch's scores within 1e-5 of the map's largest)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gstbad_tpu_torch.core.harness import Harness
+    from gstbad_tpu_torch.core.spec import MediaSpec
+    from gstbad_tpu_torch.ops import cv as cvops
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cv_")
+    try:
+        wide = os.path.join(tmp, "wide.icc")
+        with open(wide, "wb") as f:
+            f.write(benchmarks.wide_gamma22_icc())
+        paths = cv_graphs(benchmarks, wide)
+        step_ms = {}
+        for key, (build, window, n_windows, shape, lsb) in paths.items():
+            t0 = time.perf_counter()
+            pipe = build("cuda")
+            pipe.negotiate()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                c.launches = 0
+            got = pipe.run(n_frames=n_windows * window, window=window)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            delta = {k: c.launches for k, c in counters.items()
+                     if c.launches}
+            if delta:
+                fail(f"{key}: launched hand-written kernels {delta}; this "
+                     "path holds none")
+            t_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cpu_pipe = build("cpu")
+            cpu = cpu_pipe.run(n_frames=n_windows * window, window=window)
+            t_cpu = time.perf_counter() - t0
+            if got[0].data.shape[1:] != shape:
+                fail(f"{key}: frames {got[0].data.shape}, {shape} expected")
+            worst, n_diff, total = batches_close(key, got, cpu, lsb)
+            msgs = bus_messages(pipe)
+            messages_close(key, msgs, bus_messages(cpu_pipe))
+            med, all_runs = fps_runs(build, window)
+            step_ms[key] = (window * 1000.0 / med, window)
+            log(f"{key}: no kernel launched; {n_windows} windows of {window} "
+                f"frames {shape}, {n_diff} of {total} bytes differ from the "
+                f"CPU port's (by up to {worst}), {len(msgs)} bus messages "
+                f"equal; peak device memory {peak / 2**20:.1f} MiB; "
+                f"counted run {t_card:.2f} s, CPU port {t_cpu:.2f} s")
+            log(f"fps {key} window {window}: median {med:.1f} source "
+                f"frames/s of {[round(x, 1) for x in all_runs]}, step "
+                f"{step_ms[key][0]:.3f} ms ({card})")
+        log(f"cv paths: {time.perf_counter() - t_phase:.1f} s")
+
+        # the equality sweep
+        t_sweep = time.perf_counter()
+        rng = np.random.default_rng(23)
+        n = SWEEP_FRAMES
+
+        def rand(*shape):
+            return rng.integers(0, 256, shape, dtype=np.uint8)
+
+        data = {"RGB": rand(n, H5, W5, 3), "BGRx": rand(n, H5, W5, 4),
+                "RGBA": rand(n, H5, W5, 4), "GRAY8": rand(n, H5, W5),
+                "I420": {"y": rand(n, H5, W5),
+                         "u": rand(n, H5 // 2, W5 // 2),
+                         "v": rand(n, H5 // 2, W5 // 2)}}
+        ball = [b.data for b in gtt.parse_launch(
+            f"videotestsrc pattern=ball width={W5} height={H5} format=RGB "
+            "! fakesink", device="cpu").run(n_frames=2 * n, window=n)]
+        ty, tx = H5 // 3, W5 // 3
+        templ = data["RGB"][1, ty:ty + 16, tx:tx + 24].copy()
+        n_cases = 0
+
+        def case(name, fmt, props=None, windows=None, setup=None,
+                 label=""):
+            nonlocal n_cases
+            wins = windows if windows is not None else [data[fmt]]
+            outs = {}
+            for d in ("cuda", "cpu"):
+                h = Harness(name, device=d, **(props or {}))
+                if setup:
+                    setup(h.element)
+                h.set_src_spec(MediaSpec(kind="video", format=fmt,
+                                         width=W5, height=H5))
+                res = []
+                for x in wins:
+                    res += h.push(x)
+                outs[d] = (res, bus_messages(h))
+            key = f"sweep {name} {fmt} {label or props}"
+            n_cases += 1
+            return key, outs
+
+        def check(name, fmt, props=None, lsb=0, **kw):
+            key, outs = case(name, fmt, props, **kw)
+            worst, n_diff, total = batches_close(key, outs["cuda"][0],
+                                                 outs["cpu"][0], lsb)
+            messages_close(key, outs["cuda"][1], outs["cpu"][1])
+            if lsb or worst or outs["cpu"][1]:
+                log(f"{key}: {n_diff} of {total} bytes differ, by up to "
+                    f"{worst}; {len(outs['cpu'][1])} bus messages equal")
+
+        for props in ({"type": "blur", "kernel-width": 5,
+                       "kernel-height": 3},
+                      {"type": "gaussian", "kernel-width": 5,
+                       "kernel-height": 5},
+                      {"type": "median", "kernel-width": 5},
+                      {"type": "gaussian", "kernel-width": 7, "color": 2.5,
+                       "position-x": 300, "position-y": 100, "width": 500,
+                       "height": 400}):
+            check("cvsmooth", "RGB", props)
+        check("cvsmooth", "RGB", {"type": "bilateral", "color": 30.0},
+              lsb=1)
+        for ap in (3, 5, 7):
+            for mask in (True, False):
+                check("cvsobel", "RGB", {"aperture-size": ap, "mask": mask})
+                check("cvlaplace", "RGB", {
+                    "aperture-size": ap, "mask": mask, "scale": 0.5,
+                    "shift": 12.0})
+            check("edgedetect", "RGB", {"aperture-size": ap})
+        for name in ("cvdilate", "cverode"):
+            for its in (1, 3):
+                check(name, "RGB", {"iterations": its})
+        check("cvequalizehist", "GRAY8")
+        check("retinex", "RGB", {}, lsb=1)
+        check("retinex", "RGB", {"method": "multiscale"}, lsb=1)
+        for fmt in ("GRAY8", "RGB", "BGRx"):
+            for alpha in (0.0, 0.5, 1.0):
+                check("cameraundistort", fmt, {
+                    "camera-matrix": "900 0 640 0 900 360 0 0 1",
+                    "distortion-coeffs": benchmarks.UNDISTORT_D,
+                    "alpha": alpha, "crop": True})
+        for mode in ("single-panorama", "double-panorama", "quad-view"):
+            for interp in ("bilinear", "nearest"):
+                check("dewarp", "RGBA", {
+                    "inner-radius": 0.05, "outer-radius": 0.28,
+                    "display-mode": mode, "interpolation-method": interp})
+        for method in ("hsv", "rgb"):
+            for post in (True, False):
+                check("skindetect", "RGB", {"method": method,
+                                            "postprocess": post})
+        for fmt in ("BGRx", "I420"):
+            for zoom in (1.0, 1.7, 4.0):
+                check("digitalzoom", fmt, {"zoom": zoom}, lsb=1)
+            check("digitalzoom", fmt, lsb=1, label="per-frame zoom ramp",
+                  windows=[data[fmt], data[fmt]],
+                  setup=lambda el: el.set_control(
+                      "zoom", lambda pts: 1.0 + (np.asarray(pts)
+                                                 // 33333333) * 0.9))
+        for intent in ("perceptual", "relative", "saturation", "absolute"):
+            check("lcms", "BGRx", {"intent": intent, "dest-profile": wide},
+                  lsb=1)
+        check("lcms", "BGRx", {"dest-profile": wide,
+                               "preserve-black": True}, lsb=1)
+        check("motioncells", "RGB", {"gridx": 8, "gridy": 6,
+                                     "sensitivity": 0.95},
+              windows=ball, label="ball, 2 windows")
+        # templatematch: the best location equal, or a near tie on the
+        # CPU port's own score map; the drawn rectangle's green byte
+        # (255 - 255^score, truncated) within 1
+        for method in ("sqdiff", "sqdiff-normed", "ccorr", "ccorr-normed",
+                       "ccoeff", "ccoeff-normed"):
+            key, outs = case("templatematch", "RGB", {"method": method},
+                             setup=lambda el: el.set_template(templ))
+            score = cvops.match_template(torch.from_numpy(data["RGB"]),
+                                         torch.from_numpy(templ),
+                                         method.replace("-", "_")).numpy()
+            ties = set()
+            for fi, (g, c) in enumerate(zip(outs["cuda"][1],
+                                            outs["cpu"][1])):
+                scale = float(np.abs(score[fi]).max())
+                if not abs(g[3]["result"] - c[3]["result"]) <= 1e-5 * scale:
+                    fail(f"{key}: frame {fi} result {g[3]['result']} on the "
+                         f"card, {c[3]['result']} on CPU")
+                if (g[3]["x"], g[3]["y"]) != (c[3]["x"], c[3]["y"]):
+                    gap = abs(score[fi, g[3]["y"], g[3]["x"]]
+                              - score[fi, c[3]["y"], c[3]["x"]])
+                    if not gap <= 1e-5 * scale:
+                        fail(f"{key}: frame {fi} best at "
+                             f"{(g[3]['x'], g[3]['y'])} on the card, "
+                             f"{(c[3]['x'], c[3]['y'])} on CPU")
+                    ties.add(fi)
+                g2 = {k: v for k, v in g[3].items() if k != "result"}
+                c2 = {k: v for k, v in c[3].items() if k != "result"}
+                if fi not in ties and (g[:3] != c[:3] or g2 != c2):
+                    fail(f"{key}: message {g} on the card, {c} on CPU")
+            worst, n_diff, _ = batches_close(
+                key, outs["cuda"][0], outs["cpu"][0], lsb=1,
+                skip=lambda wi, fi: fi in ties)
+            a = outs["cuda"][0][0].data.astype(int)
+            c = outs["cpu"][0][0].data.astype(int)
+            keep = [fi for fi in range(a.shape[0]) if fi not in ties]
+            if (a[keep][..., [0, 2]] != c[keep][..., [0, 2]]).any():
+                fail(f"{key}: the red or blue bytes differ from the CPU "
+                     "port's")
+            log(f"{key}: best locations equal but {len(ties)} near ties, "
+                f"{n_diff} green bytes differ by up to {worst}")
+        # alphacombine and codecalphademux: a fan-in graph, card against CPU
+        for tail in ("", "codecalphademux ! "):
+            desc = (f"videotestsrc pattern=ball width={W5} height={H5} "
+                    f"format=I420 ! m.  videotestsrc pattern=gradient "
+                    f"width={W5} height={H5} format=GRAY8 ! m.  "
+                    f"alphacombine name=m ! {tail}fakesink")
+            res = {}
+            for d in ("cuda", "cpu"):
+                p = gtt.parse_launch(desc, device=d)
+                res[d] = (p.run(n_frames=2 * n, window=n), bus_messages(p))
+            key = f"sweep alphacombine ! {tail}fakesink"
+            batches_close(key, res["cuda"][0], res["cpu"][0])
+            messages_close(key, res["cuda"][1], res["cpu"][1])
+            n_cases += 1
+        log(f"equality sweep: {n_cases} cases at {W5}x{H5}, {n} frames a "
+            f"window, card against CPU port, in "
+            f"{time.perf_counter() - t_sweep:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"cv_slice: {time.perf_counter() - t_phase:.1f} s")
+    return step_ms
 
 
 def main() -> int:
@@ -1097,37 +1565,7 @@ def main() -> int:
         fail(f"kernels disagree with their plain versions: {err}")
 
     # 4. the main paths through parse_launch on the card
-    def launch(desc):
-        return lambda device: gtt.parse_launch(desc, device=device)
-
-    runs = {"headline_bars": lambda device: benchmarks.ten_element_graph(
-                W, H, device=device),
-            "headline_ball": launch(launch_line("ball", HEAD
-                                                + " ! zebrastripe")),
-            "prefix_bars": launch(launch_line("bars", HEAD)),
-            "config5_ivtc": lambda device: benchmarks.config5_ivtc(
-                W5, H5, device=device),
-            "combdetect_720p": lambda device: benchmarks.combdetect_720p(
-                W5, H5, device=device),
-            "config2_blur_bars": lambda device: benchmarks.config2_blur(
-                W, H, device=device),
-            "config2_blur_ball": launch(
-                f"videotestsrc pattern=ball width={W} height={H} "
-                "format=AYUV ! gaussianblur sigma=1.2 ! fakesink"),
-            "config4_warp": lambda device: benchmarks.config4_warp(
-                W4, H4, device=device),
-            "warp_1080p": lambda device: benchmarks.warp_1080p(
-                W, H, device=device),
-            "config3_audio": lambda device: benchmarks.config3_audio(
-                AUDIO_BLOCK, device=device),
-            "vad_square": lambda device: benchmarks.vad_square(
-                AUDIO_BLOCK, device=device),
-            "transcode_i420_blur": lambda device:
-                benchmarks.transcode_i420_blur(W, H, device=device),
-            "iqa_dssim_1080p": lambda device: benchmarks.iqa_dssim_1080p(
-                W, H, device=device),
-            "freeverb_22k": lambda device: benchmarks.freeverb_22k(
-                FV_BLOCK, device=device)}
+    runs, windows = main_graphs(gtt, benchmarks)
     audio_keys = ("config3_audio", "vad_square")
     counters = {"dilate_zebra_fused": chainfuse.dilate_zebra_fused,
                 "apply_word_table": lut.apply_word_table,
@@ -1165,9 +1603,6 @@ def main() -> int:
               "combdetect_720p": (H5, W5), "config2_blur_bars": (H, W, 4),
               "config2_blur_ball": (H, W, 4), "config4_warp": (H4, W4, 4),
               "warp_1080p": (H, W, 4), "iqa_dssim_1080p": (H, W, 4)}
-    windows = {key: WINDOW4 if key == "config4_warp" else WINDOW
-               for key in runs}
-    windows["iqa_dssim_1080p"] = WINDOW_IQA
 
     # K3 to K7's main-path inputs, recorded on uncounted runs
     inputs = {}
@@ -1406,26 +1841,10 @@ def main() -> int:
     # 4d. the runtime surface (runtime_surface)
     runtime_surface(gtt, benchmarks, runs, counters, launches, card)
 
+    # 4e. the opencv family, digitalzoom, lcms and codecalpha (cv_slice)
+    cv_step_ms = cv_slice(gtt, benchmarks, counters, card)
+
     # 5. timing
-    def fps_runs(build, window, reps: int = 5, n_steps: int = 10):
-        p = build("cuda")
-        step = p.compile(window)
-        params, states = p.params(), p.init_states(window)
-        holder = {"states": states}
-
-        def one():
-            holder["states"], leaves, _ = step(params, holder["states"], None)
-            holder["out"] = leaves[0]
-
-        for _ in range(2):
-            one()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(reps):
-            ms = cuda_ms(one, iters=n_steps, warmup=0)
-            out.append(window * 1000.0 / ms)
-        return statistics.median(out), out
-
     fps = {}
     for key, build in runs.items():
         med, all_runs = fps_runs(build, windows[key])
@@ -1446,9 +1865,10 @@ def main() -> int:
         f"(BASELINE_C.json): the card's graph is "
         f"{fps['config3_audio'] * AUDIO_BLOCK / AUDIO_RATE / C_AUDIO_REALTIME_X:.3f}"
         "x that")
-    for key, build in runs.items():
-        profile_step(build("cuda"), windows[key] * 1000.0 / fps[key], key,
-                     windows[key])
+    step_ms = {key: (windows[key] * 1000.0 / fps[key], windows[key])
+               for key in runs}
+    step_ms.update(cv_step_ms)
+    profile_graphs(step_ms)
 
     src_bcast = rand_i32(1, H, W)
     src_full = rand_i32(WINDOW, H, W)
@@ -1745,4 +2165,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--profile"]:
+        sys.exit(profile_main(sys.argv[2]))
     sys.exit(main())

@@ -5,8 +5,9 @@ from gstbad_tpu_torch.elements import (  # noqa: F401
 from gstbad_tpu_torch.elements.analysis import compare  # noqa: F401
 from gstbad_tpu_torch.elements.audio import (  # noqa: F401
     convert as audio_convert, freeverb, mixmatrix, removesilence)
+from gstbad_tpu_torch.elements import cv  # noqa: F401
 from gstbad_tpu_torch.elements.geometry import geometrictransform  # noqa: F401
 from gstbad_tpu_torch.elements.sources import testsrc  # noqa: F401
 from gstbad_tpu_torch.elements.video import (  # noqa: F401
-    bayer, coloreffects, convert, fieldanalysis, gaudieffects, interlace,
-    ivtc, videofilters, videosignal)
+    bayer, codecalpha, coloreffects, convert, digitalzoom, fieldanalysis,
+    gaudieffects, interlace, ivtc, lcms, videofilters, videosignal)

@@ -1,1 +1,1 @@
-"""Host byte formats (numpy only): y4m."""
+"""Host byte formats (numpy only): y4m and ICC profiles."""

@@ -2,7 +2,9 @@
 models/benchmarks.py: the headline graph, configs 1, 2, 2b (gaussianblur),
 3 (the audio chain), 4 (bayer and warps) and 5, the single-warp graphs and
 combdetect; and vad_square, the I420 transcode around gaussianblur, the
-iqa DSSIM fan-in and freeverb at 22.05 kHz), and config 5's quality gate.
+iqa DSSIM fan-in and freeverb at 22.05 kHz), config 5's quality gate, and
+the opencv family's paths: edges and median denoising at 1080p, lens
+undistortion, a fisheye-donut unwrap, and colour-managed motion cells.
 
 Each entry builds a Pipeline in launch-string form, so the element API is
 exercised exactly the way users drive it, on `device`.
@@ -142,6 +144,75 @@ def combdetect_720p(width=1280, height=720, device="cuda") -> Pipeline:
         "! combdetect ! fakesink", device=device)
 
 
+def cv_edges_1080p(width=1920, height=1080, device="cuda") -> Pipeline:
+    """Gaussian smoothing then Canny edges on RGB: the edge maps ahead of
+    detection in camera and robotics pipelines."""
+    return parse_launch(
+        f"videotestsrc pattern=ball width={width} height={height} "
+        "format=RGB ! cvsmooth type=gaussian kernel-width=5 kernel-height=5 "
+        "! edgedetect ! fakesink", device=device)
+
+
+def cv_median_1080p(width=1920, height=1080, device="cuda") -> Pipeline:
+    """A 5x5 median then histogram equalization on GRAY8: denoising and
+    normalising low-light surveillance video."""
+    return parse_launch(
+        f"videotestsrc pattern=ball width={width} height={height} "
+        "format=GRAY8 ! cvsmooth type=median kernel-width=5 "
+        "! cvequalizehist ! fakesink", device=device)
+
+
+# a wide-angle lens at 1080p: focal length 1400 px, the principal point at
+# the centre, barrel distortion k1 -0.30
+UNDISTORT_K = "1400 0 960 0 1400 540 0 0 1"
+UNDISTORT_D = "-0.30 0.10 0.001 0.0005 -0.02"
+
+
+def undistort_1080p(width=1920, height=1080, device="cuda") -> Pipeline:
+    """cameraundistort of a wide-angle lens on RGB."""
+    return parse_launch(
+        f"videotestsrc pattern=ball width={width} height={height} "
+        f'format=RGB ! cameraundistort camera-matrix="{UNDISTORT_K}" '
+        f'distortion-coeffs="{UNDISTORT_D}" ! fakesink', device=device)
+
+
+def dewarp_1080p(width=1920, height=1080, device="cuda") -> Pipeline:
+    """The 360-degree fisheye donut (radii 0.05 and 0.28 of the width, so
+    it fits a 1080p frame) unwrapped bilinearly to a 1992x448 panorama."""
+    return parse_launch(
+        f"videotestsrc pattern=ball width={width} height={height} "
+        "format=RGBA ! dewarp inner-radius=0.05 outer-radius=0.28 "
+        "! fakesink", device=device)
+
+
+def wide_gamma22_icc() -> bytes:
+    """A gamma-2.2 display profile with wide (Adobe-RGB-like, D50-adapted)
+    primaries: lcms_motion_720p's destination."""
+    from gstbad_tpu_torch.io import icc
+    return icc.write_icc(icc.IccProfile(
+        matrix=np.array([[0.6097, 0.2053, 0.1492],
+                         [0.3111, 0.6257, 0.0632],
+                         [0.0195, 0.0609, 0.7446]]),
+        trc=[icc.Curve("gamma", gamma=2.2)] * 3,
+        white=np.array([0.9642, 1.0, 0.8249])), "wide gamma 2.2")
+
+
+def lcms_motion_720p(dest_profile: str, width=1280, height=720,
+                     device="cuda") -> Pipeline:
+    """Colour-managed capture feeding motion alerts: lcms from sRGB to the
+    profile at `dest_profile` (a path: wide_gamma22_icc's bytes for the
+    path's cell) on BGRx, videoconvert to RGB, motioncells.  The ball
+    covers a few percent of a 10x10 grid's cells, so at the default
+    sensitivity (0.5: half a cell's pixels must change) no alert would
+    ever fire; at 0.9 (a tenth of a cell) it fires on some frames and not
+    on others."""
+    return parse_launch(
+        f"videotestsrc pattern=ball width={width} height={height} "
+        f'format=BGRx ! lcms dest-profile="{dest_profile}" '
+        "! videoconvert format=RGB ! motioncells sensitivity=0.9 "
+        "! fakesink", device=device)
+
+
 def config5_fidelity(width=1280, height=720, n_frames=30, window=10,
                      device="cuda"):
     """BASELINE config 5's quality gate (the JAX package's
@@ -184,6 +255,9 @@ def config5_fidelity(width=1280, height=720, n_frames=30, window=10,
             "frames_scored": len(scores)}
 
 
+# the cv paths above are called by name and stay out of this table:
+# lcms_motion_720p needs a profile path, and callers that walk the table
+# build each graph with width/height alone and know its output layout
 BENCHMARKS: Dict[str, Callable[..., Pipeline]] = {
     "config1_sepia": config1_sepia,
     "config2_gaudi": config2_gaudi,

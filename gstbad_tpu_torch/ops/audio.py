@@ -20,13 +20,13 @@ powers at once.  CPU tensors take their plain versions.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict
 
 import numpy as np
 import torch
 
 from gstbad_tpu_torch.core.frame import to_device
+from gstbad_tpu_torch.ops.numerics import full_fp32
 
 # ---------------------------------------------------------------------------
 # audiomixmatrix
@@ -122,18 +122,6 @@ def freeverb_init_state(rate: int, device="cpu"):
     }
 
 
-@contextlib.contextmanager
-def _full_fp32_matmul():
-    """Float32 matrix products in full float32 (no TF32) inside the block,
-    whatever the caller's setting."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def freeverb_process(state, x, params, rate: int, mono: bool):
     """Reverb over one window.  x: [N] (mono) or [N, 2] float32 ->
     (state, [N, 2] float32).
@@ -144,7 +132,7 @@ def freeverb_process(state, x, params, rate: int, mono: bool):
         return freeverb_scan(state, x, params, rate, mono)
     sizes = freeverb_sizes(rate)
     dmax = int(max(sizes["combR"].max(), sizes["apR"].max()))
-    with _full_fp32_matmul():
+    with full_fp32():
         if x.shape[0] >= dmax:
             return _freeverb_process_fused(state, x, params, sizes, mono)
         return _freeverb_process_blocked(state, x, params, sizes, mono)

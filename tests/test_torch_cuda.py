@@ -2,9 +2,11 @@
 plain version, and the headline, config-5, combdetect, config-2b (blur),
 config-3 (audio), vad_square, config-4, warp, I420 transcode, iqa DSSIM
 and 22.05 kHz freeverb graphs, videoconvert's formats and the noise
-sources on the card against the CPU port; and the runtime surface: the
+sources on the card against the CPU port; the runtime surface: the
 transcode CLI, a config-5 checkpoint, live headline edits and the validate
-scenarios on the card.
+scenarios on the card; and the opencv family, digitalzoom, lcms and the
+codecalpha pair, element by element and in the five cv graphs, on the card
+against the CPU port.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  They
 import neither jax nor gstbad_tpu, so they run on a machine that has only
@@ -16,7 +18,9 @@ Tolerance: bit exact (integer kernels), but config3_audio's S16 samples,
 within 1 LSB (freeverb's float32 sums, stated at its test); freeverb_scan
 within 2e-6 of its plain version (the JAX package's freeverb gate; both
 take the C's operation order, so they are in fact expected to agree bit
-for bit); iqa's dssim within 1e-5 (float32 reductions in another order).
+for bit); iqa's dssim within 1e-5 (float32 reductions in another order);
+retinex, bilateral, lcms and digitalzoom within 1 LSB on under 1% of the
+bytes, templatematch's result within 1e-5 of the score map's largest.
 """
 
 import numpy as np
@@ -851,3 +855,147 @@ def test_validate_scenarios_on_card(dev):
     for path in paths:
         report = run_validatetest(path, device="cuda")
         assert report.ok, (path, report.details)
+
+
+# the cv slice: (element, format, properties, LSB allowed)
+CV_W, CV_H = 96, 64
+CV_CASES = [
+    ("cvsmooth", "RGB", {"type": "blur", "kernel-width": 5}, 0),
+    ("cvsmooth", "GRAY8", {"type": "gaussian", "kernel-width": 5}, 0),
+    ("cvsmooth", "BGRx", {"type": "median", "kernel-width": 5}, 0),
+    ("cvsmooth", "RGB", {"type": "median", "kernel-width": 3,
+                         "position-x": 10, "width": 40}, 0),
+    ("cvsmooth", "RGB", {"type": "bilateral", "color": 30.0}, 1),
+    ("cvsobel", "RGB", {"aperture-size": 5}, 0),
+    ("cvsobel", "RGB", {"aperture-size": 7, "mask": False}, 0),
+    ("cvlaplace", "RGB", {"aperture-size": 3, "scale": 0.5}, 0),
+    ("cvlaplace", "RGB", {"aperture-size": 7, "mask": False}, 0),
+    ("cvdilate", "RGB", {"iterations": 3}, 0),
+    ("cverode", "GRAY8", {"iterations": 1}, 0),
+    ("cvequalizehist", "GRAY8", {}, 0),
+    ("edgedetect", "RGB", {"aperture-size": 3}, 0),
+    ("edgedetect", "RGB", {"aperture-size": 7}, 0),
+    ("retinex", "RGB", {}, 1),
+    ("retinex", "RGB", {"method": "multiscale"}, 1),
+    ("cameraundistort", "BGRx", {"camera-matrix": "70 0 48 0 70 32 0 0 1",
+                                 "distortion-coeffs": "-0.3 0.1",
+                                 "alpha": 0.5, "crop": True}, 0),
+    ("dewarp", "RGBA", {"inner-radius": 0.05, "outer-radius": 0.28}, 0),
+    ("dewarp", "RGBA", {"inner-radius": 0.05, "outer-radius": 0.28,
+                        "interpolation-method": "nearest",
+                        "display-mode": "quad-view"}, 0),
+    ("skindetect", "RGB", {}, 0),
+    ("skindetect", "RGB", {"method": "rgb"}, 0),
+    ("digitalzoom", "BGRx", {"zoom": 1.7}, 1),
+    ("digitalzoom", "I420", {"zoom": 4.0}, 1),
+    ("lcms", "BGRx", {"intent": "absolute"}, 1),
+    ("lcms", "RGB", {"preserve-black": True}, 1),
+]
+
+
+def _cv_frames(fmt, seed):
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return rng.integers(0, 256, (3,) + shape, dtype=np.uint8)
+
+    if fmt == "I420":
+        return {"y": r(CV_H, CV_W), "u": r(CV_H // 2, CV_W // 2),
+                "v": r(CV_H // 2, CV_W // 2)}
+    if fmt == "GRAY8":
+        return r(CV_H, CV_W)
+    return r(CV_H, CV_W, 3 if fmt == "RGB" else 4)
+
+
+def _assert_close(got, want, lsb):
+    got = got if isinstance(got, dict) else {"": got}
+    want = want if isinstance(want, dict) else {"": want}
+    assert sorted(got) == sorted(want)
+    for k in got:
+        d = np.abs(got[k].astype(np.int64) - want[k].astype(np.int64))
+        assert d.max(initial=0) <= lsb, k
+        assert (d > 0).mean() < 0.01 or not lsb, k
+
+
+def _cv_run(dev_name, name, fmt, props, setup=None):
+    from gstbad_tpu_torch.core.harness import Harness
+    from gstbad_tpu_torch.core.spec import MediaSpec
+    h = Harness(name, device=dev_name, **props)
+    if setup:
+        setup(h.element)
+    h.set_src_spec(MediaSpec(kind="video", format=fmt, width=CV_W,
+                             height=CV_H))
+    out = []
+    for seed in (0, 1):
+        out += h.push(_cv_frames(fmt, seed))
+    return out, [(m.element, m.name, m.pts, m.fields)
+                 for m in h.bus.messages]
+
+
+@pytest.mark.parametrize("name,fmt,props,lsb", CV_CASES)
+def test_cv_element_on_card_equals_cpu_port(dev, name, fmt, props, lsb):
+    got, gm = _cv_run("cuda", name, fmt, props)
+    want, wm = _cv_run("cpu", name, fmt, props)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        _assert_close(a.data, b.data, lsb)
+    assert gm == wm
+
+
+@pytest.mark.parametrize("method", ["sqdiff-normed", "ccorr", "ccoeff",
+                                    "ccoeff-normed"])
+def test_templatematch_on_card_equals_cpu_port(dev, method):
+    templ = _cv_frames("RGB", 0)[1, 10:26, 20:44].copy()
+
+    def setup(el):
+        el.set_template(templ)
+
+    got, gm = _cv_run("cuda", "templatematch", "RGB", {"method": method},
+                      setup)
+    want, wm = _cv_run("cpu", "templatematch", "RGB", {"method": method},
+                       setup)
+    assert len(gm) == len(wm) == 6
+    for g, w in zip(gm, wm):
+        assert (g[3]["x"], g[3]["y"]) == (w[3]["x"], w[3]["y"])
+        assert abs(g[3]["result"] - w[3]["result"]) <= 1e-5 * max(
+            1.0, abs(w[3]["result"]))
+    assert gm[1][3]["x"] == 20 and gm[1][3]["y"] == 10
+    for a, b in zip(got, want):
+        _assert_close(a.data, b.data, 1)
+
+
+CV_GRAPHS = ["cv_edges_1080p", "cv_median_1080p", "undistort_1080p",
+             "dewarp_1080p", "lcms_motion_720p"]
+
+
+@pytest.mark.parametrize("name", CV_GRAPHS)
+def test_cv_graph_on_card_equals_cpu_port(dev, name, tmp_path):
+    kw = {}
+    if name == "lcms_motion_720p":
+        path = tmp_path / "wide.icc"
+        path.write_bytes(benchmarks.wide_gamma22_icc())
+        kw["dest_profile"] = str(path)
+    runs = {}
+    for d in ("cuda", "cpu"):
+        p = getattr(benchmarks, name)(width=256, height=144, device=d, **kw)
+        runs[d] = (p.run(n_frames=16, window=8),
+                   [(m.element, m.name, m.pts, str(m.fields))
+                    for m in p.bus.messages])
+    for a, b in zip(*(r[0] for r in runs.values())):
+        _assert_close(a.data, b.data, 1 if name.startswith("lcms") else 0)
+    assert runs["cuda"][1] == runs["cpu"][1]
+
+
+def test_alphacombine_codecalphademux_on_card_equal_cpu(dev):
+    desc = ("videotestsrc pattern=ball width=96 height=64 format=I420 ! m.  "
+            "videotestsrc pattern=gradient width=96 height=64 format=GRAY8 "
+            "! m.  alphacombine name=m ! codecalphademux ! fakesink")
+    runs = {}
+    for d in ("cuda", "cpu"):
+        p = gtt.parse_launch(desc, device=d)
+        runs[d] = (p.run(n_frames=8, window=4),
+                   [(m.element, m.name, m.pts, m.fields)
+                    for m in p.bus.messages])
+    for a, b in zip(*(r[0] for r in runs.values())):
+        _assert_close(a.data, b.data, 0)
+    assert runs["cuda"][1] == runs["cpu"][1]
