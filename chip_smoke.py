@@ -123,10 +123,33 @@ line):
    under 1% of the bytes, and templatematch's result within 1e-5 of the
    score map's largest (its best location equal unless a near tie on the
    CPU port's map, its rectangle's green byte within 1).
+   Then audio breadth (audio_slice, phase 4f): the four per-sample
+   walks (adpcm_ima_decode, adpcm_ms_decode and adpcm_ima_encode,
+   csrc/adpcm_kernels.cu; scope_filter, csrc/scope_kernels.cu; none a
+   TPU kernel, each replacing an XLA lax.scan) bit for bit against their
+   plain versions at ragged shapes; then nine paths through parse_launch,
+   window 64, fed from seeded numpy through appsrc or push_bytes, each
+   with the counts set to 0 just before its counted run and read just
+   after (each of its walks once a window, every other count 0), against
+   the CPU port on the same inputs, with peak device memory and frames/s
+   (median of 5): voip_webrtcdsp_48k (a call's near end and far end
+   through webrtcechoprobe into webrtcdsp; S16 within 4 LSB, mean under
+   0.5), adpcm_dvi_44k_enc and adpcm_dvi_44k_dec (2041-sample stereo
+   blocks into 2048-byte DVI blocks and back), adpcm_ms_44k (seeded MS
+   blocks), scopes_720p_{wavescope,spacescope} (color-lines at 1280x720:
+   scope_filter), scopes_720p_{spectrascope,synaescope}, exact, and
+   headphone_bs2b_pitch_44k (within 1e-3: torch.fft on the card and on
+   the CPU through the vocoder's unwrapped phase); each walk also on the
+   input its path gave it.  Then a 71-case sweep of all 17 new elements,
+   card against CPU port, in every format they accept (exact, but
+   webrtcdsp within 4 LSB, pitch within 1e-4, audiolatency's ticks within
+   1.2e-7, videoframe-audiolevel's float levels within 1e-12, the tones
+   within 1 LSB).
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
    around 10 steps of a 64-frame window, 16 at 4K, data kept on the card),
-   a torch.profiler breakdown of each graph's step, the fourteen and the
-   five cv paths (device busy time, device ops per step, idle share),
+   a torch.profiler breakdown of each graph's step, the fourteen, the
+   five cv paths and the nine audio paths (device busy time, device ops
+   per step, idle share),
    traced in a second process that runs nothing else (chip_smoke.py
    --profile, which the run starts and waits for), and each kernel
    beside its plain version, its bound and, where one PyTorch call computes the same
@@ -142,7 +165,8 @@ line):
    the card's top SM clock; the audio graphs add their realtime factor.
    freeverb_scan's the same way: the window's samples times the cycles of
    one comb step (gst_freeverb_step_cycles), its plain time the host
-   clock's around the CPU walk.
+   clock's around the CPU walk.  The four audio walks the same way, from
+   gst_adpcm_step_cycles and gst_scope_step_cycles.
    K5 and K6 take their chain bound the same way: the H - 4 rows of a
    column in order, each one dependent step of the row recurrence (the
    clamp of the carried cell, the select and the add; gst_comb_row_cycles
@@ -313,28 +337,58 @@ def main_graphs(gtt, benchmarks):
     return runs, windows
 
 
+def kernel_counters() -> dict:
+    """{kernel: its wrapper}: each wrapper's `launches` counts its
+    kernel's launches."""
+    from gstbad_tpu_torch.ops import (audio, blur, chainfuse, comb,
+                                      fieldanalysis, lut, remap)
+    return {"dilate_zebra_fused": chainfuse.dilate_zebra_fused,
+            "apply_word_table": lut.apply_word_table,
+            "metrics_default": fieldanalysis.metrics_default,
+            "comb_score_pairs": comb.comb_score_pairs,
+            "comb_mask": comb.comb_mask,
+            "gaussian_blur_words": blur.gaussian_blur_words,
+            "warp_words": remap.warp_words,
+            "vad_powers_serial": audio.vad_powers_serial,
+            "vad_powers_bracket": audio.vad_powers_bracket,
+            "freeverb_scan": audio.freeverb_scan,
+            "adpcm_ima_decode": audio.adpcm_ima_decode,
+            "adpcm_ms_decode": audio.adpcm_ms_decode,
+            "adpcm_ima_encode": audio.adpcm_ima_encode,
+            "scope_filter": audio.scope_filter}
+
+
 def profile_step(p, step_ms: float, key: str, window: int,
-                 steps: int = 3) -> None:
+                 batch=None) -> None:
     """Device time per step of pipeline `p` from a torch.profiler trace of
-    `steps` steps: busy ms, device ops launched, the idle share against
+    3 steps (20 of a step under 1 ms: a trace of three one-kernel steps
+    kept one record): busy ms, device ops launched, the idle share against
     the untraced step time `step_ms`, and the kernels that take the most
-    time."""
+    time.  batch: the input window of a graph fed by host sources (the same
+    one every step), else None.  The hand-written kernels' records (csrc/
+    holds them in anonymous namespaces) are checked against their
+    launch counters: a trace that lost some is reported, and the busy
+    time counts each lost launch at the mean of the kept ones."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    counters = kernel_counters()
 
+    steps = 20 if step_ms < 1.0 else 3
     step = p.compile(window)
     params, states = p.params(), p.init_states(window)
     for _ in range(2):
-        states, _, _ = step(params, states, None)
+        states, _, _ = step(params, states, batch)
     torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
     # idle time at both ends of the capture window: without it a trace
     # now and then lacks the device records of its first kernels
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(PROFILE_PAD_S)
         for _ in range(steps):
-            states, _, _ = step(params, states, None)
+            states, _, _ = step(params, states, batch)
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -349,10 +403,24 @@ def profile_step(p, step_ms: float, key: str, window: int,
         t[1] += e.time_range.elapsed_us() / 1000.0
     busy = sum(t for _, t in by_name.values()) / steps
     n = len(dev_events) / steps
+    launched = sum(c.launches for c in counters.values())
+    ours = [t for name, t in by_name.items()
+            if name.split("(anonymous namespace)::")[0] in ("", "void ")]
+    kept = sum(c for c, _ in ours)
+    lost = ""
+    if kept < launched:
+        if not kept:
+            log(f"profile {key}: device time not measured (the trace kept "
+                f"none of {launched} hand-written kernel launches)")
+            return
+        busy += (launched - kept) * sum(t for _, t in ours) / kept / steps
+        n += (launched - kept) / steps
+        lost = (f" (the trace kept {kept} of {launched} hand-written kernel "
+                "launches; the lost ones counted at the kept ones' mean)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
     log(f"profile {key}: device busy {busy:.3f} ms/step of {step_ms:.3f} ms "
-        f"untraced (idle share {1 - busy / step_ms:.3f}), {n:.0f} device "
-        "ops/step; top: " + "; ".join(
+        f"untraced (idle share {1 - busy / step_ms:.3f}), {n:.2f} device "
+        f"ops/step over {steps} steps{lost}; top: " + "; ".join(
             f"{name[:48]} x{c // steps} {t / steps:.3f} ms"
             for name, (c, t) in top))
 
@@ -393,25 +461,34 @@ def profile_main(spec: str) -> int:
         builds = dict(main_graphs(gtt, benchmarks)[0])
         builds.update((k, v[0]) for k, v in cv_graphs(benchmarks,
                                                       wide).items())
+        feeds = {}
+        for key, path in audio_paths(benchmarks).items():
+            builds[key], feeds[key] = path[0], path[1]
         for key, (ms, window) in json.loads(spec).items():
-            profile_step(builds[key]("cuda"), ms, key, window)
+            p = builds[key]("cuda")
+            batch = fed_input(p, feeds[key], window) if key in feeds \
+                else None
+            profile_step(p, ms, key, window, batch=batch)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0
 
 
-def fps_runs(build, window, reps: int = 5, n_steps: int = 10):
+def fps_runs(build, window, reps: int = 5, n_steps: int = 10, feed=None):
     """Source frames/s of the pipeline build("cuda"): the median of `reps`
     runs of CUDA events around n_steps steps of a `window`-frame window
-    (its data kept on the card), and every run's figure."""
+    (its data kept on the card), and every run's figure.  feed, for a
+    graph with host sources, pushes its inputs (fed_input): every step
+    then takes the same input window."""
     import torch
     p = build("cuda")
+    batch = fed_input(p, feed, window)
     step = p.compile(window)
     params, states = p.params(), p.init_states(window)
     holder = {"states": states}
 
     def one():
-        holder["states"], leaves, _ = step(params, holder["states"], None)
+        holder["states"], leaves, _ = step(params, holder["states"], batch)
         holder["out"] = leaves[0]
 
     for _ in range(2):
@@ -427,43 +504,6 @@ def fps_runs(build, window, reps: int = 5, n_steps: int = 10):
 def launch_line(pattern: str, tail: str) -> str:
     return (f"videotestsrc pattern={pattern} width={W} height={H} "
             f"format=BGRx ! {tail} ! fakesink")
-
-
-def frames_equal(key, got, cpu, shape, against="the CPU port") -> None:
-    """Host batches of a card run against another run's (the CPU port's):
-    same windows, frames of `shape` (after the frame axis), equal data,
-    pts, flags and valid."""
-    if len(got) != len(cpu):
-        fail(f"{key}: {len(got)} windows on the card, {len(cpu)} in "
-             f"{against}")
-    for a, c in zip(got, cpu):
-        if a.data.shape[1:] != shape or a.data.dtype.name != "uint8":
-            fail(f"{key}: frames {a.data.shape} {a.data.dtype}")
-        for f in ("data", "pts", "flags", "valid"):
-            if getattr(a, f).shape != getattr(c, f).shape or not (
-                    getattr(a, f) == getattr(c, f)).all():
-                fail(f"{key}: {f} differs from {against}")
-
-
-def planes_equal(key, got, cpu, shapes) -> None:
-    """Host batches of planar frames ({plane: [B, h, w]}) of a card run
-    against the CPU port's: same windows, each plane of shape shapes[plane]
-    (after the frame axis), equal planes, pts, flags and valid."""
-    if len(got) != len(cpu):
-        fail(f"{key}: {len(got)} windows on the card, {len(cpu)} on CPU")
-    for a, c in zip(got, cpu):
-        if sorted(a.data) != sorted(shapes) or sorted(c.data) != sorted(
-                shapes):
-            fail(f"{key}: planes {sorted(a.data)}")
-        for k, shape in shapes.items():
-            if a.data[k].shape[1:] != shape or not (
-                    a.data[k] == c.data[k]).all():
-                fail(f"{key}: plane {k} {a.data[k].shape} differs from the "
-                     "CPU port")
-        for f in ("pts", "flags", "valid"):
-            if getattr(a, f).shape != getattr(c, f).shape or not (
-                    getattr(a, f) == getattr(c, f)).all():
-                fail(f"{key}: {f} differs from the CPU port")
 
 
 def iqa_close(key, got_msgs, cpu_msgs) -> float:
@@ -488,37 +528,6 @@ def iqa_close(key, got_msgs, cpu_msgs) -> float:
     if not worst <= 1e-5:
         fail(f"{key}: dssim {worst:.3e} from the CPU port's (1e-5 allowed)")
     return worst
-
-
-def samples_close(key, got, cpu, got_msgs, cpu_msgs, lsb: int,
-                  block=(AUDIO_BLOCK, 1)) -> None:
-    """Host S16 audio batches of a card run against the CPU port's: same
-    windows and blocks of shape `block`, pts, flags, valid and bus
-    messages equal, samples within `lsb`; prints the share of samples that
-    differ."""
-    if len(got) != len(cpu):
-        fail(f"{key}: {len(got)} windows on the card, {len(cpu)} on CPU")
-    worst = n_diff = total = 0
-    for a, c in zip(got, cpu):
-        if a.data.shape[1:] != block or a.data.dtype.name != "int16":
-            fail(f"{key}: blocks {a.data.shape} {a.data.dtype}")
-        for f in ("pts", "flags", "valid"):
-            if getattr(a, f).shape != getattr(c, f).shape or not (
-                    getattr(a, f) == getattr(c, f)).all():
-                fail(f"{key}: {f} differs from the CPU port")
-        if a.data.shape != c.data.shape:
-            fail(f"{key}: {a.data.shape} blocks, {c.data.shape} on CPU")
-        d = abs(a.data.astype(int) - c.data.astype(int))
-        worst = max(worst, int(d.max()))
-        n_diff += int((d > 0).sum())
-        total += d.size
-    if worst > lsb:
-        fail(f"{key}: samples {worst} LSB from the CPU port's ({lsb} allowed)")
-    if got_msgs != cpu_msgs:
-        fail(f"{key}: bus messages differ from the CPU port's")
-    log(f"{key}: {len(cpu)} windows; {n_diff} of {total} samples "
-        f"({n_diff / total:.6f}) differ from the CPU port's, by at most "
-        f"{worst} LSB; pts, valid and {len(cpu_msgs)} bus messages equal")
 
 
 def bus_messages(p) -> list:
@@ -647,7 +656,7 @@ def runtime_surface(gtt, benchmarks, runs, counters, launches, card):
         stack_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        win = src.pull_window(WINDOW)
+        win = p.pull_inputs(WINDOW)
         torch.cuda.synchronize()
         up_ms = (time.perf_counter() - t0) * 1e3
         step = p.compile(WINDOW)
@@ -697,8 +706,8 @@ def runtime_surface(gtt, benchmarks, runs, counters, launches, card):
             return out + second.run(n_frames=2 * WINDOW, window=WINDOW)
 
         got = counted("checkpoint_config5", resumed, telecine)
-        frames_equal("checkpoint_config5", got, ref, (H5, W5),
-                     "the uninterrupted run")
+        batches_close("checkpoint_config5", got, ref, shape=(H5, W5),
+                      dtype="uint8", against="the uninterrupted run")
         if bus_messages(first) + bus_messages(second) != bus_messages(whole):
             fail("checkpoint_config5: bus messages differ from the "
                  "uninterrupted run's")
@@ -735,8 +744,9 @@ def runtime_surface(gtt, benchmarks, runs, counters, launches, card):
                 edit()
             got = counted(key, lambda: p.run(n_frames=WINDOW, window=WINDOW),
                           need)
-            frames_equal(key, got, fresh_at(desc, i * WINDOW), (H, W, 4),
-                         "a fresh graph")
+            batches_close(key, got, fresh_at(desc, i * WINDOW),
+                          shape=(H, W, 4), dtype="uint8",
+                          against="a fresh graph")
         log(f"edit_headline: 3 windows of {WINDOW} frames equal fresh "
             "graphs at the same source frame")
 
@@ -776,42 +786,56 @@ SWEEP_FRAMES = 4                # the equality sweep: 4-frame windows at 720p
 
 
 def batches_close(key, got, cpu, lsb: int = 0, share: float = 0.01,
-                  skip=None):
-    """Host batches of a card run against the CPU port's: same windows,
-    pts, flags and valid; data (an array or {plane: array}) of the same
-    shapes and dtype, within `lsb`, with under `share` of its values
-    differing where lsb > 0.  skip(window, frame) -> True leaves a frame's
-    data out.  Returns (largest difference, values differing, values)."""
+                  skip=None, shape=None, dtype=None,
+                  against: str = "the CPU port"):
+    """Host batches of a card run against another run's (the CPU port's):
+    same windows, pts, flags and valid; data (an array or {plane: array})
+    of the same shapes and dtype, within `lsb`, with under `share` of its
+    values differing where lsb > 0.  shape, where given, is each frame's
+    shape after the frame axis (a tuple, or {plane: tuple} for planar
+    frames) and dtype the data's (a numpy dtype name), both checked on
+    both runs.  skip(window, frame) -> True leaves a frame's data out.
+    Returns (largest difference, values differing, values)."""
     import numpy as np
     if len(got) != len(cpu):
-        fail(f"{key}: {len(got)} windows on the card, {len(cpu)} on CPU")
+        fail(f"{key}: {len(got)} windows on the card, {len(cpu)} in "
+             f"{against}")
     worst = n_diff = total = 0
     for wi, (a, c) in enumerate(zip(got, cpu)):
         for f in ("pts", "flags", "valid"):
             if getattr(a, f).shape != getattr(c, f).shape or not (
                     getattr(a, f) == getattr(c, f)).all():
-                fail(f"{key}: {f} differs from the CPU port")
+                fail(f"{key}: {f} differs from {against}")
         ad = a.data if isinstance(a.data, dict) else {"": a.data}
         cd = c.data if isinstance(c.data, dict) else {"": c.data}
         if sorted(ad) != sorted(cd):
             fail(f"{key}: planes {sorted(ad)} on the card, {sorted(cd)}")
+        want = (shape if isinstance(shape, dict) else {"": shape}) \
+            if shape is not None else None
+        if want is not None and sorted(want) != sorted(ad):
+            fail(f"{key}: planes {sorted(ad)}, {sorted(want)} expected")
         for k in ad:
             x, y = ad[k], cd[k]
             if x.shape != y.shape or x.dtype != y.dtype:
                 fail(f"{key}: {k} {x.shape} {x.dtype} on the card, "
-                     f"{y.shape} {y.dtype} on CPU")
-            d = np.abs(x.astype(np.int64) - y.astype(np.int64))
+                     f"{y.shape} {y.dtype} in {against}")
+            if (want is not None and x.shape[1:] != tuple(want[k])) or (
+                    dtype is not None and x.dtype.name != dtype):
+                fail(f"{key}: {k} frames {x.shape} {x.dtype}, "
+                     f"{want[k] if want else ''} {dtype or ''} expected")
+            d = np.abs(x.astype(np.float64) - y.astype(np.float64)) \
+                if x.dtype.kind == "f" else np.abs(
+                    x.astype(np.int64) - y.astype(np.int64))
             if skip is not None:
                 for fi in range(d.shape[0]):
                     if skip(wi, fi):
                         d[fi] = 0
-            worst = max(worst, int(d.max(initial=0)))
+            worst = max(worst, d.max(initial=0))
             n_diff += int((d > 0).sum())
             total += d.size
     if worst > lsb or (lsb and n_diff > share * total):
-        fail(f"{key}: {n_diff} of {total} values differ from the CPU "
-             f"port's, by up to {worst} ({lsb} LSB on under {share} "
-             "allowed)")
+        fail(f"{key}: {n_diff} of {total} values differ from {against}, "
+             f"by up to {worst} ({lsb} on under {share} allowed)")
     return worst, n_diff, total
 
 
@@ -1095,6 +1119,437 @@ def cv_slice(gtt, benchmarks, counters, card) -> dict:
     return step_ms
 
 
+AUDIO_WINDOW = 64               # the audio-breadth paths' window
+AUDIO_SWEEP = 4                 # the equality sweep's blocks a window
+
+
+def audio_paths(benchmarks):
+    """The audio-breadth paths of phase 4f: {key: (build(device) ->
+    Pipeline, feed(pipeline, n_windows) pushing its seeded inputs (or
+    None for a source graph), windows of the counted run, {kernel:
+    launches a window}, comparison against the CPU port)}.  The
+    comparison is "exact", ("lsb", n, mean) for S16 within n LSB with a
+    mean difference under `mean`, or ("abs", x) for float samples within
+    x."""
+    w = AUDIO_WINDOW
+
+    def push(name, frames):
+        def feed(p, n_windows):
+            p.get_by_name(name).push_frames(frames(n_windows))
+        return feed
+
+    def voip_feed(p, n_windows):
+        near, far = benchmarks.voip_inputs(n_windows * w, seed=1)
+        p.get_by_name("near").push_frames(near)
+        p.get_by_name("far").push_frames(far)
+
+    def dvi_feed(p, n_windows):
+        # the encoder graph's output on the CPU port: the DVI blocks of a
+        # 997 Hz sine (the encoder path holds the card's equal to them)
+        enc = benchmarks.adpcm_dvi_44k_encode(device="cpu").run(
+            n_frames=n_windows * w, window=w)
+        p.get_by_name("dec").push_bytes(b"".join(
+            b.data.tobytes() for b in enc))
+
+    def ms_feed(p, n_windows):
+        p.get_by_name("dec").push_bytes(
+            benchmarks.ms_blocks(n_windows * w, seed=3).tobytes())
+
+    paths = {
+        "voip_webrtcdsp_48k": (benchmarks.voip_webrtcdsp_48k, voip_feed, 2,
+                               {}, ("lsb", 4, 0.5)),
+        "adpcm_dvi_44k_enc": (benchmarks.adpcm_dvi_44k_encode, None, 2,
+                              {"adpcm_ima_encode": 1}, "exact"),
+        "adpcm_dvi_44k_dec": (benchmarks.adpcm_dvi_44k_decode, dvi_feed, 2,
+                              {"adpcm_ima_decode": 1}, "exact"),
+        "adpcm_ms_44k": (benchmarks.adpcm_ms_44k, ms_feed, 2,
+                         {"adpcm_ms_decode": 1}, "exact"),
+        "headphone_bs2b_pitch_44k": (benchmarks.headphone_bs2b_pitch_44k,
+                                     None, 1, {}, ("abs", 1e-3)),
+    }
+    for scope in benchmarks.SCOPES:
+        paths[f"scopes_720p_{scope}"] = (
+            (lambda sc: lambda d: benchmarks.scope_720p(sc, device=d))(scope),
+            push("src", lambda n: benchmarks.music_like(n * w, seed=5)), 1,
+            {"scope_filter": 1} if scope in ("wavescope", "spacescope")
+            else {}, "exact")
+    return paths
+
+
+def fed_input(p, feed, window: int):
+    """One window of p's host sources, fed by feed and pulled as the
+    runner pulls it (Pipeline.pull_inputs): a FrameBatch, a list for
+    several sources, or None for a source graph."""
+    p.negotiate()
+    if feed is None:
+        return None
+    feed(p, 1)
+    return p.pull_inputs(window)
+
+
+def audio_slice(gtt, benchmarks, counters, launches, err, card) -> dict:
+    """Phase 4f: audio breadth.
+
+    The new walks' kernels against their plain versions on the card
+    (adpcm_ima_decode, adpcm_ms_decode, adpcm_ima_encode, scope_filter:
+    bit for bit, at ragged shapes); then each path of audio_paths through
+    parse_launch on the card, the launch counts set to 0 just before its
+    counted run and read just after (each kernel of the path launched
+    once a window, every other count 0), its frames and bus messages
+    against the same inputs on the CPU port, its peak device memory and
+    frames/s (median of 5); each kernel also against its plain version on
+    the inputs the path gave it.  Then the equality sweep: all 17 new
+    elements, card against CPU port, at small sizes in every format they
+    accept under 2-4 property sets.  Returns {"step_ms": {key: (untraced
+    step ms, window)}, "inputs": {kernel: its main-path arguments},
+    "plain_s": {kernel: host seconds of its plain walk on them}}."""
+    import numpy as np
+    import torch
+    from gstbad_tpu_torch.core.harness import Harness
+    from gstbad_tpu_torch.core.spec import MediaSpec
+    from gstbad_tpu_torch.ops import audio
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(31)
+    walks = ("adpcm_ima_decode", "adpcm_ms_decode", "adpcm_ima_encode",
+             "scope_filter")
+
+    def note(name, e):
+        err[name] = max(err[name], e)
+
+    # the kernels against their plain versions at ragged shapes: blocks of
+    # one group, of an odd byte count, mono and stereo; encoder windows of
+    # one sample and of odd block lengths; the filter on 1 and 3000
+    # samples
+    for ch, bsz in ((1, 8), (1, 1024), (2, 16), (2, 41), (2, 2048)):
+        blocks = torch.from_numpy(rng.integers(0, 256, (37, bsz),
+                                               dtype=np.uint8))
+        for name, plain in (("adpcm_ima_decode",
+                             audio.adpcm_ima_decode_plain),
+                            ("adpcm_ms_decode", audio.adpcm_ms_decode_plain)):
+            got = getattr(audio, name)(blocks.to(dev), ch).cpu()
+            note(name, max_abs_err(got, plain(blocks, ch)))
+    for shape in ((1, 1, 1), (3, 25, 2), (7, 1017, 1)):
+        x = torch.from_numpy(rng.integers(-32768, 32768, shape).astype(
+            np.int16))
+        si0 = torch.from_numpy(rng.integers(0, 89, shape[2]).astype(
+            np.int32))
+        got = audio.adpcm_ima_encode(x.to(dev), si0.to(dev))
+        note("adpcm_ima_encode", max(max_abs_err(g.cpu(), w) for g, w in zip(
+            got, audio.adpcm_ima_encode_plain(x, si0))))
+    for n, ch in ((1, 1), (3000, 1), (777, 2)):
+        st = torch.from_numpy(rng.standard_normal(6 * ch) * 100)
+        x = torch.from_numpy(rng.integers(-32768, 32768, (n, ch)).astype(
+            np.int32))
+        s1, t1 = audio.scope_filter(st.to(dev), x.to(dev))
+        s2, t2 = audio.scope_filter_plain(st, x)
+        note("scope_filter", max(float((s1.cpu() - s2).abs().max()),
+                                 float((t1.cpu() - t2).abs().max())))
+    log("audio walks at ragged shapes: max_abs_err "
+        + ", ".join(f"{k} {err[k]}" for k in walks))
+    if any(err[k] for k in walks):
+        fail(f"audio walks disagree with their plain versions: "
+             f"{ {k: err[k] for k in walks} }")
+
+    paths = audio_paths(benchmarks)
+    step_ms = {}
+    for key, (build, feed, n_windows, need, cmp) in paths.items():
+        t0 = time.perf_counter()
+        window = AUDIO_WINDOW
+        pipe = build("cuda")
+        pipe.negotiate()
+        if feed is not None:
+            feed(pipe, n_windows)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()   # earlier phases' tensors
+        for c in counters.values():
+            c.launches = 0
+        got = pipe.run(n_frames=n_windows * window, window=window)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        delta = {k: c.launches for k, c in counters.items()}
+        for k, c in delta.items():
+            if c != need.get(k, 0) * n_windows:
+                fail(f"{key}: {k} launched {c} times in {n_windows} windows "
+                     f"({need.get(k, 0)} a window expected)")
+        for k in launches:
+            launches[k] += delta[k]
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_pipe = build("cpu")
+        cpu_pipe.negotiate()
+        if feed is not None:
+            feed(cpu_pipe, n_windows)
+        cpu = cpu_pipe.run(n_frames=n_windows * window, window=window)
+        t_cpu = time.perf_counter() - t0
+        msgs = bus_messages(pipe)
+        messages_close(key, msgs, bus_messages(cpu_pipe))
+        if cmp == "exact":
+            worst, n_diff, total = batches_close(key, got, cpu)
+            bound = "exact"
+        elif cmp[0] == "lsb":
+            worst, n_diff, total = batches_close(key, got, cpu, cmp[1],
+                                                 share=1.0, dtype="int16")
+            mean = float(np.mean(np.concatenate([
+                np.abs(a.data.astype(int) - c.data.astype(int)).ravel()
+                for a, c in zip(got, cpu)])))
+            if not mean < cmp[2]:
+                fail(f"{key}: mean difference {mean:.4f} LSB from the CPU "
+                     f"port's ({cmp[2]} allowed)")
+            bound = f"within {cmp[1]} LSB, mean {mean:.4f} LSB"
+        else:
+            worst, n_diff, total = batches_close(key, got, cpu, share=1.0,
+                                                 lsb=cmp[1], dtype="float32")
+            bound = f"within {cmp[1]}"
+        med, all_runs = fps_runs(build, window, feed=feed)
+        step_ms[key] = (window * 1000.0 / med, window)
+        log(f"{key}: launches {delta}; {n_windows} windows of {window} "
+            f"{got[0].data.shape[1:]} {got[0].data.dtype}, {n_diff} of "
+            f"{total} values differ from the CPU port's (by up to {worst}; "
+            f"{bound}), {len(msgs)} bus messages equal; peak device memory "
+            f"{peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB above "
+            f"the {held / 2**20:.1f} MiB held before the run); counted run "
+            f"{t_card:.2f} s, CPU port {t_cpu:.2f} s")
+        log(f"fps {key} window {window}: median {med:.1f} source "
+            f"blocks/s of {[round(x, 1) for x in all_runs]}, step "
+            f"{step_ms[key][0]:.3f} ms ({card})")
+    log(f"audio paths: {time.perf_counter() - t_phase:.1f} s")
+
+    # each kernel against its plain version on the inputs its path gives
+    # it, recorded on uncounted runs
+    inputs, plain_s = {}, {}
+    for key, k in (("adpcm_dvi_44k_dec", "adpcm_ima_decode"),
+                   ("adpcm_ms_44k", "adpcm_ms_decode"),
+                   ("adpcm_dvi_44k_enc", "adpcm_ima_encode"),
+                   ("scopes_720p_wavescope", "scope_filter")):
+        build, feed, _, _, _ = paths[key]
+        p = build("cuda")
+        batch = fed_input(p, feed, AUDIO_WINDOW)
+        step = p.compile(AUDIO_WINDOW)
+        undo = capture(audio, k, inputs)
+        try:
+            step(p.params(), p.init_states(AUDIO_WINDOW), batch)
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        if len(inputs.get(k, ())) != 1:
+            fail(f"{key} gave {k} {len(inputs.get(k, ()))} inputs, 1 "
+                 "expected")
+    for k in walks:
+        (args, kw) = inputs[k][0]
+        inputs[k] = args
+        got = getattr(audio, k)(*args)
+        cpu_args = [a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args]
+        t0 = time.perf_counter()
+        want = getattr(audio, f"{k}_plain")(*cpu_args)
+        plain_s[k] = time.perf_counter() - t0
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        e = max((float((g.cpu().double() - w.double()).abs().max())
+                 for g, w in zip(got, want)), default=0.0)
+        note(k, e)
+        log(f"{k} on its main-path input {[tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]}"
+            f": max_abs_err {e} against its plain version (host "
+            f"{plain_s[k]:.3f} s)")
+    if any(err[k] for k in walks):
+        fail(f"audio walks disagree with their plain versions on the main "
+             f"paths' inputs: { {k: err[k] for k in walks} }")
+
+    # the equality sweep: every new element, card against CPU port
+    t_sweep = time.perf_counter()
+    n_cases = 0
+    nb = AUDIO_SWEEP
+
+    def pcm(fmt, n, s, ch, amp=0.4, seed=0):
+        r = np.random.default_rng(seed)
+        t = np.arange(n * s) / 44100.0
+        x = (amp * np.sin(2 * np.pi * 330 * t)[:, None]
+             + 0.1 * r.standard_normal((n * s, ch))).reshape(n, s, ch)
+        if fmt == "S16":
+            return np.clip(x * 32767, -32768, 32767).astype(np.int16)
+        if fmt == "S32":
+            return np.clip(x * 2 ** 31, -2 ** 31, 2 ** 31 - 1).astype(
+                np.int32)
+        return x.astype(np.float32 if fmt == "F32" else np.float64)
+
+    def harness_case(name, fmt, ch, rate, wins, props=None, lsb=0.0,
+                     rtol=0.0, label=""):
+        nonlocal n_cases
+        outs = {}
+        for d in ("cuda", "cpu"):
+            h = Harness(name, device=d, **(props or {}))
+            h.set_src_spec(MediaSpec(kind="audio", format=fmt, rate=rate,
+                                     channels=ch))
+            res = []
+            for x in wins:
+                res += h.push(x)
+            outs[d] = (res, bus_messages(h))
+        key = f"sweep {name} {fmt} {ch} ch {label or props or ''}"
+        worst, n_diff, total = batches_close(key, outs["cuda"][0],
+                                             outs["cpu"][0], lsb, share=1.0)
+        messages_close(key, outs["cuda"][1], outs["cpu"][1], rtol)
+        n_cases += 1
+        if worst:
+            log(f"{key}: {n_diff} of {total} values differ, by up to "
+                f"{worst}")
+
+    def graph_case(desc, n_frames, window, lsb=0.0, feed=None, label=""):
+        nonlocal n_cases
+        outs = {}
+        for d in ("cuda", "cpu"):
+            p = gtt.parse_launch(desc, device=d)
+            p.negotiate()
+            if feed:
+                feed(p)
+            outs[d] = (p.run(n_frames=n_frames, window=window),
+                       bus_messages(p))
+        key = f"sweep {label or desc}"
+        worst, n_diff, total = batches_close(key, outs["cuda"][0],
+                                             outs["cpu"][0], lsb, share=1.0)
+        messages_close(key, outs["cuda"][1], outs["cpu"][1])
+        n_cases += 1
+        if worst:
+            log(f"{key}: {n_diff} of {total} values differ, by up to "
+                f"{worst}")
+
+    for fmt in ("F32", "F64", "S16", "S32"):
+        for props in ({}, {"preset": "jmeier"}, {"fcut": 1500, "feed": 20}):
+            harness_case("bs2b", fmt, 2, 44100,
+                         [pcm(fmt, nb, 500, 2, seed=i) for i in range(2)],
+                         props)
+        harness_case("audiobuffersplit", fmt, 2, 48000,
+                     [pcm(fmt, nb, 700, 2, seed=i) for i in range(2)],
+                     {"output-buffer-duration": "1/100"})
+        harness_case("videoframe-audiolevel", fmt, 2, 48000,
+                     [pcm(fmt, nb, 1600, 2)], rtol=1e-12)
+    harness_case("bs2b", "F32", 1, 44100, [pcm("F32", nb, 300, 1)],
+                 label="mono")
+    for props in ({"gapless": True, "max-silence-time": 40_000_000},
+                  {"alignment-threshold": 1_000_000, "discont-wait": 0}):
+        wins = [pcm("S16", nb, 480, 1, seed=i) for i in range(2)]
+        pts = [np.arange(nb) * 10_000_000, np.arange(nb) * 10_000_000
+               + 75_000_000]
+        outs = {}
+        for d in ("cuda", "cpu"):
+            h = Harness("audiobuffersplit", device=d, **props)
+            h.set_src_spec(MediaSpec(kind="audio", format="S16", rate=48000,
+                                     channels=1))
+            outs[d] = sum((h.push(x, pts=t) for x, t in zip(wins, pts)), [])
+        batches_close(f"sweep audiobuffersplit {props}", outs["cuda"],
+                      outs["cpu"])
+        n_cases += 1
+    for props in ({"pitch": 1.25}, {"tempo": 1.2, "rate": 0.9},
+                  {"output-rate": 2.0, "pitch": 0.7}):
+        harness_case("pitch", "F32", 2, 44100,
+                     [pcm("F32", 2, 1024, 2, seed=i) for i in range(2)],
+                     props, lsb=1e-4)
+    for fmt, ch in (("F32", 1), ("S16", 2)):
+        t = np.arange(8000 * 12) / 8000.0
+        beat = (np.maximum(np.sin(2 * np.pi * 2.0 * t), 0.0) ** 16
+                * np.sin(2 * np.pi * 300 * t) * 0.6)
+        x = np.repeat(beat[:, None], ch, 1).reshape(-1, 2000, ch)
+        x = (np.clip(x * 32767, -32768, 32767).astype(np.int16)
+             if fmt == "S16" else x.astype(np.float32))
+        harness_case("bpmdetect", fmt, ch, 8000,
+                     [x[i:i + 16] for i in range(0, 48, 16)])
+    x = pcm("F32", nb, 4800, 1, amp=0.05)
+    x[1, 1234, 0] = 0.9
+    harness_case("audiolatency", "F32", 1, 48000, [x], lsb=1.2e-7)
+    for layout, ch in (("dvi", 1), ("dvi", 2), ("microsoft", 1),
+                       ("microsoft", 2)):
+        bsz = 16 * ch * 8 if layout == "dvi" else 7 * ch + 100
+        data = (benchmarks.ms_blocks(9, 5, bsz, ch) if layout == "microsoft"
+                else rng.integers(0, 256, (9, bsz), dtype=np.uint8))
+        graph_case(f"adpcmdec name=dec layout={layout} blocksize={bsz} "
+                   f"rate=22050 channels={ch} ! fakesink", 0, 4,
+                   feed=lambda p, b=data: p.get_by_name("dec").push_bytes(
+                       b.tobytes()), label=f"adpcmdec {layout} {ch} ch")
+    for ch in (1, 2):
+        graph_case(f"audiotestsrc wave=sine freq=997 format=S16 rate=22050 "
+                   f"channels={ch} samplesperbuffer=57 ! adpcmenc "
+                   f"blocksize={32 * ch} ! fakesink", 12, 4)
+    for props in ("freq=440", "freq=697 freq2=1209 volume=3 volume2=6 "
+                  "on-time=50 off-time=30 repeat=true",
+                  "freq=1000 on-time=20 off-time=10 on-time2=15 "
+                  "off-time2=5 repeat=true samplesperbuffer=160"):
+        graph_case(f"tonegeneratesrc {props} ! fakesink", 12, 4, lsb=1)
+    tt = np.arange(800) / 8000.0
+    tones = np.concatenate([
+        np.concatenate([8000 * (np.sin(2 * np.pi * r * tt)
+                                + np.sin(2 * np.pi * c * tt)), np.zeros(400)])
+        for r, c in ((697, 1209), (770, 1336), (941, 1633))]).astype(
+            np.int16)
+    tones = np.concatenate([tones, np.zeros(-len(tones) % 1200, np.int16)])
+    harness_case("dtmfdetect", "S16", 1, 8000, [tones.reshape(-1, 1200, 1)])
+    for lost in ([1, 2], [0, 3]):
+        outs = {}
+        x = pcm("S16", 8, 160, 1)
+        valid = np.ones(8, bool)
+        valid[lost] = False
+        from gstbad_tpu_torch.core.frame import FrameBatch
+        for d in ("cuda", "cpu"):
+            p = gtt.parse_launch("spanplc ! fakesink", device=d)
+            p.negotiate(MediaSpec(kind="audio", format="S16", rate=8000,
+                                  channels=1))
+            res = []
+            for i in (0, 4):
+                batch = FrameBatch.make(
+                    torch.from_numpy(x[i:i + 4]).to(d),
+                    pts=torch.from_numpy(np.arange(i, i + 4) * 20_000_000
+                                         ).to(d),
+                    valid=torch.from_numpy(valid[i:i + 4]).to(d))
+                res += p.run(inputs=batch)
+            outs[d] = (res, bus_messages(p))
+        batches_close(f"sweep spanplc lost {lost}", outs["cuda"][0],
+                      outs["cpu"][0])
+        messages_close(f"sweep spanplc lost {lost}", outs["cuda"][1],
+                       outs["cpu"][1])
+        n_cases += 1
+    for scope in ("wavescope", "spacescope"):
+        for style in ("dots", "lines", "color-dots", "color-lines"):
+            for fmt in ("S16", "F32"):
+                harness_case(scope, fmt, 2, 44100,
+                             [pcm(fmt, nb, 400, 2, seed=i) for i in range(2)],
+                             {"style": style, "width": 320, "height": 240})
+    for shader in ("none", "fade-and-move-up", "fade-and-move-down",
+                   "fade-and-move-left", "fade-and-move-right"):
+        harness_case("wavescope", "S16", 1, 44100, [pcm("S16", nb, 400, 1)],
+                     {"style": "lines", "shader": shader,
+                      "shade-amount": 0x00402010})
+    for fmt, ch in (("S16", 2), ("F32", 1), ("S16", 3)):
+        harness_case("spectrascope", fmt, ch, 44100,
+                     [pcm(fmt, nb, 800, ch), pcm(fmt, nb, 100, ch)],
+                     {"width": 320, "height": 240})
+    for fmt in ("S16", "F32"):
+        harness_case("synaescope", fmt, 2, 44100,
+                     [pcm(fmt, nb, 800, 2), pcm(fmt, nb, 100, 2)],
+                     {"width": 320, "height": 240})
+    near, far = benchmarks.voip_inputs(3 * nb, seed=7)
+    for props in ("", "echo-suppression-level=high extended-filter=false "
+                  "gain-control-mode=fixed-digital",
+                  "noise-suppression-level=very-high "
+                  "voice-detection-likelihood=high"):
+        def voip(p, near=near, far=far):
+            p.get_by_name("near").push_frames(near)
+            p.get_by_name("far").push_frames(far)
+        src = "appsrc name={} kind=audio format=S16 rate=48000 channels=1"
+        graph_case(f"{src.format('near')} ! dsp.  {src.format('far')} ! "
+                   "webrtcechoprobe ! dsp.  webrtcdsp name=dsp "
+                   f"voice-detection=true {props} ! fakesink", 0, nb, lsb=4,
+                   feed=voip, label=f"webrtcdsp {props or 'defaults'}")
+    graph_case("videotestsrc pattern=ball width=64 height=48 format=RGB ! m."
+               "  audiotestsrc wave=sine format=S16 rate=48000 channels=2 "
+               "samplesperbuffer=1600 ! m.  videoframe-audiolevel name=m ! "
+               "fakesink", 8, 4, label="videoframe-audiolevel A/V")
+    log(f"audio equality sweep: {n_cases} cases, card against CPU port, in "
+        f"{time.perf_counter() - t_sweep:.1f} s")
+    log(f"audio_slice: {time.perf_counter() - t_phase:.1f} s")
+    return {"step_ms": step_ms, "inputs": inputs, "plain_s": plain_s}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1177,7 +1632,9 @@ def main() -> int:
                           "metrics_default", "comb_score_pairs",
                           "comb_mask", "gaussian_blur_words",
                           "warp_words", "vad_powers_serial",
-                          "vad_powers_bracket", "freeverb_scan")}
+                          "vad_powers_bracket", "freeverb_scan",
+                          "adpcm_ima_decode", "adpcm_ms_decode",
+                          "adpcm_ima_encode", "scope_filter")}
     wide = LinearIndex((300, 1000, 7, 0), 0, 11)     # weights above 255
 
     def check_k1(shape, batch, index, erode, thr):
@@ -1567,16 +2024,7 @@ def main() -> int:
     # 4. the main paths through parse_launch on the card
     runs, windows = main_graphs(gtt, benchmarks)
     audio_keys = ("config3_audio", "vad_square")
-    counters = {"dilate_zebra_fused": chainfuse.dilate_zebra_fused,
-                "apply_word_table": lut.apply_word_table,
-                "metrics_default": fieldanalysis.metrics_default,
-                "comb_score_pairs": comb.comb_score_pairs,
-                "comb_mask": comb.comb_mask,
-                "gaussian_blur_words": blur.gaussian_blur_words,
-                "warp_words": remap.warp_words,
-                "vad_powers_serial": audio.vad_powers_serial,
-                "vad_powers_bracket": audio.vad_powers_bracket,
-                "freeverb_scan": audio.freeverb_scan}
+    counters = kernel_counters()
     # (windows, window) of each path's counted run, and the launches each
     # kernel must make per window on it
     plan = {"headline_bars": (3, 8, {"dilate_zebra_fused": 1}),
@@ -1699,18 +2147,24 @@ def main() -> int:
         n_windows, window, _ = plan[key]
         pipe = build("cpu")
         cpu = pipe.run(n_frames=n_windows * window, window=window)
-        if key in audio_keys:
-            samples_close(key, outs[key], cpu, msgs[key], bus_messages(pipe),
-                          1 if key == "config3_audio" else 0)
-            continue
-        if key == "freeverb_22k":
-            samples_close(key, outs[key], cpu, msgs[key], bus_messages(pipe),
-                          1, block=(FV_BLOCK, 2))
+        if key in audio_keys or key == "freeverb_22k":
+            # S16 samples within 1 LSB (config 3 and freeverb_22k: the
+            # float32 reverb's sums), exact for vad_square, at any share
+            lsb = 0 if key == "vad_square" else 1
+            block = (FV_BLOCK, 2) if key == "freeverb_22k" else (
+                AUDIO_BLOCK, 1)
+            worst, n_diff, total = batches_close(
+                key, outs[key], cpu, lsb, share=1.0, shape=block,
+                dtype="int16")
+            messages_close(key, msgs[key], bus_messages(pipe))
+            log(f"{key}: {len(cpu)} windows; {n_diff} of {total} samples "
+                f"({n_diff / total:.6f}) differ from the CPU port's, by at "
+                f"most {worst} LSB; pts, valid and {len(msgs[key])} bus "
+                "messages equal")
             continue
         if key == "transcode_i420_blur":
-            planes_equal(key, outs[key], cpu, {"y": (H, W),
-                                               "u": (H // 2, W // 2),
-                                               "v": (H // 2, W // 2)})
+            batches_close(key, outs[key], cpu, dtype="uint8", shape={
+                "y": (H, W), "u": (H // 2, W // 2), "v": (H // 2, W // 2)})
             log(f"{key}: {len(cpu)} windows, "
                 f"{sum(len(b.pts) for b in cpu)} I420 frames equal the CPU "
                 "port")
@@ -1721,7 +2175,7 @@ def main() -> int:
                 "(dssim) of the CPU port's; " + "; ".join(
                     f"pts {m[2]} dssim {m[3]['dssim']:.6f} ssim "
                     f"{m[3]['ssim']:.6f}" for m in msgs[key][:2]))
-        frames_equal(key, outs[key], cpu, shapes[key])
+        batches_close(key, outs[key], cpu, shape=shapes[key], dtype="uint8")
         log(f"{key}: {len(cpu)} windows, {sum(len(b.pts) for b in cpu)} "
             "frames equal the CPU port")
     fid = {d: benchmarks.config5_fidelity(W5, H5, device=d)
@@ -1844,6 +2298,9 @@ def main() -> int:
     # 4e. the opencv family, digitalzoom, lcms and codecalpha (cv_slice)
     cv_step_ms = cv_slice(gtt, benchmarks, counters, card)
 
+    # 4f. audio breadth (audio_slice)
+    walk = audio_slice(gtt, benchmarks, counters, launches, err, card)
+
     # 5. timing
     fps = {}
     for key, build in runs.items():
@@ -1868,6 +2325,7 @@ def main() -> int:
     step_ms = {key: (windows[key] * 1000.0 / fps[key], windows[key])
                for key in runs}
     step_ms.update(cv_step_ms)
+    step_ms.update(walk["step_ms"])
     profile_graphs(step_ms)
 
     src_bcast = rand_i32(1, H, W)
@@ -2102,6 +2560,66 @@ def main() -> int:
         f"{fv_cycles:.3f} cycles ({fv_steps} steps on registers); chain "
         f"{n_fv_mp} steps = {chains['freeverb_scan']:.4f} ms at "
         f"{sm_hz / 1e6:.0f} MHz; plain version on the host CPU")
+    # the audio walks on their main-path inputs.  Their plain versions:
+    # the decoders' loop of torch ops on the card, the encoder's and the
+    # filter's walks on the host (timed by the host clock where phase 4f
+    # ran them on the same input).  No PyTorch call computes a walk.
+    # Bounds: each input byte read once and each output byte written once
+    # over HBM, the integer or float64 operations over their pipe, or the
+    # chain: the samples one thread walks in order, times the cycles of
+    # one dependent step measured by a probe kernel on registers
+    wi = walk["inputs"]
+    for k in ("adpcm_ima_decode", "adpcm_ms_decode"):
+        args = wi[k]
+        plain = getattr(audio, f"{k}_plain")
+        times[k] = (cuda_ms(lambda: getattr(audio, k)(*args)),
+                    cuda_ms(lambda: plain(*args), iters=1, warmup=1), None)
+    for k in ("adpcm_ima_encode", "scope_filter"):
+        args = wi[k]
+        times[k] = (cuda_ms(lambda: getattr(audio, k)(*args)),
+                    walk["plain_s"][k] * 1e3, None)
+    cycles = {}
+    for kind, k in enumerate(("adpcm_ima_decode", "adpcm_ms_decode",
+                              "adpcm_ima_encode")):
+        _cuda.launch("gst_adpcm_step_cycles", probe, 1 << 16, kind)
+        torch.cuda.synchronize()
+        cycles[k] = probe[0].item() / (1 << 16)
+    _cuda.launch("gst_scope_step_cycles", probe, 1 << 16)
+    torch.cuda.synchronize()
+    cycles["scope_filter"] = probe[0].item() / (1 << 16)
+    blocks_ima, ch_ima = wi["adpcm_ima_decode"]
+    blocks_ms, ch_ms = wi["adpcm_ms_decode"]
+    enc_x, _ = wi["adpcm_ima_encode"]
+    sf_state, sf_x = wi["scope_filter"]
+    walk_shapes = {
+        # (bytes, operations per second of the pipe, operations, steps a
+        # thread walks in order); per sample: IMA 12 integer operations,
+        # MS 14, the encoder 30, the filter 12 float64 (6 multiplies or
+        # FMAs, 6 sums) on the FP64 pipe (half the FP32 lanes)
+        "adpcm_ima_decode": (
+            blocks_ima.numel() + 2 * blocks_ima.shape[0] * (
+                1 + 8 * audio.adpcm_ima_groups(blocks_ima.shape[1], ch_ima))
+            * ch_ima, int32_per_s, 12 * 2 * blocks_ima.numel(),
+            8 * audio.adpcm_ima_groups(blocks_ima.shape[1], ch_ima)),
+        "adpcm_ms_decode": (
+            blocks_ms.numel() + 2 * blocks_ms.shape[0] * ch_ms
+            * audio.adpcm_ms_samples(blocks_ms.shape[1], ch_ms),
+            int32_per_s, 14 * 2 * blocks_ms.numel(),
+            audio.adpcm_ms_samples(blocks_ms.shape[1], ch_ms) - 2),
+        "adpcm_ima_encode": (
+            2 * enc_x.numel() + 4 * enc_x.numel() + 8 * enc_x.shape[0]
+            * enc_x.shape[2], int32_per_s, 30 * enc_x.numel(),
+            enc_x.shape[0] * enc_x.shape[1]),
+        "scope_filter": (
+            4 * sf_x.numel() + 8 * 3 * sf_x.numel() + 16 * sf_state.numel(),
+            fp32_per_s / 2, 12 * sf_x.numel(), sf_x.shape[0]),
+    }
+    for k, (nbytes, rate, ops, steps) in walk_shapes.items():
+        chains[k] = steps * cycles[k] / sm_hz * 1e3
+        bounds[k] = bound(nbytes, ops, rate, chains[k])
+        log(f"{k}: {steps} steps in order x {cycles[k]:.3f} cycles at "
+            f"{sm_hz / 1e6:.0f} MHz = chain {chains[k]:.4f} ms; {nbytes} "
+            f"bytes, {ops} operations")
     for label, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bounds[label]
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
@@ -2152,9 +2670,17 @@ def main() -> int:
               "gstbad_tpu/ops/audio.py:585"),
         entry("vad_powers_bracket", "K8_bracket", "vad_kernels.cu",
               "gstbad_tpu/ops/audio.py:653"),
-        # not a TPU kernel: the JAX package's XLA lax.scan
+        # not TPU kernels: each replaces an XLA lax.scan of the JAX package
         entry("freeverb_scan", "freeverb_scan", "freeverb_kernels.cu",
               "gstbad_tpu/ops/audio.py:500"),
+        entry("adpcm_ima_decode", "adpcm_ima_decode", "adpcm_kernels.cu",
+              "gstbad_tpu/ops/audio.py:1442"),
+        entry("adpcm_ms_decode", "adpcm_ms_decode", "adpcm_kernels.cu",
+              "gstbad_tpu/ops/audio.py:1485"),
+        entry("adpcm_ima_encode", "adpcm_ima_encode", "adpcm_kernels.cu",
+              "gstbad_tpu/ops/audio.py:1532"),
+        entry("scope_filter", "scope_filter", "scope_kernels.cu",
+              "gstbad_tpu/elements/audio/visualizers.py:228"),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

@@ -15,7 +15,8 @@ Package layout
   elements/  the ported elements (videotestsrc, coloreffects, chromahold,
              gaudieffects, videoconvert, zebrastripe, the telecine
              elements, bayer, the 16 geometric warps, audiotestsrc and
-             config 3's audio chain, fakesink, ...)
+             config 3's audio chain, the cv family, audio breadth
+             (webrtcdsp, ADPCM, spandsp, the scopes, ...), fakesink, ...)
   golden/    reference data carried over from the JAX package
   models/    the benchmark pipeline graphs
 

@@ -385,6 +385,19 @@ class Pipeline:
         self._states = tensors_from_numpy(states, self.device)
 
     # -- host runner ----------------------------------------------------------
+    def pull_inputs(self, window: int):
+        """One window from each host source of the negotiated pipeline,
+        pulled in topological order as run() pulls them: a FrameBatch, a list of them for several
+        sources, or None once a source is exhausted.  A pull that times
+        out raises TimeoutError."""
+        ws = [n.element.pull_window(window) for n in self._order
+              if n.element.KIND == "host-source"]
+        if not ws:
+            raise ValueError("the pipeline has no host source")
+        if any(x is None for x in ws):
+            return None
+        return ws if len(ws) > 1 else ws[0]
+
     def run(self, n_frames: int = 0, inputs: Optional[FrameBatch] = None,
             window: Optional[int] = None):
         """Drive the pipeline; returns the valid output frames per window
@@ -420,20 +433,18 @@ class Pipeline:
                 for i in range(0, inputs.batch, window):
                     yield _slice_batch(inputs, i, i + window)
                 return
-            host_sources = [n.element for n in order
-                            if n.element.KIND == "host-source"]
-            if host_sources:
+            if any(n.element.KIND == "host-source" for n in order):
                 while True:
                     try:
-                        ws = [hs.pull_window(window) for hs in host_sources]
+                        ws = self.pull_inputs(window)
                     except TimeoutError as e:
                         self.bus.post(Message(
                             "pipeline", "stall", 0,
                             {"reason": f"source pull timed out: {e}"}))
                         return
-                    if any(x is None for x in ws):
+                    if ws is None:
                         return
-                    yield ws if len(ws) > 1 else ws[0]
+                    yield ws
             else:
                 for _ in range(-(-n_frames // window)):
                     yield None

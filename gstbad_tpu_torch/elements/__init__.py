@@ -4,7 +4,9 @@ from gstbad_tpu_torch.elements import (  # noqa: F401
     bridges, debugutils, files, misc, observability)
 from gstbad_tpu_torch.elements.analysis import compare  # noqa: F401
 from gstbad_tpu_torch.elements.audio import (  # noqa: F401
-    convert as audio_convert, freeverb, mixmatrix, removesilence)
+    adpcm, bpmdetect, bs2b, buffersplit, convert as audio_convert, freeverb,
+    meters, mixmatrix, pitch, removesilence, spandsp, visualizers,
+    webrtcdsp)
 from gstbad_tpu_torch.elements import cv  # noqa: F401
 from gstbad_tpu_torch.elements.geometry import geometrictransform  # noqa: F401
 from gstbad_tpu_torch.elements.sources import testsrc  # noqa: F401

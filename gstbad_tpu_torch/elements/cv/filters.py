@@ -18,7 +18,7 @@ import torch
 from gstbad_tpu_torch.core.element import Property, VideoFilter
 from gstbad_tpu_torch.core.frame import FrameBatch
 from gstbad_tpu_torch.core.registry import register
-from gstbad_tpu_torch.core.spec import VideoFormat
+from gstbad_tpu_torch.core.spec import MediaSpec, VideoFormat, require
 from gstbad_tpu_torch.ops import cv as cvops
 from gstbad_tpu_torch.ops.numerics import f32
 from gstbad_tpu_torch.ops import pointops
@@ -102,6 +102,15 @@ class CvSmooth(VideoFilter):
         Property("width", int, 1 << 30, 0, None, static=True),
         Property("height", int, 1 << 30, 0, None, static=True),
     )
+
+    def negotiate(self, in_spec: MediaSpec) -> MediaSpec:
+        spec = super().negotiate(in_spec)
+        # cv::blur asserts ksize.width > 0 && ksize.height > 0; the
+        # gaussian takes kernel-height 0 as kernel-width
+        require(self.props["type"] != "blur"
+                or self.props["kernel-height"] > 0,
+                "cvsmooth: type=blur needs kernel-height > 0")
+        return spec
 
     def _smooth(self, img):
         kind = self.props["type"]

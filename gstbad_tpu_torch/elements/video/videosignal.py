@@ -79,10 +79,14 @@ def _pattern_geometry(width, height, pattern_width, pattern_height,
 
 
 def _blocks(el, h, w):
+    """(x0, row start, row end) of each square: a square that starts above
+    the frame's first row is clipped at the top, as one that runs past the
+    last column is clipped at the right by the slice."""
     p = el.props
-    return _pattern_geometry(w, h, p["pattern-width"], p["pattern-height"],
-                             p["pattern-count"], p["pattern-data-count"],
-                             p["left-offset"], p["bottom-offset"])
+    ph = p["pattern-height"]
+    return [(bx, max(by, 0), by + ph) for bx, by in _pattern_geometry(
+        w, h, p["pattern-width"], ph, p["pattern-count"],
+        p["pattern-data-count"], p["left-offset"], p["bottom-offset"])]
 
 
 @register
@@ -109,17 +113,16 @@ class SimpleVideoMark(_LumaPlanarFilter):
     def process(self, params, state, batch: FrameBatch):
         y = self._luma(batch.data)
         h, w = y.shape[-2], y.shape[-1]
-        ph = self.props["pattern-height"]
         pw = self.props["pattern-width"]
         pc = self.props["pattern-count"]
         data_bits = params["pattern-data"].to(torch.int64)
         out = y.clone()
-        for i, (bx, by) in enumerate(_blocks(self, h, w)):
+        for i, (bx, y0, y1) in enumerate(_blocks(self, h, w)):
             if i < pc:
                 bright = torch.tensor(i % 2 == 0, device=y.device)
             else:
                 bright = ((data_bits >> (i - pc)) & 1) == 1
-            out[..., by:by + ph, bx:bx + pw] = torch.where(
+            out[..., y0:y1, bx:bx + pw] = torch.where(
                 bright, 255, 0).to(torch.uint8)
         out = torch.where(params["enabled"], out, y)
         return state, batch.with_data(self._set_luma(batch.data, out))
@@ -146,14 +149,13 @@ class SimpleVideoMarkDetect(_LumaPlanarFilter):
     def process(self, params, state, batch: FrameBatch):
         y = self._luma(batch.data)
         h, w = y.shape[-2], y.shape[-1]
-        ph = self.props["pattern-height"]
         pw = self.props["pattern-width"]
         pc = self.props["pattern-count"]
         pdc = self.props["pattern-data-count"]
         center = params["pattern-center"].to(torch.float64) * 255.0
         means = torch.stack(
-            [y[..., by:by + ph, bx:bx + pw].to(torch.float64)
-             .mean(dim=(-2, -1)) for bx, by in _blocks(self, h, w)],
+            [y[..., y0:y1, bx:bx + pw].to(torch.float64)
+             .mean(dim=(-2, -1)) for bx, y0, y1 in _blocks(self, h, w)],
             dim=-1)   # [B, pc + pdc]
         bright = means > center
         # the sync pattern must alternate, starting bright

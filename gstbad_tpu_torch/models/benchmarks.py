@@ -4,7 +4,9 @@ models/benchmarks.py: the headline graph, configs 1, 2, 2b (gaussianblur),
 combdetect; and vad_square, the I420 transcode around gaussianblur, the
 iqa DSSIM fan-in and freeverb at 22.05 kHz), config 5's quality gate, and
 the opencv family's paths: edges and median denoising at 1080p, lens
-undistortion, a fisheye-donut unwrap, and colour-managed motion cells.
+undistortion, a fisheye-donut unwrap, and colour-managed motion cells;
+and audio breadth's: a voice call through webrtcdsp, IMA and Microsoft
+ADPCM at 44.1 kHz, the four scopes at 720p, and bs2b with pitch.
 
 Each entry builds a Pipeline in launch-string form, so the element API is
 exercised exactly the way users drive it, on `device`.
@@ -253,6 +255,150 @@ def config5_fidelity(width=1280, height=720, n_frames=30, window=10,
     return {"ssim": round(ssim, 6),
             "dssim": round((1.0 - ssim) / 2.0, 6),   # compare.c dssim
             "frames_scored": len(scores)}
+
+
+# -- audio breadth: the slice's card paths ------------------------------------
+# Each graph here is called by name (chip_smoke.py's audio_slice) and stays
+# out of BENCHMARKS: its inputs are seeded numpy pushed through appsrc or
+# push_bytes, so card and CPU see the same bytes.
+
+VOIP_RATE, VOIP_BLOCK = 48000, 480          # 10 ms blocks at 48 kHz
+
+
+def voip_webrtcdsp_48k(device="cuda") -> Pipeline:
+    """A video call's capture path: the near end (microphone) and the far
+    end (what the loudspeaker plays, through webrtcechoprobe) into
+    webrtcdsp with its defaults (high-pass, echo cancellation with the
+    extended 16-partition filter, moderate noise suppression,
+    adaptive-digital gain, the limiter) and voice detection.  Feed it
+    with voip_inputs through appsrc near and far."""
+    src = (f"appsrc name={{}} kind=audio format=S16 rate={VOIP_RATE} "
+           "channels=1")
+    return parse_launch(
+        f"{src.format('near')} ! dsp.  {src.format('far')} ! "
+        "webrtcechoprobe ! dsp.  webrtcdsp name=dsp voice-detection=true "
+        "! fakesink", device=device)
+
+
+def voip_inputs(n_blocks: int, seed: int = 0):
+    """(near, far) int16 [n_blocks, 480, 1]: far a speech-like signal
+    (three harmonics under a 3 Hz syllable envelope, about -15 dBFS
+    peaks); near the far end through a seeded 40 ms decaying echo path,
+    plus a near talker at -20 dB and noise at -50 dBFS."""
+    rng = np.random.default_rng(seed)
+    n = n_blocks * VOIP_BLOCK
+    t = np.arange(n) / VOIP_RATE
+
+    def talker(f0, phase):
+        env = (0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t + phase)) ** 2
+        return env * (np.sin(2 * np.pi * f0 * t)
+                      + 0.5 * np.sin(2 * np.pi * 2 * f0 * t + 1)
+                      + 0.3 * np.sin(2 * np.pi * 4 * f0 * t + 2))
+
+    far = talker(220.0, 0.0) * 6000.0
+    taps = int(0.040 * VOIP_RATE)
+    echo_path = (rng.standard_normal(taps)
+                 * np.exp(-np.arange(taps) / (0.008 * VOIP_RATE)) * 0.2)
+    echo = np.convolve(far, echo_path)[:n]
+    near = (echo + talker(170.0, 1.3) * 600.0
+            + rng.standard_normal(n) * 32768 * 10 ** (-50 / 20))
+
+    def s16(x):
+        return np.clip(np.round(x), -32768, 32767).astype(np.int16).reshape(
+            n_blocks, VOIP_BLOCK, 1)
+
+    return s16(near), s16(far)
+
+
+ADPCM_RATE, ADPCM_BLOCKSIZE = 44100, 2048   # 2041 samples a stereo block
+
+
+def adpcm_dvi_44k_encode(device="cuda") -> Pipeline:
+    """WAV IMA-ADPCM encoding of a 44.1 kHz stereo sine: 2041-sample
+    blocks into 2048-byte DVI blocks."""
+    return parse_launch(
+        f"audiotestsrc wave=sine format=S16 rate={ADPCM_RATE} channels=2 "
+        "samplesperbuffer=2041 ! adpcmenc "
+        f"blocksize={ADPCM_BLOCKSIZE} ! fakesink", device=device)
+
+
+def adpcm_dvi_44k_decode(device="cuda") -> Pipeline:
+    """The DVI decoder on 2048-byte stereo blocks (push_bytes to the node
+    named dec)."""
+    return parse_launch(
+        f"adpcmdec name=dec layout=dvi blocksize={ADPCM_BLOCKSIZE} "
+        f"rate={ADPCM_RATE} channels=2 ! fakesink", device=device)
+
+
+def adpcm_ms_44k(device="cuda") -> Pipeline:
+    """The Microsoft ADPCM decoder on 2048-byte stereo blocks (push_bytes
+    to the node named dec; ms_blocks makes valid ones)."""
+    return parse_launch(
+        f"adpcmdec name=dec layout=microsoft blocksize={ADPCM_BLOCKSIZE} "
+        f"rate={ADPCM_RATE} channels=2 ! fakesink", device=device)
+
+
+def ms_blocks(n: int, seed: int = 0, blocksize: int = ADPCM_BLOCKSIZE,
+              channels: int = 2) -> np.ndarray:
+    """n valid Microsoft ADPCM blocks, uint8 [n, blocksize]: predictor
+    indices 0-6, initial deltas 16-1024, two header samples per channel,
+    and random codes."""
+    rng = np.random.default_rng(seed)
+    out = rng.integers(0, 256, (n, blocksize), dtype=np.uint8)
+    out[:, :channels] = rng.integers(0, 7, (n, channels))
+
+    def put16(off, vals):
+        v = vals.astype(np.int64) & 0xFFFF
+        out[:, off] = v & 0xFF
+        out[:, off + 1] = v >> 8
+
+    for c in range(channels):
+        put16(channels + 2 * c, rng.integers(16, 1025, n))
+        put16(3 * channels + 2 * c, rng.integers(-20000, 20000, n))
+        put16(5 * channels + 2 * c, rng.integers(-20000, 20000, n))
+    return out
+
+
+SCOPE_RATE, SCOPE_BLOCK = 44100, 1764       # one 25 fps frame of audio
+SCOPES = {"wavescope": "style=color-lines", "spacescope": "style=color-lines",
+          "spectrascope": "", "synaescope": ""}
+
+
+def scope_720p(scope: str, device="cuda") -> Pipeline:
+    """A music player's full-screen visualizer: 44.1 kHz stereo S16 in
+    1764-sample blocks (one frame at 25 fps) from appsrc (named src; feed
+    it music_like) into `scope` at 1280x720."""
+    return parse_launch(
+        f"appsrc name=src kind=audio format=S16 rate={SCOPE_RATE} "
+        f"channels=2 ! {scope} {SCOPES[scope]} width=1280 height=720 "
+        "! fakesink", device=device)
+
+
+def music_like(n_blocks: int, block: int = SCOPE_BLOCK, seed: int = 0,
+               rate: int = SCOPE_RATE) -> np.ndarray:
+    """int16 [n_blocks, block, 2]: a seeded stereo mix of a bass line, a
+    chord and a lead with vibrato, at about -6 dBFS peaks, panned apart."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_blocks * block) / rate
+    notes = rng.choice([110.0, 130.8, 146.8, 164.8, 196.0], 8)
+    bar = (t * 2).astype(int) % 8
+    bass = np.sin(2 * np.pi * notes[bar] * t)
+    chord = sum(np.sin(2 * np.pi * f * t + k) for k, f in
+                enumerate((261.6, 329.6, 392.0)))
+    lead = np.sin(2 * np.pi * 880 * t + 3 * np.sin(2 * np.pi * 5 * t))
+    left = 0.25 * bass + 0.08 * chord + 0.12 * lead
+    right = 0.25 * bass + 0.10 * chord + 0.05 * lead
+    x = np.stack([left, right], -1) * 32767
+    return x.astype(np.int16).reshape(n_blocks, block, 2)
+
+
+def headphone_bs2b_pitch_44k(device="cuda") -> Pipeline:
+    """Headphone listening with a pitch shift: bs2b's cmoy crossfeed then
+    pitch 1.25 on 44.1 kHz stereo F32 in 4096-sample blocks."""
+    return parse_launch(
+        "audiotestsrc wave=sine format=F32 rate=44100 channels=2 "
+        "samplesperbuffer=4096 ! bs2b preset=cmoy ! pitch pitch=1.25 "
+        "! fakesink", device=device)
 
 
 # the cv paths above are called by name and stay out of this table:

@@ -49,6 +49,12 @@ SIGNATURES = {
     "gst_vad_step_cycles": (_P, _I),
     "gst_freeverb_scan": (_P,) * 17 + (_I,) * 5,
     "gst_freeverb_step_cycles": (_P, _I),
+    "gst_adpcm_ima_decode": (_P, _P, _I, _I, _I),
+    "gst_adpcm_ms_decode": (_P, _P, _I, _I, _I),
+    "gst_adpcm_ima_encode": (_P,) * 5 + (_I,) * 3,
+    "gst_adpcm_step_cycles": (_P, _I, _I),
+    "gst_scope_filter": (_P,) * 4 + (_I,) * 2,
+    "gst_scope_step_cycles": (_P, _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

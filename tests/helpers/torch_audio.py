@@ -129,3 +129,78 @@ def assert_states_close(a, b, atol=0.0, path="state"):
             np.testing.assert_allclose(b, a, rtol=0, atol=atol, err_msg=path)
         else:
             np.testing.assert_array_equal(b, a, err_msg=path)
+
+
+def push_audio_both(name, fmt, channels, rate, windows, props=None,
+                    pts=None):
+    """Push each window (numpy [B, S, C] blocks) through element `name` in
+    both packages' Harness (the port on the CPU), one pipeline each, so
+    state carries across windows; pts, where given, one array per window.
+    Returns ((jax outputs, jax messages),
+    (port outputs, port messages)): outputs a list of host batches,
+    messages (element, name, pts, fields) tuples."""
+    from gstbad_tpu.core.harness import Harness as JHarness
+    from gstbad_tpu_torch.core.harness import Harness
+    out = []
+    for hcls, pkg, kw in ((JHarness, gt, {}), (Harness, gtt,
+                                               {"device": "cpu"})):
+        h = hcls(name, **kw, **(props or {}))
+        h.set_src_spec(audio_spec(pkg, fmt, channels, rate))
+        res = []
+        for i, data in enumerate(windows):
+            res += h.push(data, pts=None if pts is None else pts[i])
+        out.append((res, [(m.element, m.name, m.pts, m.fields)
+                          for m in h.bus.messages]))
+    return out
+
+
+def batches_within(jres, tres, atol=0.0, mean_atol=None):
+    """Two run() results: the same batches with equal pts, flags and
+    valid, data of the same dtype and shape within atol (and, with
+    mean_atol, a mean absolute difference under it).  Returns the largest
+    difference."""
+    assert len(jres) == len(tres), (len(jres), len(tres))
+    worst, diffs = 0.0, []
+    for a, t in zip(jres, tres):
+        for f in ("pts", "flags", "valid"):
+            np.testing.assert_array_equal(np.asarray(getattr(t, f)),
+                                          np.asarray(getattr(a, f)))
+        x, y = np.asarray(a.data), np.asarray(t.data)
+        assert x.dtype == y.dtype and x.shape == y.shape, (x.dtype, y.dtype,
+                                                           x.shape, y.shape)
+        d = np.abs(x.astype(np.float64) - y.astype(np.float64))
+        worst = max(worst, float(d.max(initial=0.0)))
+        diffs.append(d.reshape(-1))
+    assert worst <= atol, (worst, atol)
+    if mean_atol is not None and diffs:
+        mean = float(np.concatenate(diffs).mean())
+        assert mean < mean_atol, (mean, mean_atol)
+    return worst
+
+
+def messages_within(jm, tm, rtol=0.0):
+    """Equal messages: element, name, pts and fields; float fields within
+    rtol."""
+    assert len(jm) == len(tm), (len(jm), len(tm))
+    for a, t in zip(jm, tm):
+        assert a[:3] == t[:3], (a[:3], t[:3])
+        assert sorted(a[3]) == sorted(t[3])
+        for k in a[3]:
+            x, y = np.asarray(a[3][k]), np.asarray(t[3][k])
+            assert x.shape == y.shape and x.dtype.kind == y.dtype.kind, k
+            if x.dtype.kind == "f":
+                np.testing.assert_allclose(y, x, rtol=rtol, atol=0,
+                                           err_msg=k)
+            else:
+                np.testing.assert_array_equal(y, x, err_msg=k)
+
+
+def speech_like(rng, n, rate=48000, amp=6000.0):
+    """A seeded speech-like float64 signal: three harmonics under a 3 Hz
+    syllable envelope, plus a little noise."""
+    t = np.arange(n) / rate
+    env = (0.5 + 0.5 * np.sin(2 * np.pi * 3.0 * t)) ** 2
+    x = env * (np.sin(2 * np.pi * 220 * t)
+               + 0.5 * np.sin(2 * np.pi * 440 * t + 1)
+               + 0.3 * np.sin(2 * np.pi * 880 * t + 2))
+    return x * amp + rng.standard_normal(n) * 30.0

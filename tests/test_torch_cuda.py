@@ -6,7 +6,9 @@ sources on the card against the CPU port; the runtime surface: the
 transcode CLI, a config-5 checkpoint, live headline edits and the validate
 scenarios on the card; and the opencv family, digitalzoom, lcms and the
 codecalpha pair, element by element and in the five cv graphs, on the card
-against the CPU port.
+against the CPU port; and audio breadth's four walks (the ADPCM decoders
+and encoder, the scopes' filter) against their plain walks, and six of its
+graphs on the card against the CPU port.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  They
 import neither jax nor gstbad_tpu, so they run on a machine that has only
@@ -20,7 +22,9 @@ within 2e-6 of its plain version (the JAX package's freeverb gate; both
 take the C's operation order, so they are in fact expected to agree bit
 for bit); iqa's dssim within 1e-5 (float32 reductions in another order);
 retinex, bilateral, lcms and digitalzoom within 1 LSB on under 1% of the
-bytes, templatematch's result within 1e-5 of the score map's largest.
+bytes, templatematch's result within 1e-5 of the score map's largest;
+the audio walks bit exact, the bs2b ! pitch graph within 1e-3 (torch.fft
+on the card and the CPU, through the vocoder's unwrapped phase).
 """
 
 import numpy as np
@@ -999,3 +1003,90 @@ def test_alphacombine_codecalphademux_on_card_equal_cpu(dev):
     for a, b in zip(*(r[0] for r in runs.values())):
         _assert_close(a.data, b.data, 0)
     assert runs["cuda"][1] == runs["cpu"][1]
+
+
+# -- audio breadth: the per-sample walks and the slice's graphs ---------------
+
+
+@pytest.mark.parametrize("ch,bsz", [(1, 16), (1, 1024), (2, 2048), (2, 40)])
+def test_adpcm_decode_kernels_match_plain(dev, ch, bsz):
+    rng = np.random.default_rng(bsz + ch)
+    blocks = torch.from_numpy(rng.integers(0, 256, (37, bsz),
+                                           dtype=np.uint8))
+    for fn, plain in ((audio.adpcm_ima_decode, audio.adpcm_ima_decode_plain),
+                      (audio.adpcm_ms_decode, audio.adpcm_ms_decode_plain)):
+        before = fn.launches
+        got = fn(blocks.to(dev), ch)
+        assert fn.launches == before + 1
+        assert torch.equal(got.cpu(), plain(blocks, ch))
+        # the plain walk on the card takes the same ops
+        assert torch.equal(plain(blocks.to(dev), ch).cpu(), got.cpu())
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 25, 2), (64, 2041, 2),
+                                   (5, 1017, 1)])
+def test_adpcm_encode_kernel_matches_plain(dev, shape):
+    rng = np.random.default_rng(shape[1])
+    x = torch.from_numpy(rng.integers(-32768, 32768, shape).astype(np.int16))
+    si0 = torch.from_numpy(rng.integers(0, 89, shape[2]).astype(np.int32))
+    before = audio.adpcm_ima_encode.launches
+    got = audio.adpcm_ima_encode(x.to(dev), si0.to(dev))
+    assert audio.adpcm_ima_encode.launches == before + 1
+    for g, w in zip(got, audio.adpcm_ima_encode_plain(x, si0)):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n,ch", [(1, 1), (1764, 2), (3000, 1), (500, 2)])
+def test_scope_filter_kernel_matches_plain(dev, n, ch):
+    rng = np.random.default_rng(n)
+    st = torch.from_numpy(rng.standard_normal(6 * ch) * 100)
+    x = torch.from_numpy(rng.integers(-32768, 32768, (n, ch)).astype(
+        np.int32))
+    before = audio.scope_filter.launches
+    s1, t1 = audio.scope_filter(st.to(dev), x.to(dev))
+    assert audio.scope_filter.launches == before + 1
+    s2, t2 = audio.scope_filter_plain(st, x)
+    assert torch.equal(s1.cpu(), s2) and torch.equal(t1.cpu(), t2)
+
+
+AUDIO_BREADTH_GRAPHS = {
+    "bs2b_pitch": ("audiotestsrc wave=sine format=F32 rate=44100 channels=2 "
+                   "samplesperbuffer=4096 ! bs2b preset=cmoy ! pitch "
+                   "pitch=1.25 ! fakesink", 8, 4),
+    "adpcm_enc": ("audiotestsrc wave=sine format=S16 rate=44100 channels=2 "
+                  "samplesperbuffer=2041 ! adpcmenc blocksize=2048 ! "
+                  "fakesink", 8, 4),
+    "wavescope": ("audiotestsrc wave=sine format=S16 rate=44100 channels=2 "
+                  "samplesperbuffer=1764 ! wavescope style=color-lines "
+                  "width=320 height=240 ! fakesink", 4, 4),
+    "spacescope": ("audiotestsrc wave=sine format=S16 rate=44100 channels=2 "
+                   "samplesperbuffer=1764 ! spacescope style=color-lines "
+                   "width=320 height=240 ! fakesink", 4, 4),
+    "spectrascope": ("audiotestsrc wave=sine format=S16 rate=44100 "
+                     "channels=2 samplesperbuffer=1764 ! spectrascope "
+                     "width=320 height=240 ! fakesink", 4, 4),
+    "synaescope": ("audiotestsrc wave=sine format=S16 rate=44100 channels=2 "
+                   "samplesperbuffer=1764 ! synaescope width=320 "
+                   "height=240 ! fakesink", 4, 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AUDIO_BREADTH_GRAPHS))
+def test_audio_breadth_graph_on_card_equals_cpu_port(dev, name):
+    """The graph on the card against the CPU port: exact, but pitch's
+    output within 1e-3 (torch.fft on the card, pocketfft or MKL on the
+    CPU; the vocoder's unwrapped phase carries their rounding)."""
+    desc, n, window = AUDIO_BREADTH_GRAPHS[name]
+    got = gtt.parse_launch(desc, device="cuda").run(n_frames=n,
+                                                    window=window)
+    cpu = gtt.parse_launch(desc, device="cpu").run(n_frames=n,
+                                                   window=window)
+    assert len(got) == len(cpu)
+    for a, c in zip(got, cpu):
+        assert a.data.shape == c.data.shape and a.data.dtype == c.data.dtype
+        for f in ("pts", "flags", "valid"):
+            assert np.array_equal(getattr(a, f), getattr(c, f))
+        if name == "bs2b_pitch":
+            assert np.abs(a.data - c.data).max() <= 1e-3
+        else:
+            assert np.array_equal(a.data, c.data)

@@ -275,4 +275,5 @@ def test_registry_has_the_cv_names():
            "digitalzoom", "lcms", "alphacombine", "codecalphademux"}
     assert new <= set(t_names())
     assert set(t_names()) <= set(j_names())
-    assert len(set(t_names())) == 93
+    # 93 after the cv slice, 17 more with audio breadth
+    assert len(set(t_names())) == 110

@@ -1,0 +1,74 @@
+"""Two port faults repaired, each beside what the JAX package does.
+
+- cvsmooth type=blur with kernel-height 0: the port refuses it at
+  negotiation with a SpecError naming the property; the JAX package's
+  box_blur_u8 divides by zero there and writes 255 in every byte
+  (XLA's x // 0 is -1), and cv::blur asserts ksize.width > 0 &&
+  ksize.height > 0.  The gaussian's kernel-height 0 (it takes
+  kernel-width) stays accepted.
+- simplevideomark on frames shorter than pattern-height + bottom-offset:
+  the squares' first row clamps at 0, so a square clips at the top as it
+  clips at the right; simplevideomarkdetect reads the clipped square.
+  The JAX package raises a ValueError whenever a square crosses an edge
+  (gstbad_tpu/elements/video/videosignal.py:116-117).
+"""
+
+import numpy as np
+import pytest
+
+from gstbad_tpu.core.harness import Harness as JHarness
+from gstbad_tpu.core.spec import MediaSpec as JMediaSpec
+from gstbad_tpu_torch.core.harness import Harness
+from gstbad_tpu_torch.core.spec import MediaSpec, SpecError
+
+
+def _video(cls, fmt, w, h):
+    return cls(kind="video", format=fmt, width=w, height=h)
+
+
+@pytest.mark.parametrize("fmt", ["RGB", "GRAY8", "BGRx"])
+def test_cvsmooth_blur_kernel_height_zero_refused(fmt):
+    h = Harness("cvsmooth", device="cpu", type="blur",
+                **{"kernel-width": 3, "kernel-height": 0})
+    with pytest.raises(SpecError, match="kernel-height"):
+        h.set_src_spec(_video(MediaSpec, fmt, 16, 12))
+    # the gaussian takes kernel-width for a kernel-height of 0
+    g = Harness("cvsmooth", device="cpu", type="gaussian",
+                **{"kernel-width": 3, "kernel-height": 0})
+    g.set_src_spec(_video(MediaSpec, fmt, 16, 12))
+    # the reference side: 255 in every byte
+    j = JHarness("cvsmooth", type="blur",
+                 **{"kernel-width": 3, "kernel-height": 0})
+    j.set_src_spec(_video(JMediaSpec, fmt, 16, 12))
+    shape = (2, 12, 16) + (() if fmt == "GRAY8" else (len(fmt) if fmt !=
+                                                      "BGRx" else 4,))
+    x = np.random.default_rng(0).integers(0, 256, shape, dtype=np.uint8)
+    out = j.push_pull(x)
+    assert out.shape == x.shape and (out == 255).all()
+
+
+def test_cv_blur_refuses_a_zero_height():
+    cv2 = pytest.importorskip("cv2")
+    with pytest.raises(cv2.error):
+        cv2.blur(np.zeros((8, 8), np.uint8), (3, 0))
+
+
+def test_simplevideomark_clips_at_the_top():
+    h = Harness("simplevideomark", device="cpu")
+    h.set_src_spec(_video(MediaSpec, "GRAY8", 40, 13))
+    out = h.push_pull(np.full((2, 13, 40), 128, np.uint8))
+    # 4 sync squares (bright, dark, ...) then data 10 = 0b01010, each
+    # 4 columns wide, every row 0-12 painted
+    want = [255, 0, 255, 0, 0, 255, 0, 255, 0]
+    for i, v in enumerate(want):
+        assert (out[:, :, 4 * i:4 * i + 4] == v).all(), i
+    assert (out[:, :, 36:] == 128).all()
+    d = Harness("simplevideomarkdetect", device="cpu")
+    d.set_src_spec(_video(MediaSpec, "GRAY8", 40, 13))
+    d.push(out)
+    fields = [m.fields for m in d.bus.messages]
+    assert fields == [{"have-pattern": True, "pattern-data": 10}] * 2
+    j = JHarness("simplevideomark")
+    j.set_src_spec(_video(JMediaSpec, "GRAY8", 40, 13))
+    with pytest.raises(ValueError):
+        j.push_pull(np.full((2, 13, 40), 128, np.uint8))

@@ -255,6 +255,32 @@ def test_host_source_stall_ends_the_run_cleanly():
     assert len(tres) == 1 and [m.name for m in tp.bus.messages] == ["stall"]
 
 
+def test_pull_inputs_pulls_a_window_as_run_does():
+    """Pipeline.pull_inputs gives the window run() steps on (a short last
+    one padded with invalid frames), then None once the source is empty;
+    a graph without a host source has nothing to pull."""
+    frames = np.arange(6 * 32, dtype=np.uint8).reshape(6, 4, 8)
+    desc = "appsrc name=src format=GRAY8 width=8 height=4 ! fakesink"
+    pulled = gtt.parse_launch(desc, device="cpu")
+    run = gtt.parse_launch(desc, device="cpu")
+    for p in (pulled, run):
+        p.negotiate()
+        p.get_by_name("src").push_frames(frames)
+    wins = [pulled.pull_inputs(4) for _ in range(3)]
+    assert wins[2] is None
+    assert [w.valid.tolist() for w in wins[:2]] == [[True] * 4,
+                                                    [True] * 2 + [False] * 2]
+    np.testing.assert_array_equal(
+        np.concatenate([w.data.numpy()[w.valid.numpy()] for w in wins[:2]]),
+        frames)
+    np.testing.assert_array_equal(
+        np.concatenate([b.data for b in run.run(window=4)]), frames)
+    sourced = gtt.parse_launch(BALL + "! fakesink", device="cpu")
+    sourced.negotiate()
+    with pytest.raises(ValueError, match="no host source"):
+        sourced.pull_inputs(4)
+
+
 def test_mid_graph_host_nodes_see_their_own_branch():
     """Checksum sinks in the middle of two tee branches: each sees its own
     node's frames (not the other branch's, not its leaf's), fusion stops
