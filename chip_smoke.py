@@ -40,8 +40,8 @@ line):
    9600 by nb 1, 64 and 300 on all four kinds of rows, and on rows whose
    base is not 16-byte aligned.  freeverb_scan (the per-sample reverb
    walk below 32 kHz, not a TPU kernel) within 2e-6 of its plain version,
-   which runs on a CPU copy: at [64 x 2205, 2] and [64 x 2205] at 22.05
-   kHz, and at 8 kHz, 16 kHz and 31999 Hz on blocks of 1 sample, of one
+   which runs on a CPU copy: at [4 x 2205, 2] and [4 x 2205] at 22.05
+   kHz (the full [64 x 2205, 2] window on freeverb_22k's input), at 8 kHz, 16 kHz and 31999 Hz on blocks of 1 sample, of one
    sample fewer than the shortest ring and of 3000 samples, the state
    carried across the calls, mono and stereo.
 4. Drive the port's main paths through parse_launch on the card: the 1080p
@@ -145,11 +145,35 @@ line):
    webrtcdsp within 4 LSB, pitch within 1e-4, audiolatency's ticks within
    1.2e-7, videoframe-audiolevel's float levels within 1e-12, the tones
    within 1 LSB).
+   Then the rest of the OpenCV family (cv_detect_slice, phase 4g): H1
+   (haar_cascade) and H2 (tilted_integral), csrc/haar_kernels.cu, and H3
+   (sgm_aggregate), csrc/stereo_kernels.cu (none a TPU kernel: they
+   replace the JAX package's scan over a face cascade's trees, its
+   unrolled hand cascades, its row scan of the rotated table and SGM's
+   path scans) against their plain versions at ragged shapes (H2 and H3
+   bit for bit; H1's passes everywhere and its scores where a window
+   passed, since it stops at a window's first failed stage); then ten
+   paths through parse_launch at full width, each with the counts set to
+   0 just before its counted run and read just after (H1 once a pyramid
+   scale, H2 once a hand scale, H3 8 times a window, every other count
+   0), with peak device memory and frames/s (median of 5; the host clock
+   around run() for the scanners): faceblur_720p and facedetect_720p
+   (seeded texture with the face fixture at four moving places, window
+   16, the port's alt2 copy), handdetect_640x480 (window 16),
+   disparity_720p (sgbm) and disparity_sbm_720p (a texture and its copy
+   shifted by a 2-40 pixel ramp, window 4), segmentation_720p (ball RGBA,
+   mog2, test-mode, window 64), cvtracker_720p (ball, mosse, window 64),
+   grabcut_480p (ball RGBA with a bbox, window 2), zbar_1080p and
+   zxing_1080p (GRAY8 frames with a QR symbol, an EAN-13 and a Code 128,
+   window 2); each graph also at DETECT_SMALL (176x168; the scanners at
+   1080p) on the card against the CPU port (frames, valid and messages
+   equal: the CPU port takes a minute a 720p frame of facedetect); then
+   each kernel on the input its path gave it, timed there.
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
    around 10 steps of a 64-frame window, 16 at 4K, data kept on the card),
    a torch.profiler breakdown of each graph's step, the fourteen, the
-   five cv paths and the nine audio paths (device busy time, device ops
-   per step, idle share),
+   five cv paths, the nine audio paths and phase 4g's ten (device busy
+   time, device ops per step, idle share),
    traced in a second process that runs nothing else (chip_smoke.py
    --profile, which the run starts and waits for), and each kernel
    beside its plain version, its bound and, where one PyTorch call computes the same
@@ -166,7 +190,11 @@ line):
    freeverb_scan's the same way: the window's samples times the cycles of
    one comb step (gst_freeverb_step_cycles), its plain time the host
    clock's around the CPU walk.  The four audio walks the same way, from
-   gst_adpcm_step_cycles and gst_scope_step_cycles.
+   gst_adpcm_step_cycles and gst_scope_step_cycles; H2 and H3 from
+   gst_haar_tilted_step_cycles (a row of the wavefront, barrier included)
+   and gst_sgm_step_cycles (a step of a scan line), and H1 from the
+   (window, node) evaluations its early exit leaves, which the plain
+   version counts, each a few FP32 operations.
    K5 and K6 take their chain bound the same way: the H - 4 rows of a
    column in order, each one dependent step of the row recurrence (the
    clamp of the carried cell, the select and the add; gst_comb_row_cycles
@@ -341,7 +369,8 @@ def kernel_counters() -> dict:
     """{kernel: its wrapper}: each wrapper's `launches` counts its
     kernel's launches."""
     from gstbad_tpu_torch.ops import (audio, blur, chainfuse, comb,
-                                      fieldanalysis, lut, remap)
+                                      fieldanalysis, haar, lut, remap,
+                                      stereo)
     return {"dilate_zebra_fused": chainfuse.dilate_zebra_fused,
             "apply_word_table": lut.apply_word_table,
             "metrics_default": fieldanalysis.metrics_default,
@@ -355,14 +384,18 @@ def kernel_counters() -> dict:
             "adpcm_ima_decode": audio.adpcm_ima_decode,
             "adpcm_ms_decode": audio.adpcm_ms_decode,
             "adpcm_ima_encode": audio.adpcm_ima_encode,
-            "scope_filter": audio.scope_filter}
+            "scope_filter": audio.scope_filter,
+            "haar_cascade": haar.haar_cascade,
+            "tilted_integral": haar.tilted_integral,
+            "sgm_aggregate": stereo.sgm_aggregate}
 
 
 def profile_step(p, step_ms: float, key: str, window: int,
                  batch=None) -> None:
     """Device time per step of pipeline `p` from a torch.profiler trace of
     3 steps (20 of a step under 1 ms: a trace of three one-kernel steps
-    kept one record): busy ms, device ops launched, the idle share against
+    kept one record; 1 of a step of 50 ms or more, whose tens of
+    thousands of device ops take the trace most of a minute): busy ms, device ops launched, the idle share against
     the untraced step time `step_ms`, and the kernels that take the most
     time.  batch: the input window of a graph fed by host sources (the same
     one every step), else None.  The hand-written kernels' records (csrc/
@@ -374,7 +407,7 @@ def profile_step(p, step_ms: float, key: str, window: int,
     from torch.profiler import ProfilerActivity, profile
     counters = kernel_counters()
 
-    steps = 20 if step_ms < 1.0 else 3
+    steps = 20 if step_ms < 1.0 else (3 if step_ms < 50.0 else 1)
     step = p.compile(window)
     params, states = p.params(), p.init_states(window)
     for _ in range(2):
@@ -464,6 +497,8 @@ def profile_main(spec: str) -> int:
         feeds = {}
         for key, path in audio_paths(benchmarks).items():
             builds[key], feeds[key] = path[0], path[1]
+        for key, path in detect_paths(gtt).items():
+            builds[key], feeds[key] = path[0], path[1]
         for key, (ms, window) in json.loads(spec).items():
             p = builds[key]("cuda")
             batch = fed_input(p, feeds[key], window) if key in feeds \
@@ -474,13 +509,29 @@ def profile_main(spec: str) -> int:
     return 0
 
 
-def fps_runs(build, window, reps: int = 5, n_steps: int = 10, feed=None):
+def fps_runs(build, window, reps: int = 5, n_steps: int = 10, feed=None,
+             clock: str = "device"):
     """Source frames/s of the pipeline build("cuda"): the median of `reps`
     runs of CUDA events around n_steps steps of a `window`-frame window
     (its data kept on the card), and every run's figure.  feed, for a
     graph with host sources, pushes its inputs (fed_input): every step
-    then takes the same input window."""
+    then takes the same input window.  clock="host" times instead each
+    run's run() of n_steps windows by the host clock, on a pipeline built
+    and fed (feed(p, n_steps)) before the clock starts: for graphs whose
+    elements work on the host after each window, outside the step."""
     import torch
+    if clock == "host":
+        out = []
+        for _ in range(reps):
+            p = build("cuda")
+            p.negotiate()
+            feed(p, n_steps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.run(n_frames=n_steps * window, window=window)
+            torch.cuda.synchronize()
+            out.append(n_steps * window / (time.perf_counter() - t0))
+        return statistics.median(out), out
     p = build("cuda")
     batch = fed_input(p, feed, window)
     step = p.compile(window)
@@ -1550,6 +1601,516 @@ def audio_slice(gtt, benchmarks, counters, launches, err, card) -> dict:
     return {"step_ms": step_ms, "inputs": inputs, "plain_s": plain_s}
 
 
+DETECT_W, DETECT_H = 1280, 720  # the face, stereo, segmentation, tracker paths
+DETECT_SMALL = (176, 168)       # their card-against-CPU check (CPU time)
+WINDOW_FACE = 16                # faceblur/facedetect/handdetect's window
+WINDOW_STEREO = 4               # disparity's (the cost volume is 64 deep)
+WINDOW_SEG = 64                 # segmentation's and cvtracker's
+WINDOW_GC = 2                   # grabcut's
+WINDOW_CODE = 2                 # zbar's and zxing's (host scanners)
+ALT2 = os.path.join(ROOT, "gstbad_tpu_torch", "data",
+                    "haarcascade_frontalface_alt2.xml")
+
+
+def face_frames(n, w, h, seed=21):
+    """n RGB frames: a seeded texture with the face fixture's 161x161
+    frame pasted at four places that move by a few pixels a frame."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    face = np.load(os.path.join(ROOT, "gstbad_tpu_torch", "data",
+                                "face_fixture.npz"))["frame"][..., None]
+    base = rng.integers(30, 226, (h // 8 + 1, w // 8 + 1, 3)).astype(
+        np.uint8).repeat(8, 0).repeat(8, 1)[:h, :w]
+    out = np.repeat(base[None], n, 0)
+    out = (out.astype(np.int16) + rng.integers(-12, 13, out.shape)).clip(
+        0, 255).astype(np.uint8)
+    for t in range(n):
+        for k in range(4):
+            x = (20 + k * (w - 181) // 3 + 3 * t) % (w - 161)
+            y = (10 + (k % 2) * (h - 171) + 2 * t) % (h - 161)
+            out[t, y:y + 161, x:x + 161] = face
+    return out
+
+
+def hand_frames(n, w, h, seed=22):
+    """n RGB frames of a seeded smooth texture."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (n, h // 4 + 1, w // 4 + 1, 3)).astype(
+        np.uint8).repeat(4, 1).repeat(4, 2)[:, :h, :w]
+    return np.ascontiguousarray(base)
+
+
+def stereo_frames(n, w, h, seed=23):
+    """(left, right) n RGB frames each: a seeded texture, and the same
+    texture shifted left by a disparity ramp of 2 to 40 pixels across the
+    frame (right[x] = left[x - d(x)])."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tex = rng.integers(0, 256, (n, h, w + 48)).astype(np.uint8)
+    xs = np.arange(w)
+    d = (2 + 38 * xs / max(w - 1, 1)).astype(int)
+    left = tex[:, :, 48:48 + w]
+    right = tex[:, :, 48 + xs - d]
+    rgb = lambda g: np.repeat(g[..., None], 3, -1)  # noqa: E731
+    return rgb(left), rgb(right)
+
+
+def code_frames(n, w=1920, h=1080):
+    """n GRAY8 frames holding a QR symbol, an EAN-13 and a Code 128
+    (the port's copied encoder and bar tables), moving a little."""
+    import numpy as np
+    from gstbad_tpu_torch.io import barcode1d, qr, qrdecode
+    m = qr.encode("gst code scan", "M")
+    q = np.where(np.kron(m, np.ones((8, 8), bool)), 20, 240).astype(np.uint8)
+    ean = qrdecode.ean13_render("4006381333931", module_px=4)
+    c128 = barcode1d.render_code128("GST-PORT-128", module_px=3)
+    out = np.full((n, h, w), 255, np.uint8)
+    for t in range(n):
+        o = 4 * t
+        out[t, 100 + o:100 + o + q.shape[0], 100:100 + q.shape[1]] = q
+        out[t, 500:500 + ean.shape[0], 200 + o:200 + o + ean.shape[1]] = ean
+        out[t, 800:800 + c128.shape[0], 900:900 + c128.shape[1]] = c128
+    return out
+
+
+def detect_paths(gtt):
+    """The paths of phase 4g: {key: (build(device, small) -> Pipeline,
+    feed(pipeline, n_windows, small) pushing its seeded inputs (or None
+    for a videotestsrc graph), window, windows of the counted run,
+    clock: "device" (CUDA events around the compiled step) or "host" (the
+    host clock around run(): the scanners decode on the host after each
+    window), fps_runs' clock)}.  `small` builds the same graph for the
+    check against the CPU port at DETECT_SMALL, or for handdetect at its
+    full size: the CPU port checks one frame, and the first 640x480 frame
+    holds a palm that the cascades confirm (the random texture passes
+    their first stages nowhere at 176x168).  The face paths confirm a
+    window with one neighbour (min-neighbors=1, as the card tests run
+    them): at the default 3 the fixture's face is not confirmed."""
+    def size(small, w=DETECT_W, h=DETECT_H):
+        return DETECT_SMALL if small else (w, h)
+
+    def app(fmt, w, h, name="src"):
+        return f"appsrc name={name} format={fmt} width={w} height={h}"
+
+    def faces(el):
+        def build(d, small=False):
+            w, h = size(small)
+            return gtt.parse_launch(f"{app('RGB', w, h)} ! {el} "
+                                    f"profile={ALT2} min-neighbors=1 "
+                                    "! fakesink", device=d)
+
+        def feed(p, n, small=False):
+            w, h = size(small)
+            p.get_by_name("src").push_frames(face_frames(
+                n * (2 if small else WINDOW_FACE), w, h))
+        return build, feed
+
+    def hands(d, small=False):
+        return gtt.parse_launch(f"{app('RGB', 640, 480)} ! handdetect "
+                                "! fakesink", device=d)
+
+    def hands_feed(p, n, small=False):
+        p.get_by_name("src").push_frames(hand_frames(
+            n * (1 if small else WINDOW_FACE), 640, 480))
+
+    def stereo(method):
+        def build(d, small=False):
+            w, h = size(small)
+            return gtt.parse_launch(
+                f"{app('RGB', w, h, 'l')} ! d.  {app('RGB', w, h, 'r')} ! d."
+                f"  disparity name=d method={method} ! fakesink", device=d)
+
+        def feed(p, n, small=False):
+            w, h = size(small)
+            left, right = stereo_frames(n * WINDOW_STEREO, w, h)
+            p.get_by_name("l").push_frames(left)
+            p.get_by_name("r").push_frames(right)
+        return build, feed
+
+    def ball(tail, fmt, w=DETECT_W, h=DETECT_H):
+        def build(d, small=False):
+            ws, hs = size(small, w, h)
+            return gtt.parse_launch(
+                f"videotestsrc pattern=ball width={ws} height={hs} "
+                f"format={fmt} ! {tail} ! fakesink", device=d)
+        return build
+
+    def codes(el):
+        def build(d, small=False):
+            return gtt.parse_launch(f"{app('GRAY8', 1920, 1080)} ! {el} "
+                                    "! fakesink", device=d)
+
+        def feed(p, n, small=False):
+            p.get_by_name("src").push_frames(code_frames(n * WINDOW_CODE))
+        return build, feed
+
+    fb, ff = faces("faceblur")
+    db, df = faces("facedetect display=true")
+    sb, sf = stereo("sgbm")
+    bb, bf = stereo("sbm")
+    zb, zf = codes("zbar")
+    xb, xf = codes("zxing")
+    return {
+        "faceblur_720p": (fb, ff, WINDOW_FACE, 2, "device"),
+        "facedetect_720p": (db, df, WINDOW_FACE, 2, "device"),
+        "handdetect_640x480": (hands, hands_feed, WINDOW_FACE, 2, "device"),
+        "disparity_720p": (sb, sf, WINDOW_STEREO, 2, "device"),
+        "disparity_sbm_720p": (bb, bf, WINDOW_STEREO, 1, "device"),
+        "segmentation_720p": (ball("segmentation method=mog2 test-mode=true",
+                                   "RGBA"), None, WINDOW_SEG, 2, "device"),
+        "cvtracker_720p": (ball("cvtracker object-initial-x=560 "
+                                "object-initial-y=280 object-initial-width=160"
+                                " object-initial-height=160", "RGB"), None,
+                           WINDOW_SEG, 2, "device"),
+        "grabcut_480p": (ball("grabcut test-mode=true bbox-x=200 bbox-y=120 "
+                              "bbox-width=200 bbox-height=180", "RGBA", 640,
+                              480), None, WINDOW_GC, 2, "device"),
+        "zbar_1080p": (zb, zf, WINDOW_CODE, 1, "host"),
+        "zxing_1080p": (xb, xf, WINDOW_CODE, 1, "host"),
+    }
+
+
+def n_scales(h, w, window, factor):
+    """The pyramid scales ops/haar.detect_multi_scale evaluates."""
+    from gstbad_tpu_torch.ops.haar import MAX_SCALES
+    n, f = 0, 1.0
+    while n < MAX_SCALES and int(h / f) >= window[1] and \
+            int(w / f) >= window[0]:
+        n += 1
+        f *= factor
+    return n
+
+
+def cv_detect_slice(gtt, counters, launches, err, card) -> dict:
+    """Phase 4g: the rest of the OpenCV family (facedetect, faceblur,
+    handdetect, disparity, segmentation, cvtracker, grabcut, zbar, zxing).
+
+    H1 (haar_cascade), H2 (tilted_integral) and H3 (sgm_aggregate)
+    against their plain versions on the card at ragged shapes; then each
+    path of detect_paths through parse_launch on the card at full width,
+    the launch counts set to 0 just before its counted run and read just
+    after (each kernel of the path launched as its pyramid or its passes
+    say, every other count 0), its peak device memory and frames/s (median
+    of 5 runs of 10 steps, or the host clock around run() for the
+    scanners), and the same graph at DETECT_SMALL on the card against the
+    CPU port (frames, valid and messages equal); then each kernel against
+    its plain version on the inputs its main path gave it (H1: passed
+    equal everywhere, score equal where passed).  Returns {"step_ms":
+    {key: (untraced step ms, window)}, "times": {label: (ms, plain ms,
+    None)}, "bounds": {label: (ms, by)}, "chains": {label: ms}}."""
+    import numpy as np
+    import torch
+    from gstbad_tpu_torch.io.haarcascade import parse_cascade
+    from gstbad_tpu_torch.ops import _cuda, haar, stereo
+    from gstbad_tpu_torch.ops.resize import resize_linear
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(41)
+    data = os.path.join(ROOT, "gstbad_tpu_torch", "data")
+    packs = {"alt2": haar.pack(parse_cascade(ALT2), "arrays"),
+             "fist": haar.pack(parse_cascade(os.path.join(data, "fist.xml")),
+                               "unrolled"),
+             "palm": haar.pack(parse_cascade(os.path.join(data, "palm.xml")),
+                               "unrolled")}
+    kernels = ("haar_cascade", "tilted_integral", "sgm_aggregate")
+
+    def note(name, e):
+        err[name] = max(err[name], e)
+
+    def h1_check(pk, x):
+        ny, nx = haar.grid(x.shape[-2], x.shape[-1], pk)
+        ii, sq = haar.integral(x), haar.integral(x * x)
+        tii = haar.tilted_integral(x) if pk.any_tilted else None
+        if tii is not None:
+            note("tilted_integral", float((tii.cpu() - haar.tilted_integral_plain(
+                x.cpu())).abs().max()))
+        kp, ks = haar.haar_cascade(ii, sq, tii, pk, ny, nx)
+        pp, ps = haar.eval_cascade_plain(ii, sq, tii, pk, ny, nx)
+        bad = int((kp != pp).sum()) + int((ks[pp] != ps[pp]).sum())
+        note("haar_cascade", bad)
+        return int(pp.sum())
+
+    # the kernels against their plain versions at ragged shapes
+    for (hh, ww) in ((161, 161), (47, 203), (20, 20), (101, 64)):
+        x = torch.from_numpy((rng.random((3, hh, ww)) * 255).astype(
+            np.float32)).to(dev)
+        for pk in packs.values():
+            if hh >= pk.window[1] and ww >= pk.window[0]:
+                h1_check(pk, x)
+    for (hh, ww, dd) in ((33, 70, 64), (48, 161, 40), (5, 300, 64)):
+        tex = rng.integers(0, 256, (2, hh, ww + 60)).astype(np.uint8)
+        l = torch.from_numpy(tex[:, :, 30:30 + ww].copy()).to(dev)
+        r = torch.from_numpy(tex[:, :, 34:34 + ww].copy()).to(dev)
+        cost = stereo.sgm_cost(l, r, dd)
+        for axis, rev, shear in stereo.SGM_PASSES:
+            tot = torch.full_like(cost, 7.0)
+            want = stereo.sgm_aggregate_plain(cost, tot.clone(), axis, rev,
+                                              shear, 200, 255)
+            got = stereo.sgm_aggregate(cost, tot, axis, rev, shear, 200, 255)
+            note("sgm_aggregate", float((got - want).abs().max()))
+    torch.cuda.synchronize()
+    log("cv detect kernels at ragged shapes: max_abs_err "
+        + ", ".join(f"{k} {err[k]}" for k in kernels))
+    if any(err[k] for k in kernels):
+        fail(f"H1-H3 disagree with their plain versions: "
+             f"{ {k: err[k] for k in kernels} }")
+
+    paths = detect_paths(gtt)
+    faces = n_scales(DETECT_H, DETECT_W, packs["alt2"].window, 1.25)
+    hands = (n_scales(480, 640, packs["fist"].window, 1.1)
+             + n_scales(480, 640, packs["palm"].window, 1.1))
+    need = {"faceblur_720p": {"haar_cascade": faces},
+            "facedetect_720p": {"haar_cascade": faces},
+            "handdetect_640x480": {"haar_cascade": hands,
+                                   "tilted_integral": hands},
+            "disparity_720p": {"sgm_aggregate": len(stereo.SGM_PASSES)}}
+    def found(key, got, msgs, small):
+        """What a detection path found: (count, what), or None for the
+        paths that detect nothing of the kind."""
+        if key.startswith("facedetect"):
+            return sum(int(f["n_faces"]) for _, n, _, f in msgs
+                       if n == "facedetect"), "faces"
+        if key.startswith("faceblur"):
+            out = np.concatenate([np.asarray(b.data) for b in got])
+            w, h = DETECT_SMALL if small else (DETECT_W, DETECT_H)
+            return int((out != face_frames(len(out), w, h)).any(-1).sum()
+                       ), "pixels blurred"
+        if key.startswith("handdetect"):
+            return sum(n == "hand-gesture" for _, n, _, _ in msgs), "gestures"
+        return None
+
+    step_ms = {}
+    for key, (build, feed, window, n_windows, clock) in paths.items():
+        t0 = time.perf_counter()
+        pipe = build("cuda")
+        pipe.negotiate()
+        if feed is not None:
+            feed(pipe, n_windows)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for c in counters.values():
+            c.launches = 0
+        got = pipe.run(n_frames=n_windows * window, window=window)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        delta = {k: c.launches for k, c in counters.items()}
+        for k, c in delta.items():
+            if c != need.get(key, {}).get(k, 0) * n_windows:
+                fail(f"{key}: {k} launched {c} times in {n_windows} windows "
+                     f"({need.get(key, {}).get(k, 0)} a window expected)")
+        for k in launches:
+            launches[k] += delta[k]
+        t_card = time.perf_counter() - t0
+        if sum(b.batch for b in got) != n_windows * window:
+            fail(f"{key}: {sum(b.batch for b in got)} frames out, "
+                 f"{n_windows * window} expected")
+        n_msgs = len(pipe.bus.messages)
+        hits = found(key, got, bus_messages(pipe), False)
+        # the same graph at DETECT_SMALL, card against the CPU port
+        t0 = time.perf_counter()
+        outs = {}
+        # one frame where the CPU port takes seconds a frame (the
+        # cascades, the 1080p scanners), a whole window elsewhere
+        n_small = 1 if key.startswith(("face", "hand", "zbar", "zxing")) \
+            else window
+        for d in ("cuda", "cpu"):
+            p = build(d, True)
+            p.negotiate()
+            if feed is not None:
+                feed(p, 1, True)
+            outs[d] = (p.run(n_frames=n_small, window=n_small),
+                       bus_messages(p))
+        worst, n_diff, total = batches_close(key, outs["cuda"][0],
+                                             outs["cpu"][0])
+        messages_close(key, outs["cuda"][1], outs["cpu"][1])
+        t_cpu = time.perf_counter() - t0
+        seen = ""
+        if hits is not None:
+            small_hits = found(key, outs["cpu"][0], outs["cpu"][1], True)
+            if not hits[0] or not small_hits[0]:
+                fail(f"{key}: {hits[0]} {hits[1]} in the counted run, "
+                     f"{small_hits[0]} in the check against the CPU port "
+                     "(the path must detect something in both)")
+            seen = (f"; {hits[0]} {hits[1]} in the counted run, "
+                    f"{small_hits[0]} in the check")
+        med, all_runs = fps_runs(build, window, feed=feed, clock=clock,
+                                 n_steps=10 if clock == "device" else 1)
+        step_ms[key] = (window * 1000.0 / med, window)
+        log(f"{key}: launches {delta}; {n_windows} windows of {window} "
+            f"{got[0].data.shape[1:]} {got[0].data.dtype}, {n_msgs} bus "
+            f"messages; at {outs['cpu'][0][0].data.shape[1:]} the card "
+            f"equals the CPU port "
+            f"({total} values, {len(outs['cpu'][1])} messages){seen}; peak "
+            f"device memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f}"
+            f" MiB above the {held / 2**20:.1f} MiB held before the run); "
+            f"counted run {t_card:.2f} s, card-against-CPU check {t_cpu:.2f} s")
+        how = ("device step, 10 steps a run" if clock == "device" else
+               "host clock around run(), 1 window a run")
+        log(f"fps {key} window {window}: median {med:.2f} source frames/s of "
+            f"{[round(x, 2) for x in all_runs]}, step {step_ms[key][0]:.3f} "
+            f"ms ({how}; {card})")
+
+    # each kernel against its plain version on its main path's inputs
+    # (uncounted runs), then its time, its plain version's and its bound
+    inputs = {}
+    for key, names, module in (
+            ("facedetect_720p", ("haar_cascade",), haar),
+            ("handdetect_640x480", ("haar_cascade", "tilted_integral"), haar),
+            ("disparity_720p", ("sgm_aggregate",), stereo)):
+        build, feed, window, _, _ = paths[key]
+        p = build("cuda")
+        batch = fed_input(p, feed, window)
+        step = p.compile(window)
+        store = inputs[key] = {}
+        undo = [capture(module, k, store) for k in names]
+        try:
+            step(p.params(), p.init_states(window), batch)
+            torch.cuda.synchronize()
+        finally:
+            for u in reversed(undo):
+                u()
+    times, bounds, chains = {}, {}, {}
+    sm_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True).stdout.split()[0]) * 1e6
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    fp32_per_s = n_sm * FP32_LANES * sm_hz
+    probe = torch.zeros(2, dtype=torch.int64, device=dev)
+
+    def h1_main(args, count=False):
+        """H1 and its plain version on one launch the main path made:
+        passed equal everywhere, score equal where passed.  -> (windows
+        passing, the plain version's ms, its (window, node) evaluations
+        with the early exit where count)"""
+        kp, ks = haar.haar_cascade(*args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = haar.eval_cascade_plain(*args, count=count)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t1) * 1e3   # a launch-bound loop
+        pp, ps = res[:2]
+        note("haar_cascade",
+             int((kp != pp).sum()) + int((ks[pp] != ps[pp]).sum()))
+        return int(pp.sum()), plain_ms, int(res[2].sum()) if count else None
+
+    def h1_bound(args, n_eval):
+        """The least loads (ii, sq and the rotated table read once, passed
+        and score written) and FP32 operations (5 a rect and 3 a node of
+        the evaluations made, 20 a window for its variance; a tilted
+        feature's float64 ones counted at the FP32 rate) of one launch."""
+        ii, sq, tii, pk, ny, nx = args
+        rects = float((pk.weights != 0).sum(1).mean())
+        t_bytes = 0 if tii is None else tii.numel() * tii.element_size()
+        n_win = ii.shape[0] * ny * nx
+        return bound(2 * ii.numel() * 4 + t_bytes + 5 * n_win,
+                     n_eval * (5 * rects + 3) + n_win * 20, fp32_per_s)
+
+    # H1 on the facedetect path: the largest scale (the window's frames at
+    # 1280x720), timed, and the scale where the most windows pass
+    face = [a for a, _ in inputs["facedetect_720p"]["haar_cascade"]]
+    args = face[0]
+    ii, sq, tii, pk, ny, nx = args
+    n_pass, plain_ms, n_eval = h1_main(args, count=True)
+    times["haar_cascade"] = (cuda_ms(lambda: haar.haar_cascade(*args)),
+                             plain_ms, None)
+    bounds["haar_cascade"] = h1_bound(args, n_eval)
+    passes = [int(haar.haar_cascade(*a)[0].sum()) for a in face]
+    most = max(range(1, len(face)), key=lambda i: passes[i])
+    n_most, _, _ = h1_main(face[most])
+    log(f"haar_cascade on facedetect_720p's largest scale {tuple(ii.shape)}"
+        f" ({ny}x{nx} windows a frame): {n_pass} windows pass; "
+        f"{n_eval} (window, node) evaluations with the early exit, against "
+        f"{ii.shape[0] * ny * nx * int(pk.thr.shape[0])} without it; "
+        f"{len(face)} launches a window, windows passing each "
+        f"{passes}; also held against the plain version at scale {most} "
+        f"{tuple(face[most][0].shape)} ({n_most} windows pass)")
+
+    # H1 on the handdetect path: every launch of a window (fist's pyramid,
+    # then palm's), the largest fist scale timed
+    hand = [a for a, _ in inputs["handdetect_640x480"]["haar_cascade"]]
+    n_fist = n_scales(480, 640, packs["fist"].window, 1.1)
+    res = [h1_main(a, count=(i == 0)) for i, a in enumerate(hand)]
+    args = hand[0]
+    ii, sq, tii, pk, ny, nx = args
+    times["haar_cascade_unrolled"] = (
+        cuda_ms(lambda: haar.haar_cascade(*args)), res[0][1], None)
+    bounds["haar_cascade_unrolled"] = h1_bound(args, res[0][2])
+    log(f"haar_cascade on handdetect_640x480's {len(hand)} launches a window "
+        f"(fist {n_fist} scales, palm {len(hand) - n_fist}), each held "
+        f"against the plain version: {sum(r[0] for r in res[:n_fist])} fist "
+        f"and {sum(r[0] for r in res[n_fist:])} palm windows pass; largest "
+        f"fist scale {tuple(ii.shape)} ({ny}x{nx} windows a frame): "
+        f"{res[0][2]} (window, node) evaluations with the early exit, "
+        f"against {ii.shape[0] * ny * nx * int(pk.thr.shape[0])} without it")
+
+    # H2 on the handdetect path's largest plane
+    tilted = [a[0] for a, _ in inputs["handdetect_640x480"]["tilted_integral"]]
+    for x in tilted:
+        note("tilted_integral", float((haar.tilted_integral(x)
+                                       - haar.tilted_integral_plain(x)
+                                       ).abs().max()))
+    x = tilted[0]
+    times["tilted_integral"] = (
+        cuda_ms(lambda: haar.tilted_integral(x)),
+        cuda_ms(lambda: haar.tilted_integral_plain(x), iters=1, warmup=1),
+        None)
+    steps = 1 << 14
+    _cuda.launch("gst_haar_tilted_step_cycles", probe, steps)
+    torch.cuda.synchronize()
+    cyc = probe[0].item() / steps
+    b_, h_, w_ = x.shape
+    wp = w_ + h_ + 2 * haar.TILT_PAD
+    chains["tilted_integral"] = h_ * cyc / sm_hz * 1e3
+    bounds["tilted_integral"] = bound(
+        4 * x.numel() + 8 * b_ * (h_ + 1) * (wp + 1),
+        4 * b_ * h_ * (wp + 1), fp32_per_s / 2, chains["tilted_integral"])
+    log(f"tilted_integral on {tuple(x.shape)}: {h_} rows in order x "
+        f"{cyc:.1f} cycles (probe, {steps} rows) = chain "
+        f"{chains['tilted_integral']:.4f} ms; "
+        f"{len(tilted)} launches a window, each held against the plain "
+        "version")
+
+    # H3 on the disparity path's cost volume, each pass
+    (args, _), = inputs["disparity_720p"]["sgm_aggregate"][:1]
+    cost = args[0]
+    total = torch.zeros_like(cost)
+    for axis, rev, shear in stereo.SGM_PASSES:
+        want = stereo.sgm_aggregate_plain(cost, total.clone(), axis, rev,
+                                          shear, 200, 255)
+        total = stereo.sgm_aggregate(cost, total, axis, rev, shear, 200, 255)
+        note("sgm_aggregate", float((total - want).abs().max()))
+    times["sgm_aggregate"] = (
+        cuda_ms(lambda: stereo.sgm_aggregate(cost, total, 0, False, 0, 200,
+                                             255)),
+        cuda_ms(lambda: stereo.sgm_aggregate_plain(cost, total, 0, False, 0,
+                                                   200, 255),
+                iters=1, warmup=1), None)
+    _cuda.launch("gst_sgm_step_cycles", probe, steps)
+    torch.cuda.synchronize()
+    cyc3 = probe[0].item() / steps
+    b_, h_, w_, d_ = cost.shape
+    chains["sgm_aggregate"] = h_ * cyc3 / sm_hz * 1e3
+    bounds["sgm_aggregate"] = bound(
+        3 * 4 * cost.numel(), 8 * cost.numel(), fp32_per_s,
+        chains["sgm_aggregate"])
+    log(f"sgm_aggregate on {tuple(cost.shape)} (a row pass): {h_} steps in "
+        f"order x {cyc3:.1f} cycles (probe) = chain "
+        f"{chains['sgm_aggregate']:.4f} ms; "
+        f"{len(inputs['disparity_720p']['sgm_aggregate'])} launches a "
+        "window")
+    log("cv detect kernels on their main paths' inputs: max_abs_err "
+        + ", ".join(f"{k} {err[k]}" for k in kernels))
+    if any(err[k] for k in kernels):
+        fail(f"H1-H3 disagree with their plain versions on the main paths' "
+             f"inputs: { {k: err[k] for k in kernels} }")
+    log(f"cv_detect_slice: {time.perf_counter() - t_phase:.1f} s")
+    return {"step_ms": step_ms, "times": times, "bounds": bounds,
+            "chains": chains}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1634,7 +2195,9 @@ def main() -> int:
                           "warp_words", "vad_powers_serial",
                           "vad_powers_bracket", "freeverb_scan",
                           "adpcm_ima_decode", "adpcm_ms_decode",
-                          "adpcm_ima_encode", "scope_filter")}
+                          "adpcm_ima_encode", "scope_filter",
+                          "haar_cascade", "tilted_integral",
+                          "sgm_aggregate")}
     wide = LinearIndex((300, 1000, 7, 0), 0, 11)     # weights above 255
 
     def check_k1(shape, batch, index, erode, thr):
@@ -1994,11 +2557,12 @@ def main() -> int:
         return ((torch.rand(shape, generator=gen, device=dev) - 0.5)
                 * (2 * scale)).cpu()
 
-    n_fv = WINDOW * FV_BLOCK
-    fv_main = fv_noise(n_fv, False)
-    for mono, x in ((False, fv_main), (True, fv_noise(n_fv, True))):
+    # the full [64 x 2205, 2] window is checked on freeverb_22k's own
+    # input below; here 4 blocks, mono and stereo
+    n_fv = 4 * FV_BLOCK
+    for mono in (False, True):
         check_freeverb(f"[{n_fv}{'' if mono else ', 2'}]", FV_RATE, mono,
-                       [x])
+                       [fv_noise(n_fv, mono)])
     # hard cases: 8 kHz (an allpass ring of 40 samples, shorter than the
     # kernel's 128-sample chunk), 16 kHz and 31999 Hz (the largest rings);
     # a block of one sample and one a sample shorter than the shortest
@@ -2301,6 +2865,9 @@ def main() -> int:
     # 4f. audio breadth (audio_slice)
     walk = audio_slice(gtt, benchmarks, counters, launches, err, card)
 
+    # 4g. the rest of the OpenCV family (cv_detect_slice)
+    detect = cv_detect_slice(gtt, counters, launches, err, card)
+
     # 5. timing
     fps = {}
     for key, build in runs.items():
@@ -2326,6 +2893,7 @@ def main() -> int:
                for key in runs}
     step_ms.update(cv_step_ms)
     step_ms.update(walk["step_ms"])
+    step_ms.update(detect["step_ms"])
     profile_graphs(step_ms)
 
     src_bcast = rand_i32(1, H, W)
@@ -2620,6 +3188,10 @@ def main() -> int:
         log(f"{k}: {steps} steps in order x {cycles[k]:.3f} cycles at "
             f"{sm_hz / 1e6:.0f} MHz = chain {chains[k]:.4f} ms; {nbytes} "
             f"bytes, {ops} operations")
+    # H1-H3 (phase 4g): timed on their main paths' inputs there
+    times.update(detect["times"])
+    bounds.update(detect["bounds"])
+    chains.update(detect["chains"])
     for label, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bounds[label]
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
@@ -2681,6 +3253,16 @@ def main() -> int:
               "gstbad_tpu/ops/audio.py:1532"),
         entry("scope_filter", "scope_filter", "scope_kernels.cu",
               "gstbad_tpu/elements/audio/visualizers.py:228"),
+        # not TPU kernels: the Haar cascade's tree scan and its unrolled
+        # form, the rotated table's row scan, SGM's path scans
+        entry("haar_cascade", "haar_cascade", "haar_kernels.cu",
+              "gstbad_tpu/ops/haar.py:343", "arrays"),
+        entry("haar_cascade", "haar_cascade_unrolled", "haar_kernels.cu",
+              "gstbad_tpu/ops/haar.py:130", "unrolled"),
+        entry("tilted_integral", "tilted_integral", "haar_kernels.cu",
+              "gstbad_tpu/ops/haar.py:72"),
+        entry("sgm_aggregate", "sgm_aggregate", "stereo_kernels.cu",
+              "gstbad_tpu/ops/stereo.py:136"),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

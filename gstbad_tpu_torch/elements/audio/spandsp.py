@@ -28,7 +28,7 @@ from gstbad_tpu_torch.core.element import Element, Property
 from gstbad_tpu_torch.core.frame import FrameBatch, to_device, to_host
 from gstbad_tpu_torch.core.registry import register
 from gstbad_tpu_torch.core.spec import AudioFormat, MediaSpec, require
-from gstbad_tpu_torch.ops.audio import _fma32
+from gstbad_tpu_torch.ops.numerics import fma32
 from gstbad_tpu_torch.ops.numerics import full_fp32
 
 RATE = 8000
@@ -284,7 +284,7 @@ class SpanPlc(Element):
                 # 1 - k * atten, contracted as the JAX package's compiled
                 # step does it
                 kf = k.to(torch.float32)
-                gain = torch.clamp(_fma32(-kf, atten_per.expand(kf.shape),
+                gain = torch.clamp(fma32(-kf, atten_per.expand(kf.shape),
                                           torch.ones_like(kf)), 0.0, 1.0)
                 out = synth * gain
                 st.update(missing=torch.ones_like(st["missing"]),

@@ -34,6 +34,7 @@ from gstbad_tpu_torch.core.registry import register
 from gstbad_tpu_torch.core.spec import AudioFormat, MediaSpec, require
 from gstbad_tpu_torch.golden.ffts16 import SYNAE_SL, synaescope_tables
 from gstbad_tpu_torch.ops import audio as ops
+from gstbad_tpu_torch.ops.numerics import fma32
 from gstbad_tpu_torch.ops import ffts16
 
 _SHADERS = ("none", "fade", "fade-and-move-up", "fade-and-move-down",
@@ -452,7 +453,7 @@ class SpectraScope(_Scope):
         fi = fi_[:, 1:w + 1].to(torch.float32) / 512.0
         # gfloat fr*fr + fi*fi, the first product contracted as the JAX
         # package's compiled window does it
-        mag2 = ops._fma32(fr, fr, fi * fi)
+        mag2 = fma32(fr, fr, fi * fi)
         y = (h * torch.sqrt(mag2.to(torch.float64))).to(torch.int32)
         y = h - torch.clamp(y, max=h)      # [B, w]
         rows = torch.arange(height, dtype=torch.int32,

@@ -24,7 +24,7 @@ The ADPCM walks (csrc/adpcm_kernels.cu) and the scopes' filter
 (csrc/scope_kernels.cu) are hand-written CUDA kernels beside plain walks,
 as freeverb_scan is: each replaces an XLA scan, not a TPU kernel.  Where
 the JAX package's compiled window contracts `a*b + c` into an FMA, the
-port rounds once too (_fma32, _fma), so those paths stay bit exact.
+port rounds once too (fma32, _fma), so those paths stay bit exact.
 """
 
 from __future__ import annotations
@@ -35,7 +35,9 @@ import numpy as np
 import torch
 
 from gstbad_tpu_torch.core.frame import to_device
-from gstbad_tpu_torch.ops.numerics import f32, full_fp32, true_div
+from gstbad_tpu_torch.ops import fft
+from gstbad_tpu_torch.ops.numerics import f32, fma32, full_fp32, true_div
+from gstbad_tpu_torch.ops.scan import associative_scan
 
 # ---------------------------------------------------------------------------
 # audiomixmatrix
@@ -645,58 +647,23 @@ def vad_hysteresis(raw, vstate: int, samples: int, n: int, hysteresis: int):
 # ---------------------------------------------------------------------------
 
 
-def associative_scan(fn, elems):
-    """lax.associative_scan(fn, elems, axis=0) over a tuple of tensors, in
-    its operation order: the pairwise reduction, the scan of the halves by
-    recursion, the even elements from the odd ones, interleaved.  The same
-    products and sums in the same order give the same float bits as the
-    JAX package's scans."""
-    n = elems[0].shape[0]
-    if n < 2:
-        return elems
-    odd = associative_scan(fn, fn(tuple(e[0:n - 1:2] for e in elems),
-                                  tuple(e[1::2] for e in elems)))
-    if n % 2 == 0:
-        even = fn(tuple(e[:-1] for e in odd),
-                  tuple(e[2::2] for e in elems))
-    else:
-        even = fn(odd, tuple(e[2::2] for e in elems))
-    out = []
-    for e, ev, od in zip(elems, even, odd):
-        full = torch.empty_like(e)
-        full[0::2] = torch.cat([e[:1], ev])
-        full[1::2] = od
-        out.append(full)
-    return tuple(out)
-
-
-def _fma32(a, b, c):
-    """a * b + c for float32 tensors with one rounding, as XLA's CPU code
-    contracts it into an FMA: the float64 product of two float32 values is
-    exact and the float64 sum rounds once more before the float32 result
-    (a difference from the fused rounding only at a float32 midpoint).
-    The same separate float64 ops on the card and the CPU."""
-    return (a.to(torch.float64) * b.to(torch.float64)
-            + c.to(torch.float64)).to(torch.float32)
-
-
 def first_order_iir(d, c, y0):
     """y[n] = c * y[n-1] + d[n], y[-1] = y0, as the JAX package's
     associative scan over the affine maps y -> c*y + d.  d: [N, ...];
     c a number or 0-d tensor; y0 broadcastable to d[0] (a tensor, as the
     carried state is).  In float32 the compose's b2 + a2*b1 and the final
     b + a*y0 are contracted, as the JAX package's compiled scan does it
-    (_fma32); float64 takes plain products and sums."""
+    (fma32); float64 takes plain products and sums."""
     cs = torch.as_tensor(c, dtype=d.dtype, device=d.device).expand(d.shape)
     fused = d.dtype == torch.float32
 
     def compose(left, right):
         (a1, b1), (a2, b2) = left, right
-        return a1 * a2, _fma32(a2, b1, b2) if fused else b2 + a2 * b1
+        return a1 * a2, fma32(a2, b1, b2) if fused else b2 + a2 * b1
 
     a, b = associative_scan(compose, (cs, d))
     if fused:
-        return _fma32(a, torch.as_tensor(y0).expand(a.shape), b)
+        return fma32(a, torch.as_tensor(y0).expand(a.shape), b)
     return b + a * y0
 
 
@@ -739,7 +706,7 @@ def biquad(x, b, a, state):
     b1, b2), a = (1, a1, a2) float64 numbers; state [2, C] float32 (s1,
     s2).  Returns (y float64, as the JAX package's float64 b0 makes it;
     new_state float32).  Each 2x2 product's two terms sum as XLA's CPU
-    dot does: the second term contracted onto the first (_fma32)."""
+    dot does: the second term contracted onto the first (fma32)."""
     b0, b1, b2 = b
     _, a1, a2 = a
     n = x.shape[0]
@@ -750,7 +717,7 @@ def biquad(x, b, a, state):
     d = x[:, None, :] * bv[None, :, None]              # [N, 2, C]
 
     def matmul(m2, m1):   # [n, 2, 2] @ [n, 2, k]
-        return _fma32(m2[:, :, 1:2], m1[:, None, 1, :],
+        return fma32(m2[:, :, 1:2], m1[:, None, 1, :],
                       m2[:, :, 0:1] * m1[:, None, 0, :])
 
     def compose(left, right):
@@ -858,7 +825,7 @@ def noise_suppress(frames, st, g_min: float):
     w_lrt, w_flat, w_diff = NS_WEIGHTS
     dev = frames.device
     nfr = frames.shape[1]
-    specs = torch.fft.rfft(frames, dim=1)
+    specs = fft.rfft(frames, dim=1)
     magns = torch.abs(specs).to(torch.float32)
     lmagns = f32(torch.log, torch.clamp(magns, min=1e-10))
 
@@ -942,7 +909,7 @@ def noise_suppress(frames, st, g_min: float):
               "prior_speech": prior, "magn_avg_pause": pause}
     if not gains:
         return frames, st
-    out = torch.fft.irfft(specs * torch.stack(gains), n=nfr, dim=1)
+    out = fft.irfft(specs * torch.stack(gains), n=nfr, dim=1)
     return out.to(torch.float32), st
 
 
@@ -1011,8 +978,8 @@ def aec_cancel(near, far, st, overdrive: float, mu: float = AEC_MU):
     # the spectra of [previous block, block] for the far and near ends
     x_prev = torch.cat([st["far_prev"][None], x_blocks[:-1]])
     d_prev = torch.cat([st["d_prev"][None], d_blocks[:-1]])
-    xs = torch.fft.rfft(torch.cat([x_prev, x_blocks], dim=1), dim=1)
-    ds = torch.fft.rfft(torch.cat([d_prev, d_blocks], dim=1), dim=1)
+    xs = fft.rfft(torch.cat([x_prev, x_blocks], dim=1), dim=1)
+    ds = fft.rfft(torch.cat([d_prev, d_blocks], dim=1), dim=1)
     far_acts = torch.mean(torch.square(x_blocks), dim=1) > 1.0   # [nb, C]
     W, Xf = st["W"], st["Xf"]
     e_prev = st["e_prev"]
@@ -1021,20 +988,20 @@ def aec_cancel(near, far, st, overdrive: float, mu: float = AEC_MU):
     for k in range(nb):
         d, X, D, far_act = d_blocks[k], xs[k], ds[k], far_acts[k]
         Xf = torch.cat([X[None], Xf[:-1]])
-        yh = torch.fft.irfft(torch.sum(W * Xf, dim=0), n=nfft,
+        yh = fft.irfft(torch.sum(W * Xf, dim=0), n=nfft,
                              dim=0)[frame:].to(torch.float32)
         e = d - yh
-        E = torch.fft.rfft(torch.cat([zpad, e]), dim=0)
+        E = fft.rfft(torch.cat([zpad, e]), dim=0)
         spow = torch.sum(torch.square(torch.abs(Xf)), dim=0)
         denom = spow + 1e-3 * torch.mean(spow) + 1e-6
         E = mu * E
         G = torch.complex(E.real / denom, E.imag / denom)
         Wn = W + torch.conj(Xf) * G[None]
-        wt = torch.fft.irfft(Wn, n=nfft, dim=1)
+        wt = fft.irfft(Wn, n=nfft, dim=1)
         wt[:, frame:, :] = 0.0
-        Wn = torch.fft.rfft(wt, dim=1)
+        Wn = fft.rfft(wt, dim=1)
         W = torch.where(far_act[None, None], Wn, W)
-        Ew = torch.fft.rfft(torch.cat([e_prev, e]), dim=0)
+        Ew = fft.rfft(torch.cat([e_prev, e]), dim=0)
         lam_x = torch.where(far_act, lam, 0.5).to(torch.float32)[None]
         sd = lam * sd + lam_c * torch.square(torch.abs(D))
         se = lam * se + lam_c * torch.square(torch.abs(Ew))
@@ -1053,7 +1020,7 @@ def aec_cancel(near, far, st, overdrive: float, mu: float = AEC_MU):
             gain = torch.ones_like(hnl)
         outs.append(Ew * gain)
         e_prev = e
-    out = torch.fft.irfft(torch.stack(outs), n=nfft, dim=1)[:, frame:]
+    out = fft.irfft(torch.stack(outs), n=nfft, dim=1)[:, frame:]
     new = {"W": W, "Xf": Xf, "far_prev": x_blocks[-1], "d_prev": d_blocks[-1],
            "e_prev": e_prev, "sd": sd, "se": se, "sx": sx, "sde": sde,
            "sxd": sxd}
@@ -1098,7 +1065,7 @@ def phase_vocoder(x, state, frame: int, ha: int, hs: int):
     k = torch.arange(frame, dtype=torch.float64, device=dev)
     win = (0.5 - 0.5 * torch.cos(true_div(2.0 * np.pi * k, frame))
            ).to(torch.float32)
-    spec = torch.fft.rfft(buf[idx] * win[None, :, None], dim=1)
+    spec = fft.rfft(buf[idx] * win[None, :, None], dim=1)
     mag = torch.abs(spec).to(torch.float32)
     ph = torch.atan2(spec.imag, spec.real)
     bins = frame // 2 + 1
@@ -1110,9 +1077,9 @@ def phase_vocoder(x, state, frame: int, ha: int, hs: int):
     prev = torch.cat([state["prev_ph"][None], ph[:-1]])
     dph = ph - prev - expected
     r = torch.round(dph / two_pi)
-    dph = _fma32(torch.full_like(r, -2.0 * np.pi), r, dph)
+    dph = fma32(torch.full_like(r, -2.0 * np.pi), r, dph)
     # each step's float64 product is exact; adding it to the float32
-    # phase in float64 and writing float32 rounds as _fma32 does, in one op
+    # phase in float64 and writing float32 rounds as fma32 does, in one op
     step = (omega + true_div(dph, ha)).to(torch.float64) * hs
     phases = torch.empty_like(ph)
     phases[0] = torch.where(state["primed"],
@@ -1123,7 +1090,7 @@ def phase_vocoder(x, state, frame: int, ha: int, hs: int):
         torch.add(rows[i - 1], steps[i], out=rows[i])
     re = torch.cos(phases.to(torch.float64)).to(torch.float32)
     im = torch.sin(phases.to(torch.float64)).to(torch.float32)
-    out_frames = torch.fft.irfft(torch.complex(mag * re, mag * im), n=frame,
+    out_frames = fft.irfft(torch.complex(mag * re, mag * im), n=frame,
                                  dim=1).to(torch.float32)
     out_frames = out_frames * win[None, :, None]
     norm = 0.375 * frame / hs
@@ -1153,13 +1120,13 @@ def resample_linear(x, n_out: int):
     k = torch.arange(n_out, dtype=torch.float32, device=x.device) + 0.5
     # the position's product and offset, and the first tap's product
     # onto the second's, contracted as the JAX package's compiled form
-    pos = _fma32(k, torch.full_like(k, n / n_out), torch.full_like(k, -0.5))
+    pos = fma32(k, torch.full_like(k, n / n_out), torch.full_like(k, -0.5))
     pos = torch.clamp(pos, 0.0, n - 1.0)
     i0 = torch.floor(pos).to(torch.int64)
     i1 = torch.clamp(i0 + 1, max=n - 1)
     a = (pos - i0)[:, None]
     x0 = x[i0]
-    return _fma32(x0, (1.0 - a).expand(x0.shape), x[i1] * a)
+    return fma32(x0, (1.0 - a).expand(x0.shape), x[i1] * a)
 
 
 # ---------------------------------------------------------------------------

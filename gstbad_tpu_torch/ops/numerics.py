@@ -8,7 +8,9 @@ and on the CPU:
   CUDA's and the CPU's float32 transcendentals differ in the last ulp, the
   correctly rounded value does not;
 - division by a Python number is one IEEE division by a device scalar
-  (true_div).
+  (true_div);
+- where XLA's CPU code contracts `a*b + c` into one FMA, the port rounds
+  once too (fma32).
 """
 
 from __future__ import annotations
@@ -46,3 +48,13 @@ def true_div(x: torch.Tensor, d) -> torch.Tensor:
     and in x's dtype (CUDA divides by a host scalar as a product with its
     reciprocal, and `d / x` is a reciprocal times d everywhere)."""
     return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def fma32(a, b, c):
+    """a * b + c for float32 tensors with one rounding, as XLA's CPU code
+    contracts it into an FMA: the float64 product of two float32 values is
+    exact and the float64 sum rounds once more before the float32 result
+    (a difference from the fused rounding only at a float32 midpoint).
+    The same separate float64 ops on the card and the CPU."""
+    return (a.to(torch.float64) * b.to(torch.float64)
+            + c.to(torch.float64)).to(torch.float32)

@@ -8,7 +8,10 @@ scenarios on the card; and the opencv family, digitalzoom, lcms and the
 codecalpha pair, element by element and in the five cv graphs, on the card
 against the CPU port; and audio breadth's four walks (the ADPCM decoders
 and encoder, the scopes' filter) against their plain walks, and six of its
-graphs on the card against the CPU port.
+graphs on the card against the CPU port; and the OpenCV detectors'
+kernels (H1 haar_cascade, H2 tilted_integral, H3 sgm_aggregate) against
+their plain versions, with the face, hand and stereo elements on the card
+against the CPU port.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  They
 import neither jax nor gstbad_tpu, so they run on a machine that has only
@@ -16,7 +19,9 @@ the port's dependencies:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: bit exact (integer kernels), but config3_audio's S16 samples,
+Tolerance: bit exact (integer kernels; H1's passes everywhere and its
+scores where a window passed, since it stops at a window's first failed
+stage), but config3_audio's S16 samples,
 within 1 LSB (freeverb's float32 sums, stated at its test); freeverb_scan
 within 2e-6 of its plain version (the JAX package's freeverb gate; both
 take the C's operation order, so they are in fact expected to agree bit
@@ -26,6 +31,8 @@ bytes, templatematch's result within 1e-5 of the score map's largest;
 the audio walks bit exact, the bs2b ! pitch graph within 1e-3 (torch.fft
 on the card and the CPU, through the vocoder's unwrapped phase).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -1090,3 +1097,89 @@ def test_audio_breadth_graph_on_card_equals_cpu_port(dev, name):
             assert np.abs(a.data - c.data).max() <= 1e-3
         else:
             assert np.array_equal(a.data, c.data)
+
+
+# -- the OpenCV detectors' kernels (H1-H3) -----------------------------------
+
+HAAR_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                         "gstbad_tpu_torch", "data", "")
+
+
+def _haar_planes(dev, h, w):
+    from gstbad_tpu_torch.ops.resize import resize_linear
+    face = np.load(HAAR_DATA + "face_fixture.npz")["frame"].astype(np.float32)
+    rng = np.random.default_rng(h * w)
+    x = np.stack([face, face * np.float32(0.9) + np.float32(7.3),
+                  (rng.random((161, 161)) * 255).astype(np.float32)])
+    return resize_linear(torch.from_numpy(x).to(dev), h, w)
+
+
+@pytest.mark.parametrize("name,form", [("haarcascade_frontalface_alt2",
+                                        "arrays"), ("fist", "unrolled"),
+                                       ("palm", "unrolled")])
+@pytest.mark.parametrize("h,w", [(161, 161), (103, 90), (41, 65)])
+def test_haar_kernels_match_plain(dev, name, form, h, w):
+    from gstbad_tpu_torch.io.haarcascade import parse_cascade
+    from gstbad_tpu_torch.ops import haar
+    packed = haar.pack(parse_cascade(HAAR_DATA + name + ".xml"), form)
+    x = _haar_planes(dev, h, w)
+    ny, nx = haar.grid(h, w, packed)
+    ii, sq = haar.integral(x), haar.integral(x * x)
+    tii = None
+    if packed.any_tilted:
+        tii = haar.tilted_integral(x)
+        assert torch.equal(tii.cpu(), haar.tilted_integral_plain(x.cpu()))
+    kp, ks = haar.haar_cascade(ii, sq, tii, packed, ny, nx)
+    pp, ps = haar.eval_cascade_plain(ii, sq, tii, packed, ny, nx)
+    torch.cuda.synchronize()
+    assert torch.equal(kp, pp)
+    assert torch.equal(ks[pp], ps[pp])
+
+
+@pytest.mark.parametrize("h,w,d", [(48, 160, 64), (33, 70, 64), (20, 50, 40)])
+def test_sgm_kernel_matches_plain(dev, h, w, d):
+    from gstbad_tpu_torch.ops import stereo
+    rng = np.random.default_rng(h)
+    tex = rng.integers(0, 256, (2, h, w + 80)).astype(np.uint8)
+    left = torch.from_numpy(tex[:, :, 40:40 + w].copy()).to(dev)
+    right = torch.from_numpy(tex[:, :, 45:45 + w].copy()).to(dev)
+    cost = stereo.sgm_cost(left, right, d)
+    for axis, rev, shear in stereo.SGM_PASSES:
+        total = torch.full_like(cost, 3.0)
+        want = stereo.sgm_aggregate_plain(cost, total.clone(), axis, rev,
+                                          shear, 200, 255)
+        got = stereo.sgm_aggregate(cost, total, axis, rev, shear, 200, 255)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (axis, rev, shear)
+
+
+@pytest.mark.parametrize("desc", [
+    "facedetect profile={alt2} min-neighbors=1",
+    "faceblur profile={alt2} min-neighbors=1",
+    "handdetect",
+    "segmentation method=mog2 test-mode=true"])
+def test_detector_on_card_equals_cpu_port(dev, desc):
+    from gstbad_tpu_torch.core.harness import Harness
+    from gstbad_tpu_torch.core.spec import MediaSpec
+    face = np.load(HAAR_DATA + "face_fixture.npz")["frame"]
+    rng = np.random.default_rng(3)
+    fmt = "RGBA" if desc.startswith("segmentation") else "RGB"
+    frames = rng.integers(40, 200, (4, 176, 184, len(fmt))).astype(np.uint8)
+    frames[1:3, 5:166, 9:170, :3] = face[..., None]
+    name, *props = desc.format(
+        alt2=HAAR_DATA + "haarcascade_frontalface_alt2.xml").split()
+    kw = dict(p.split("=") for p in props)
+    out = []
+    for device in ("cuda", "cpu"):
+        hn = Harness(name, device=device, **kw)
+        hn.set_src_spec(MediaSpec(kind="video", format=fmt, width=184,
+                                  height=176))
+        res = hn.push(frames[:2]) + hn.push(frames[2:])
+        out.append((res,
+                    [(m.name, m.pts, str(m.fields)) for m in hn.bus.messages]))
+    (a, am), (b, bm) = out
+    assert len(a) == len(b) > 0
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x.data, y.data)
+        np.testing.assert_array_equal(x.valid, y.valid)
+    assert am == bm

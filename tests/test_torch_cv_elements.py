@@ -275,5 +275,6 @@ def test_registry_has_the_cv_names():
            "digitalzoom", "lcms", "alphacombine", "codecalphademux"}
     assert new <= set(t_names())
     assert set(t_names()) <= set(j_names())
-    # 93 after the cv slice, 17 more with audio breadth
-    assert len(set(t_names())) == 110
+    # 93 after the cv slice, 17 more with audio breadth, 9 with the rest
+    # of CV
+    assert len(set(t_names())) == 119

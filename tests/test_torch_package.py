@@ -111,7 +111,7 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
 
 def test_unported_parts_refuse_cleanly():
     with pytest.raises(KeyError):
-        gtt.parse_launch("videotestsrc ! facedetect ! fakesink",
+        gtt.parse_launch("videotestsrc ! qroverlay ! fakesink",
                          device="cpu")
     # formats and patterns that neither package knows
     p = gtt.parse_launch("videotestsrc ! videoconvert format=NV16 "

@@ -5,17 +5,13 @@ phase is a float32 sum that grows without wrapping
 (gstbad_tpu/ops/audio.py:1345), so a difference of an ulp in one frame's
 phase stays in every later frame.  The port takes the analysis phase as
 a float32 atan2 and contracts the wrap and the phase update into FMAs, as
-the JAX package's compiled window does: fed the same spectra (its FFT
-replaced by the JAX package's), the port's phases equal JAX's and its
-output is within 2.4e-7 over four windows of every input
-(test_pitch_same_fft_closes_the_gap).  What is left is the FFT:
-torch.fft against XLA's, amplified through that phase.  Measured over
-four 8192-sample windows: a 440 Hz sine at pitch 1.25 3.0e-5 (the first
-window 4.8e-7), at pitch 0.8 tempo 1.1 7.7e-7; noise (0.3 RMS) at pitch
-1.25 1.5e-4, at rate 1.5 output-rate 0.5 1.6e-4.  The tests hold each
-input to about 1.5x its own reading, and the sine's first window to
-1e-5, with lengths, pts, flags and valid equal.  bpmdetect's `bpm`
-messages are equal."""
+the JAX package's compiled window does, and on the CPU its FFTs go
+through scipy.fft (gstbad_tpu_torch/ops/fft.py), which rounds as XLA's
+CPU FFT does.  Measured over four 8192-sample windows: a 440 Hz sine at
+pitch 1.25 1.8e-7, at pitch 0.8 tempo 1.1 2.4e-7; noise (0.3 RMS) at
+pitch 1.25 1.8e-7, at rate 1.5 output-rate 0.5 1.8e-7.  The tests hold
+every input to 1e-5, with lengths, pts, flags and valid equal.
+bpmdetect's `bpm` messages are equal."""
 
 import numpy as np
 import pytest
@@ -50,10 +46,10 @@ def _pitch_inputs(kind):
 
 
 PITCH_CASES = [  # (input, properties, limit over its four windows)
-    ("sine", {"pitch": 1.25}, 5e-5),
-    ("sine", {"pitch": 0.8, "tempo": 1.1}, 1.2e-6),
-    ("noise", {"pitch": 1.25}, 2.5e-4),
-    ("noise", {"rate": 1.5, "output-rate": 0.5}, 2.5e-4)]
+    ("sine", {"pitch": 1.25}, 1e-5),
+    ("sine", {"pitch": 0.8, "tempo": 1.1}, 1e-5),
+    ("noise", {"pitch": 1.25}, 1e-5),
+    ("noise", {"rate": 1.5, "output-rate": 0.5}, 1e-5)]
 
 
 @pytest.mark.parametrize("kind,props,limit", PITCH_CASES)
@@ -74,10 +70,11 @@ def test_pitch_element(kind, props, limit):
 
 @pytest.mark.parametrize("kind,props,limit", PITCH_CASES)
 def test_pitch_same_fft_closes_the_gap(kind, props, limit, monkeypatch):
-    """The witness for the cause of test_pitch_element's gap: with the
-    port's torch.fft replaced by the JAX package's FFT, every input is
-    within 3e-7 over four windows (measured 2.4e-7), far under its limit
-    there."""
+    """The witness that the FFT route closes the gap: with the port's
+    CPU FFTs (ops/fft.py) replaced by the JAX package's own, every input
+    is within 3e-7 over four windows (measured 2.4e-7), as it is with
+    scipy.fft, far under its limit."""
+    from gstbad_tpu_torch.ops import fft as tfft
     rfft = jax.jit(lambda a: jax.numpy.fft.rfft(a, axis=1))
     irfft = jax.jit(lambda a, n: jax.numpy.fft.irfft(a, n=n, axis=1),
                     static_argnums=1)
@@ -90,8 +87,8 @@ def test_pitch_same_fft_closes_the_gap(kind, props, limit, monkeypatch):
         assert dim == 1
         return torch.from_numpy(np.array(irfft(x.numpy(), n)))
 
-    monkeypatch.setattr(torch.fft, "rfft", jax_rfft)
-    monkeypatch.setattr(torch.fft, "irfft", jax_irfft)
+    monkeypatch.setattr(tfft, "rfft", jax_rfft)
+    monkeypatch.setattr(tfft, "irfft", jax_irfft)
     (ja, _), (ta, _) = push_audio_both("pitch", "F32", 2, 44100,
                                        list(_pitch_inputs(kind)), props)
     assert len(ja) == len(ta) == 4
