@@ -169,6 +169,34 @@ line):
    1080p) on the card against the CPU port (frames, valid and messages
    equal: the CPU port takes a minute a 720p frame of facedetect); then
    each kernel on the input its path gave it, timed there.
+   Then overlay and the text renderers (overlay_slice, phase 4h): H4
+   (overlay_blend, csrc/overlay_kernels.cu; not a TPU kernel: it
+   replaces the overlay elements' whole-window jnp blends) against its
+   plain version at ragged shapes in all six modes (C = 1, 3 and 4, odd
+   sizes, 1-3 overlapping layers with gaps, strided and shifted planes);
+   then, window 64, appsrc-fed seeded frames through parse_launch at full
+   width, each path with the counts set to 0 just before its counted run
+   of 2 windows and read just after (H4 once a window where the path
+   composites, every other count 0): dvbsub_1080p (AYUV, 8 seeded DVB
+   display sets of two regions, 4- and 8-bit CLUTs, 0.8 s apart),
+   dvdspu_720x480 (6 seeded VobSub packets), cea708_1080p (ceaccoverlay
+   face=fixed, the caption rewritten every 16 frames; face=pango too
+   where pango loads), assrender_1080p (BGRx, 16 events in 2 styles),
+   ttmlrender_1080p (an IMSC document), qroverlay_1080p and
+   debugqroverlay_1080p (BGRx; the bank 8 frames deep: the QR encoder
+   takes a quarter second a symbol on the host), rsvgoverlay_1080p
+   (BGRA, where librsvg loads), faceoverlay_720p (phase 4g's face
+   frames, window 16: H1 once a pyramid scale, the blend in plain ops),
+   line21_525 (cccombiner ! line21encoder ! line21decoder ! ccextractor
+   on 720x525 I420: no kernel) and ccconverter_cdp (CDP at 29.97 to
+   cc_data at 59.94 frames/s, its host walk timed by the host clock);
+   each with its peak device memory and frames/s (median of 5), and at
+   OVERLAY_SMALL on the card against the CPU port (frames, pts, valid and
+   messages equal); then dvbsubenc, ttmlparse, teletextdec and rsvgdec,
+   the host elements, card against CPU; then H4 on every launch the
+   paths made, timed on dvbsub_1080p's and assrender_1080p's windows.
+   Which of pango, librsvg and PIL load is printed first; a path whose
+   library is missing is reported there and not run.
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
    around 10 steps of a 64-frame window, 16 at 4K, data kept on the card),
    a torch.profiler breakdown of each graph's step, the fourteen, the
@@ -369,8 +397,8 @@ def kernel_counters() -> dict:
     """{kernel: its wrapper}: each wrapper's `launches` counts its
     kernel's launches."""
     from gstbad_tpu_torch.ops import (audio, blur, chainfuse, comb,
-                                      fieldanalysis, haar, lut, remap,
-                                      stereo)
+                                      fieldanalysis, haar, lut, overlay,
+                                      remap, stereo)
     return {"dilate_zebra_fused": chainfuse.dilate_zebra_fused,
             "apply_word_table": lut.apply_word_table,
             "metrics_default": fieldanalysis.metrics_default,
@@ -387,7 +415,8 @@ def kernel_counters() -> dict:
             "scope_filter": audio.scope_filter,
             "haar_cascade": haar.haar_cascade,
             "tilted_integral": haar.tilted_integral,
-            "sgm_aggregate": stereo.sgm_aggregate}
+            "sgm_aggregate": stereo.sgm_aggregate,
+            "overlay_blend": overlay.overlay_blend}
 
 
 def profile_step(p, step_ms: float, key: str, window: int,
@@ -2111,6 +2140,673 @@ def cv_detect_slice(gtt, counters, launches, err, card) -> dict:
             "chains": chains}
 
 
+WINDOW_OVERLAY = 64             # the overlay paths' window
+OVERLAY_SMALL = (320, 180)      # their card-against-CPU check
+SEC = 10 ** 9
+LOGO_SVG = ('<svg xmlns="http://www.w3.org/2000/svg" width="240" '
+            'height="96"><rect x="4" y="4" width="232" height="88" rx="18" '
+            'fill="#1030c0" fill-opacity="0.55"/><circle cx="56" cy="48" '
+            'r="30" fill="#ffd000"/><path d="M110 20 L220 48 L110 76 Z" '
+            'fill="#ffffff" fill-opacity="0.8"/></svg>')
+
+
+def _bits(pairs):
+    """Bytes of a bit string given as (value, width) pairs, zero padded."""
+    bits = "".join(format(v, f"0{n}b") for v, n in pairs)
+    bits += "0" * (-len(bits) % 8)
+    return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+
+
+def dvb_display_sets(n_sets, step_ns, seed=31):
+    """n_sets seeded DVB subtitle display sets (ETSI EN 300 743 segments,
+    one PES payload each) every step_ns: two regions each, a 4-bit one
+    with a 16-entry CLUT and an 8-bit one with a 256-entry CLUT, pixel
+    by pixel codes of seeded colours.  -> [(payload, pts_ns)]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def seg(stype, payload):
+        return bytes([0x0F, stype, 0, 1, len(payload) >> 8,
+                      len(payload) & 0xFF]) + payload
+
+    def region(rid, w, h, depth, clut_id, oid):
+        exp = {4: 2, 8: 3}[depth]
+        return seg(0x11, bytes([rid, 1 << 3, w >> 8, w & 0xFF, h >> 8,
+                                h & 0xFF, exp << 2, clut_id, 0, 0,
+                                oid >> 8, oid & 0xFF, 0, 0, 0, 0]))
+
+    def obj(oid, rows, depth):
+        code = 0x11 if depth == 4 else 0x12
+        end = [(0, 4), (0, 4)] if depth == 4 else [(0, 8), (0, 1), (0, 7)]
+        fields = []
+        for parity in (0, 1):
+            lines = [bytes([code]) + _bits([(int(c), depth) for c in r]
+                                           + end)
+                     for r in rows[parity::2]]
+            fields.append(b"\xf0".join(lines) + b"\xf0")
+        top, bot = fields
+        return seg(0x13, bytes([oid >> 8, oid & 0xFF, 0, len(top) >> 8,
+                                len(top) & 0xFF, len(bot) >> 8,
+                                len(bot) & 0xFF]) + top + bot)
+
+    def clut(clut_id, flag, n):
+        body = bytearray([clut_id, 0])
+        for e in range(1, n):
+            y, cr, cb = rng.integers(32, 236, 3)
+            body += bytes([e, flag | 1, int(y), int(cr), int(cb),
+                           int(rng.integers(0, 160))])
+        return seg(0x12, bytes(body))
+
+    out = []
+    for i in range(n_sets):
+        w4, h4 = 360 + 8 * (i % 5), 36
+        w8, h8 = 240, 24
+        rows4 = rng.integers(1, 16, (h4, w4))
+        rows8 = rng.integers(1, 256, (h8, w8))
+        x4, y4 = 80 + 10 * i, 460
+        x8, y8 = 300, 40 + 6 * i
+        pes = (b"\x20\x00"
+               + seg(0x10, bytes([3, 0, 1, 0, x4 >> 8, x4 & 0xFF, y4 >> 8,
+                                  y4 & 0xFF, 2, 0, x8 >> 8, x8 & 0xFF,
+                                  y8 >> 8, y8 & 0xFF]))
+               + region(1, w4, h4, 4, 0, 7) + region(2, w8, h8, 8, 1, 8)
+               + clut(0, 0x40, 16) + clut(1, 0x20, 256)
+               + obj(7, rows4, 4) + obj(8, rows8, 8) + seg(0x80, b"")
+               + b"\xff")
+        out.append((pes, i * step_ns))
+    return out
+
+
+def spu_packets(n, step_ns, w=400, h=60, seed=32):
+    """n seeded VobSub subpicture packets every step_ns, each a w x h
+    picture of four-colour runs at a seeded place, shown at once and
+    hidden after 90 ticks (1.05 s).  -> [(packet, pts_ns, clut)]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def rle(run, colour):
+        code = (run << 2) | colour
+        if run == 0:
+            return [0, 0, 0, colour]
+        for lim, k in ((0x10, 1), (0x100, 2), (0x1000, 3)):
+            if code < lim:
+                return [(code >> (4 * s)) & 0xF for s in range(k - 1, -1, -1)]
+        return [(code >> (4 * s)) & 0xF for s in range(3, -1, -1)]
+
+    def field(rows):
+        nibs = []
+        for r in rows:
+            ln, x = [], 0
+            while x < w:
+                run = min(int(rng.integers(2, 40)), w - x)
+                ln += rle(run, int(rng.integers(0, 4)))
+                x += run
+            nibs += ln + [0] * (len(ln) % 2)
+        nibs += [0] * (len(nibs) % 2)
+        return bytes((nibs[i] << 4) | nibs[i + 1]
+                     for i in range(0, len(nibs), 2))
+
+    out = []
+    for i in range(n):
+        top, left = int(rng.integers(8, 400)), int(rng.integers(8, 300))
+        topf, botf = field(range(0, h, 2)), field(range(1, h, 2))
+        pix0, pix1 = 4, 4 + len(topf)
+        dcsqt = pix1 + len(botf)
+        right, bottom = left + w - 1, top + h - 1
+        cmds = bytes([0x03, 0x01, 0x23, 0x04, 0xFF, 0xF0, 0x05, left >> 4,
+                      ((left & 0xF) << 4) | (right >> 8), right & 0xFF,
+                      top >> 4, ((top & 0xF) << 4) | (bottom >> 8),
+                      bottom & 0xFF, 0x06, pix0 >> 8, pix0 & 0xFF,
+                      pix1 >> 8, pix1 & 0xFF, 0x01, 0xFF])
+        dcsq2 = dcsqt + 4 + len(cmds)
+        pkt = bytearray(b"\x00\x00" + bytes([dcsqt >> 8, dcsqt & 0xFF]))
+        pkt += topf + botf + bytes([0, 0, dcsq2 >> 8, dcsq2 & 0xFF]) + cmds
+        pkt += bytes([0, 90, dcsq2 >> 8, dcsq2 & 0xFF, 0x02, 0xFF])
+        pkt[0], pkt[1] = len(pkt) >> 8, len(pkt) & 0xFF
+        clut = rng.integers(0, 1 << 24, 16).astype(np.uint32)
+        out.append((bytes(pkt), i * step_ns, clut))
+    return out
+
+
+def cea708_feeds(n, step_ns):
+    """cc_data feeds that rewrite a DTVCC caption window every step_ns
+    (window 0 defined once, then new text, a colour change and a
+    flusher each time).  -> [(cc_data, pts_ns)]."""
+    from gstbad_tpu_torch.io import cea708 as C
+
+    def cc(payload):
+        blk = bytes([(1 << 5) | len(payload)]) + payload
+        if len(blk) % 2 == 0:
+            blk += b"\x00"
+        pkt = bytes([(len(blk) + 1) // 2]) + blk
+        pkt += b"\x00" * (len(pkt) % 2)
+        return b"".join(bytes([0x04 | (3 if i == 0 else 2), pkt[i],
+                               pkt[i + 1]]) for i in range(0, len(pkt), 2))
+
+    df0 = bytes([C.CMD_DF0, 0x20, 60, 40, 0x01, 31, 0])
+    out = []
+    for i in range(n):
+        text = f"CAPTION {i:02d} PORT".encode()
+        body = (df0 if i == 0 else bytes([C.CMD_CLW, 0x01])) + bytes(
+            [C.CMD_SPC, 0x20 + (i % 3) * 8, 0x00, 0x00]) + text + b"\x03"
+        out.append((cc(body), i * step_ns))
+        out.append((cc(b"\x03"), i * step_ns + 1))
+    return out
+
+
+def ass_script(n_events=16, seed=33):
+    """An ASS script at 1920x1080 with two styles and n_events seeded
+    events of 0.4-1.2 s, some overlapping."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lines = ["[Script Info]", "PlayResX: 1920", "PlayResY: 1080", "",
+             "[V4+ Styles]",
+             "Format: Name, Fontname, Fontsize, PrimaryColour, "
+             "OutlineColour, BackColour, Bold, Italic, Outline, Alignment, "
+             "MarginL, MarginR, MarginV",
+             "Style: Default,Arial,64,&H00FFFFFF,&H00000000,&H80000000,0,0,"
+             "3,2,40,40,60",
+             "Style: Sign,Arial,48,&H0000FFFF,&H00202020,&H80000000,1,0,2,8,"
+             "40,40,30", "", "[Events]",
+             "Format: Layer, Start, End, Style, Name, MarginL, MarginR, "
+             "MarginV, Effect, Text"]
+
+    def ts(ms):
+        return (f"{ms // 3600000}:{ms // 60000 % 60:02d}:"
+                f"{ms // 1000 % 60:02d}.{ms // 10 % 100:02d}")
+
+    for i in range(n_events):
+        start = int(i * 260 + rng.integers(0, 120))
+        end = start + int(rng.integers(400, 1200))
+        style = "Sign" if i % 3 == 0 else "Default"
+        lines.append(f"Dialogue: 0,{ts(start)},{ts(end)},{style},,0,0,0,,"
+                     f"Line {i} of the port\\Nsubtitle test {seed + i}")
+    return "\n".join(lines) + "\n"
+
+
+def imsc_document(n=8):
+    """An IMSC (TTML) document of n paragraphs, 0.5 s apart and 0.8 s
+    long, in two regions."""
+    def clock(ms):
+        return f"00:00:{ms // 1000:02d}.{ms % 1000:03d}"
+
+    ps = "".join(
+        f'<p region="{"r_bottom" if i % 2 == 0 else "r_top"}" '
+        f'style="s_white" begin="{clock(500 * i)}" '
+        f'end="{clock(500 * i + 800)}">Paragraph {i} '
+        '<span style="s_yellow">of the port</span></p>' for i in range(n))
+    return ('<?xml version="1.0" encoding="UTF-8"?>\n'
+            '<tt xmlns="http://www.w3.org/ns/ttml" '
+            'xmlns:tts="http://www.w3.org/ns/ttml#styling" '
+            'xmlns:ttp="http://www.w3.org/ns/ttml#parameter" '
+            'ttp:cellResolution="40 24" xml:lang="en"><head><styling>'
+            '<style xml:id="s_white" tts:color="#FFFFFF" tts:fontSize="100%" '
+            'tts:backgroundColor="#000000AA" tts:textAlign="center"/>'
+            '<style xml:id="s_yellow" tts:color="#FFFF00"/></styling><layout>'
+            '<region xml:id="r_bottom" tts:origin="10% 80%" '
+            'tts:extent="80% 15%" tts:displayAlign="after"/>'
+            '<region xml:id="r_top" tts:origin="10% 5%" tts:extent="80% 15%"'
+            '/></layout></head><body><div>' + ps + '</div></body></tt>')
+
+
+def teletext_packets(n_pages=4):
+    """Teletext PES payloads (EN 300 472 data units) of n_pages
+    subpages of page 100, each completed by the next header."""
+    from gstbad_tpu_torch.io import teletext as tt
+
+    def unit(line42, line_no):
+        return bytes([0x02, 44, 0x20 | line_no, 0xE4]) + bytes(
+            tt.rev8(b) for b in line42)
+
+    out = []
+    for sub in range(n_pages + 1):
+        pkt = unit(tt.build_header(1, 0, 0, subno=sub), 7)
+        if sub < n_pages:
+            pkt += unit(tt.build_row(1, 2, f"  PAGE {sub} NEWS".encode()),
+                        8)
+            pkt += unit(tt.build_row(1, 20, b"\x03SUBTITLE ROW"), 9)
+        out.append(pkt)
+    return out
+
+
+def overlay_libraries() -> dict:
+    """Which of the host libraries the text and SVG paths render with
+    load here: {"pango": bool, "rsvg": bool, "PIL": bool}."""
+    from gstbad_tpu_torch.io import pangocairo, rsvg
+    try:
+        import PIL  # noqa: F401
+        pil = True
+    except ImportError:
+        pil = False
+    return {"pango": pangocairo.available(), "rsvg": rsvg.available(),
+            "PIL": pil}
+
+
+def overlay_paths(gtt, libs, tmp):
+    """The paths of phase 4h: {key: (build(device, small) -> Pipeline,
+    feed(pipeline, n_windows, small), window, windows of the counted run,
+    clock, H4 launches a window, H1 launches a window)}.  Paths whose
+    library does not load here are left out (overlay_slice reports them).
+    Inputs render before negotiation in build (scripts, documents,
+    display sets); feed pushes the video."""
+    import numpy as np
+    from gstbad_tpu_torch.elements.video.qroverlay import DebugQrOverlay
+    W_, H_ = W, H
+    win = WINDOW_OVERLAY
+    dur = 10 ** 9 * 1001 // 30000     # 29.97 frames/s
+
+    def size(small, w=W_, h=H_):
+        return OVERLAY_SMALL if small else (w, h)
+
+    def base(n, w, h, c, seed):
+        frame = np.random.default_rng(seed).integers(
+            0, 256, (h, w, c), dtype=np.uint8)
+        return np.broadcast_to(frame, (n, h, w, c))
+
+    def app(fmt, w, h, name="src", rate="30000/1001"):
+        return (f"appsrc name={name} format={fmt} width={w} height={h} "
+                f"framerate={rate}")
+
+    def video(fmt, el, setup=None, w=W_, h=H_, c=4, seed=40):
+        def build(d, small=False):
+            ws, hs = size(small, w, h)
+            # debugqroverlay's JSON names its instance: number each
+            # pipeline's from 0, so the card's and the CPU's symbols agree
+            DebugQrOverlay._instances = 0
+            p = gtt.parse_launch(f"{app(fmt, ws, hs)} ! {el} name=el "
+                                 "! fakesink", device=d)
+            if setup:
+                setup(p.get_by_name("el"))
+            return p
+
+        def feed(p, n, small=False):
+            ws, hs = size(small, w, h)
+            p.get_by_name("src").push_frames(
+                base(n * (8 if small else win), ws, hs, c, seed))
+        return build, feed, win, 2, "device"
+
+    sets = dvb_display_sets(8, int(0.8 * SEC))
+    spus = spu_packets(6, int(0.7 * SEC))
+    feeds = cea708_feeds(8, 16 * dur)
+    script, doc = ass_script(), imsc_document()
+
+    def push_all(method, items):
+        def setup(el):
+            for it in items:
+                getattr(el, method)(*it)
+        return setup
+
+    paths = {}
+    paths["dvbsub_1080p"] = video("AYUV", "dvbsuboverlay",
+                                  push_all("push_pes", sets)) + (1, 0)
+    paths["dvdspu_720x480"] = video("AYUV", "dvdspu",
+                                    push_all("push_spu", spus), 720,
+                                    480) + (1, 0)
+    paths["cea708_1080p"] = video("AYUV", "ceaccoverlay face=fixed",
+                                  push_all("push_cc", feeds)) + (1, 0)
+    if libs["pango"]:
+        paths["cea708_pango_1080p"] = video(
+            "AYUV", "ceaccoverlay face=pango",
+            push_all("push_cc", feeds)) + (1, 0)
+    paths["assrender_1080p"] = video(
+        "BGRx", "assrender face=fixed",
+        lambda el: el.push_script(script)) + (1, 0)
+    paths["ttmlrender_1080p"] = video(
+        "BGRx", "ttmlrender", lambda el: el.push_ttml(doc)) + (1, 0)
+    paths["qroverlay_1080p"] = video(
+        "BGRx", 'qroverlay data="gstbad port qroverlay 1080p" '
+        "pixel-size=6") + (1, 0)
+    paths["debugqroverlay_1080p"] = video(
+        "BGRx", "debugqroverlay max-frames=8 pixel-size=4 "
+        "extra-data-name=K extra-data-array=a,b,c "
+        "extra-data-interval-buffers=4") + (1, 0)
+    if libs["rsvg"]:
+        logo = os.path.join(tmp, "logo.svg")
+        with open(logo, "w") as f:
+            f.write(LOGO_SVG)
+        paths["rsvgoverlay_1080p"] = video(
+            "BGRA", f"rsvgoverlay location={logo} x=1600 y=40") + (1, 0)
+    # faceoverlay on phase 4g's face frames: H1 once a pyramid scale; the
+    # overlay an SVG where librsvg loads, else a PNG where PIL does, else
+    # none (detection only)
+    face_el = f"faceoverlay profile={ALT2}"
+    if libs["rsvg"]:
+        face_el += f" location={os.path.join(tmp, 'logo.svg')}"
+    elif libs["PIL"]:
+        from PIL import Image
+        rgba = np.zeros((96, 80, 4), np.uint8)
+        rgba[..., 0], rgba[..., 2] = 255, 64
+        rgba[..., 3] = np.linspace(40, 230, 80).astype(np.uint8)[None, :]
+        face_el += f" location={os.path.join(tmp, 'face.png')}"
+        Image.fromarray(rgba, "RGBA").save(os.path.join(tmp, "face.png"))
+
+    def face_build(d, small=False):
+        w, h = DETECT_SMALL if small else (DETECT_W, DETECT_H)
+        return gtt.parse_launch(f"{app('RGBx', w, h)} ! {face_el} "
+                                "! fakesink", device=d)
+
+    def face_feed(p, n, small=False):
+        w, h = DETECT_SMALL if small else (DETECT_W, DETECT_H)
+        rgb = face_frames(n * (2 if small else WINDOW_FACE), w, h)
+        p.get_by_name("src").push_frames(np.concatenate(
+            [rgb, np.zeros(rgb.shape[:3] + (1,), np.uint8)], -1))
+    from gstbad_tpu_torch.ops.haar import pack
+    from gstbad_tpu_torch.io.haarcascade import parse_cascade
+    alt2 = pack(parse_cascade(ALT2), "arrays")
+    paths["faceoverlay_720p"] = (face_build, face_feed, WINDOW_FACE, 2,
+                                 "device", 0,
+                                 n_scales(DETECT_H, DETECT_W, alt2.window,
+                                          1.25))
+
+    # cccombiner ! line21encoder ! line21decoder ! ccextractor, 720x525
+    def l21_build(d, small=False):
+        return gtt.parse_launch(
+            f"{app('I420', 720, 525, 'v')} ! m.  "
+            f"{app('I420', 6, 1, 'c')} ! m.  cccombiner name=m "
+            "! line21encoder ! line21decoder ! ccextractor "
+            "remove-caption-meta=true ! fakesink", device=d)
+
+    def l21_feed(p, n, small=False):
+        rng = np.random.default_rng(44)
+        k = n * (8 if small else win)
+        ch = 263
+        p.get_by_name("v").push_frames({
+            "y": base(k, 720, 525, 1, 45)[..., 0],
+            "u": base(k, 360, ch, 1, 46)[..., 0],
+            "v": base(k, 360, ch, 1, 47)[..., 0]})
+        cc = np.zeros((k, 6), np.uint8)
+        par = lambda v: v | (0x80 * (bin(v).count("1") % 2 == 0))  # noqa
+        for i in range(k):
+            a, b, c, d = rng.integers(0x20, 0x7F, 4)
+            cc[i] = [0x80, par(a), par(b), 0x00, par(c), par(d)]
+        p.get_by_name("c").push_frames(cc)
+    paths["line21_525"] = (l21_build, l21_feed, win, 2, "device", 0, 0)
+
+    # ccconverter: CDP at 29.97 frames/s to cc_data at 59.94, the host
+    # walk timed by the host clock around run()
+    from gstbad_tpu_torch.io import cea608
+
+    def cdp_frames(k):
+        rng = np.random.default_rng(48)
+        rows = []
+        for i in range(k):
+            ccd = bytes([0xFC, *rng.integers(0x20, 0x7F, 2), 0xFD,
+                         *rng.integers(0x20, 0x7F, 2)]) + b"".join(
+                bytes([0xFE, *rng.integers(0, 256, 2)]) for _ in range(4))
+            rows.append(np.frombuffer(cea608.cc_data_to_cdp(
+                ccd, (30000, 1001), sequence=i), np.uint8))
+        return np.stack(rows)
+
+    def cc_build(d, small=False):
+        return gtt.parse_launch(
+            f"{app('I420', 73, 1, 'c')} ! ccconverter input-type=cdp "
+            "output-type=cc-data output-framerate=60000/1001 ! fakesink",
+            device=d)
+
+    def cc_feed(p, n, small=False):
+        p.get_by_name("c").push_frames(cdp_frames(n * (8 if small else win)))
+    paths["ccconverter_cdp"] = (cc_build, cc_feed, win, 2, "host", 0, 0)
+    return paths
+
+
+def host_element_checks(gtt, libs):
+    """dvbsubenc, ttmlparse, teletextdec and rsvgdec (host elements) on
+    the card against the CPU port: frames, pts, valid and messages.
+    -> {name: messages}."""
+    import numpy as np
+    out = {}
+
+    def both(name, build, feed=None, n=None, window=8, posts=True):
+        res = {}
+        for d in ("cuda", "cpu"):
+            p = build(d)
+            p.negotiate()
+            if feed:
+                feed(p)
+            res[d] = (p.run(n_frames=n, window=window) if n
+                      else p.run(window=window), bus_messages(p))
+        batches_close(name, res["cuda"][0], res["cpu"][0])
+        messages_close(name, res["cuda"][1], res["cpu"][1])
+        if posts and not res["cpu"][1]:
+            fail(f"{name}: no bus messages")
+        out[name] = len(res["cpu"][1])
+
+    imgs = np.zeros((16, 576, 720, 4), np.uint8)
+    for i in range(0, 16, 3):
+        imgs[i, 460:520, 100 + 10 * i:500 + 10 * i] = [255, 200, 128 + i,
+                                                       128]
+    both("dvbsubenc", lambda d: gtt.parse_launch(
+        "appsrc name=s format=AYUV width=720 height=576 framerate=25/1 "
+        "! dvbsubenc ! fakesink", device=d),
+        lambda p: p.get_by_name("s").push_frames(imgs))
+    doc = imsc_document()
+
+    def ttml_build(d):
+        p = gtt.parse_launch("videotestsrc pattern=ball width=64 height=48 "
+                             "format=RGBx ! ttmlparse name=t ! fakesink",
+                             device=d)
+        p.get_by_name("t").push_ttml(doc)
+        return p
+    both("ttmlparse", ttml_build, n=8)
+
+    def tt_build(d):
+        p = gtt.parse_launch("teletextdec name=t page=100 ! fakesink",
+                             device=d)
+        for pkt in teletext_packets():
+            p.get_by_name("t").push_packet(pkt)
+        return p
+    both("teletextdec", tt_build, window=2)
+    if libs["rsvg"]:
+        def svg_build(d):
+            p = gtt.parse_launch("rsvgdec name=r ! fakesink", device=d)
+            p.get_by_name("r").push_data((LOGO_SVG * 3).encode())
+            return p
+        both("rsvgdec", svg_build, window=2, posts=False)
+    return out
+
+
+def overlay_slice(gtt, counters, launches, err, card) -> dict:
+    """Phase 4h: overlay and the text renderers (dvbsuboverlay, dvdspu,
+    ceaccoverlay, assrender, ttmlrender, qroverlay, debugqroverlay,
+    rsvgoverlay, faceoverlay; the line-21 and ccconverter caption paths;
+    the host elements).
+
+    H4 (overlay_blend) against its plain version on the card at ragged
+    shapes in every mode (C = 1, 3 and 4, odd sizes, 1-3 layers that
+    overlap, strided and shifted planes); then each path of overlay_paths
+    through parse_launch at full width, the launch counts set to 0 just
+    before its counted run and read just after (H4 once a window where
+    the path composites, H1 once a pyramid scale for faceoverlay, every
+    other count 0), its peak device memory and frames/s (median of 5),
+    and the same graph at OVERLAY_SMALL on the card against the CPU port
+    (frames, pts, valid and messages equal); the host elements the same
+    way; then H4 against its plain version on every launch each path
+    made, timed on dvbsub_1080p's and assrender_1080p's.  Returns
+    {"step_ms", "times", "bounds"} as cv_detect_slice does."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gstbad_tpu_torch.ops import overlay as ovops
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(51)
+    libs = overlay_libraries()
+    log("overlay libraries here: " + ", ".join(
+        f"{k} {'loads' if v else 'missing'}" for k, v in libs.items())
+        + "; not run for want of one: " + (", ".join(
+            k for k, need in (("cea708_pango_1080p", "pango"),
+                              ("rsvgoverlay_1080p", "rsvg"),
+                              ("rsvgdec", "rsvg"))
+            if not libs[need]) or "none")
+        + " (faceoverlay's overlay is an SVG through librsvg, else a PNG "
+          "through PIL, else none: it then detects and posts only)")
+
+    def note(e):
+        err["overlay_blend"] = max(err["overlay_blend"], e)
+
+    def check(args, kw):
+        got = ovops.overlay_blend(*args, **kw)
+        want = ovops.overlay_blend_plain(*args, **kw)
+        note(max_abs_err(got, want))
+
+    # H4 at ragged shapes, every mode
+    n_cases = 0
+    for mode in ovops.MODES:
+        for c, (h, w), n_l in ((4, (5, 7), 1), (3, (13, 17), 3),
+                               (4, (67, 129), 2), (3, (1, 1), 2),
+                               (1, (9, 31), 3), (4, (1080, 1921), 3)):
+            b, k = (3 if h > 500 else 5), 4
+            frames = torch.from_numpy(rng.integers(
+                0, 256, (b, h, w, c), dtype=np.uint8)).to(dev)
+            bank = torch.from_numpy(rng.integers(
+                0, 256, (k, 2 * h + 1, 2 * w + 1, 4), dtype=np.uint8)).to(dev)
+            layers = torch.from_numpy(rng.integers(
+                -1, k, (b, n_l)).astype(np.int32)).to(dev)
+            alpha = bank[:, ::2, ::2, 0][:, :h, :w]
+            planes = [(bank[:, :h, :w, 1], 0), (bank[..., 2], 1),
+                      (bank[:, 1::2, 1::2, 3], 0)]
+            if c == 1:
+                chan = (int(rng.integers(0, 3)),)
+            elif c == 3:
+                chan = (2, 0, 3 if mode == "cairo_over" else 1)
+            else:
+                chan = (3 if mode == "cairo_over" else None, 1, 0, 2)
+            ac = 0 if mode == "shr8_rgb_alpha" and c == 4 else None
+            check((frames, alpha, planes, layers, chan, mode),
+                  {"alpha_chan": ac})
+            n_cases += 1
+    torch.cuda.synchronize()
+    log(f"overlay_blend at ragged shapes: {n_cases} cases in "
+        f"{len(ovops.MODES)} modes, max_abs_err {err['overlay_blend']}")
+    if err["overlay_blend"]:
+        fail("overlay_blend disagrees with its plain version")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_overlay_")
+    try:
+        paths = overlay_paths(gtt, libs, tmp)
+        step_ms = {}
+        for key, (build, feed, window, n_windows, clock, h4, h1) in \
+                paths.items():
+            t0 = time.perf_counter()
+            pipe = build("cuda")
+            pipe.negotiate()
+            feed(pipe, n_windows)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            for c in counters.values():
+                c.launches = 0
+            got = pipe.run(n_frames=n_windows * window, window=window)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            delta = {k: c.launches for k, c in counters.items()}
+            need = {"overlay_blend": h4, "haar_cascade": h1}
+            for k, c in delta.items():
+                if c != need.get(k, 0) * n_windows:
+                    fail(f"{key}: {k} launched {c} times in {n_windows} "
+                         f"windows ({need.get(k, 0)} a window expected)")
+            for k in launches:
+                launches[k] += delta[k]
+            t_card = time.perf_counter() - t0
+            n_out = sum(int(np.asarray(b.valid).sum()) for b in got)
+            if not n_out:
+                fail(f"{key}: no frames out")
+            n_msgs = len(pipe.bus.messages)
+            # the same graph at OVERLAY_SMALL, card against the CPU port
+            t0 = time.perf_counter()
+            outs = {}
+            for d in ("cuda", "cpu"):
+                p = build(d, True)
+                p.negotiate()
+                feed(p, 1, True)
+                outs[d] = (p.run(window=8 if window > 8 else window),
+                           bus_messages(p))
+            worst, n_diff, total = batches_close(key, outs["cuda"][0],
+                                                 outs["cpu"][0])
+            messages_close(key, outs["cuda"][1], outs["cpu"][1])
+            t_cpu = time.perf_counter() - t0
+            med, all_runs = fps_runs(build, window, feed=feed, clock=clock,
+                                     n_steps=10 if clock == "device" else 2)
+            step_ms[key] = (window * 1000.0 / med, window)
+            log(f"{key}: launches {delta}; {n_windows} windows of {window}, "
+                f"{n_out} frames out, {n_msgs} bus messages; at the small "
+                f"size the card equals the CPU port ({total} values, "
+                f"{len(outs['cpu'][1])} messages); peak device memory "
+                f"{peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB "
+                f"above the {held / 2**20:.1f} MiB held before the run); "
+                f"counted run {t_card:.2f} s, card-against-CPU check "
+                f"{t_cpu:.2f} s")
+            how = ("device step, 10 steps a run" if clock == "device" else
+                   "host clock around run(), 2 windows a run")
+            log(f"fps {key} window {window}: median {med:.2f} source "
+                f"frames/s of {[round(x, 2) for x in all_runs]}, step "
+                f"{step_ms[key][0]:.3f} ms ({how}; {card})")
+        hosts = host_element_checks(gtt, libs)
+        log(f"host elements on the card equal the CPU port: {hosts} "
+            "messages" + ("; rsvgdec's frames too" if libs["rsvg"] else ""))
+
+        # H4 on every launch each compositing path made in one step
+        inputs = {}
+        for key, (build, feed, window, _, _, h4, _) in paths.items():
+            if not h4:
+                continue
+            p = build("cuda")
+            batch = fed_input(p, feed, window)
+            step = p.compile(window)
+            store = inputs[key] = {}
+            undo = capture(ovops, "overlay_blend", store)
+            try:
+                step(p.params(), p.init_states(window), batch)
+                torch.cuda.synchronize()
+            finally:
+                undo()
+            for args, kw in store.get("overlay_blend", []):
+                check(args, kw)
+        n_calls = sum(len(s.get("overlay_blend", [])) for s in
+                      inputs.values())
+        log(f"overlay_blend on its main paths' inputs: {n_calls} launches, "
+            f"max_abs_err {err['overlay_blend']}")
+        if err["overlay_blend"]:
+            fail("overlay_blend disagrees with its plain version on the "
+                 "main paths' inputs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # times and bounds on dvbsub_1080p's and assrender_1080p's launches
+    sm_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True).stdout.split()[0]) * 1e6
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    int32_per_s = n_sm * INT32_LANES * sm_hz
+    times, bounds = {}, {}
+    for label, key in (("overlay_blend", "dvbsub_1080p"),
+                       ("overlay_blend_assrender", "assrender_1080p")):
+        (args, kw), = inputs[key]["overlay_blend"][:1]
+        frames, alpha, planes, layers, chan = args[:5]
+        times[label] = (
+            cuda_ms(lambda: ovops.overlay_blend(*args, **kw)),
+            cuda_ms(lambda: ovops.overlay_blend_plain(*args, **kw),
+                    iters=3, warmup=1), None)
+        b, h, w, c = frames.shape
+        used = torch.unique(layers[layers >= 0]).numel()
+        active = int((layers >= 0).sum())
+        n_src = sum(j is not None for j in chan)
+        nbytes = (2 * frames.numel() + layers.numel() * 4
+                  + used * h * w * (1 + len(planes)))
+        # per active (pixel, layer): the index and alpha loads, then a
+        # load and about 6 integer operations for each blended byte
+        ops = active * h * w * (2 + 7 * n_src)
+        bounds[label] = bound(nbytes, ops, int32_per_s)
+        log(f"{label} on {key}'s window {tuple(frames.shape)}, layers "
+            f"{tuple(layers.shape)} ({active} set, {used} bank entries): "
+            f"{nbytes} bytes, {ops} operations")
+    log(f"overlay_slice: {time.perf_counter() - t_phase:.1f} s")
+    return {"step_ms": step_ms, "times": times, "bounds": bounds}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2197,7 +2893,7 @@ def main() -> int:
                           "adpcm_ima_decode", "adpcm_ms_decode",
                           "adpcm_ima_encode", "scope_filter",
                           "haar_cascade", "tilted_integral",
-                          "sgm_aggregate")}
+                          "sgm_aggregate", "overlay_blend")}
     wide = LinearIndex((300, 1000, 7, 0), 0, 11)     # weights above 255
 
     def check_k1(shape, batch, index, erode, thr):
@@ -2868,6 +3564,9 @@ def main() -> int:
     # 4g. the rest of the OpenCV family (cv_detect_slice)
     detect = cv_detect_slice(gtt, counters, launches, err, card)
 
+    # 4h. overlay and the text renderers (overlay_slice)
+    overlays = overlay_slice(gtt, counters, launches, err, card)
+
     # 5. timing
     fps = {}
     for key, build in runs.items():
@@ -3191,6 +3890,9 @@ def main() -> int:
     # H1-H3 (phase 4g): timed on their main paths' inputs there
     times.update(detect["times"])
     bounds.update(detect["bounds"])
+    # H4 (phase 4h): timed on its main paths' inputs there
+    times.update(overlays["times"])
+    bounds.update(overlays["bounds"])
     chains.update(detect["chains"])
     for label, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bounds[label]
@@ -3263,6 +3965,13 @@ def main() -> int:
               "gstbad_tpu/ops/haar.py:72"),
         entry("sgm_aggregate", "sgm_aggregate", "stereo_kernels.cu",
               "gstbad_tpu/ops/stereo.py:136"),
+        # not a TPU kernel: the overlay elements' whole-window jnp blends
+        entry("overlay_blend", "overlay_blend", "overlay_kernels.cu",
+              "gstbad_tpu/elements/video/overlay.py:149",
+              "shr8_keep_alpha"),
+        entry("overlay_blend", "overlay_blend_assrender",
+              "overlay_kernels.cu",
+              "gstbad_tpu/elements/video/assrender.py:128", "premul_floor"),
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

@@ -11,5 +11,7 @@ from gstbad_tpu_torch.elements import cv  # noqa: F401
 from gstbad_tpu_torch.elements.geometry import geometrictransform  # noqa: F401
 from gstbad_tpu_torch.elements.sources import testsrc  # noqa: F401
 from gstbad_tpu_torch.elements.video import (  # noqa: F401
-    bayer, codecalpha, coloreffects, convert, digitalzoom, fieldanalysis,
-    gaudieffects, interlace, ivtc, lcms, videofilters, videosignal)
+    assrender, bayer, closedcaption, codecalpha, coloreffects, convert,
+    digitalzoom, faceoverlay, fieldanalysis, gaudieffects, interlace, ivtc,
+    lcms, overlay, qroverlay, rsvg, teletext, ttmlrender, videofilters,
+    videosignal)

@@ -60,6 +60,7 @@ SIGNATURES = {
     "gst_haar_tilted_step_cycles": (_P, _I),
     "gst_sgm_aggregate": (_P, _P) + (_I,) * 9,
     "gst_sgm_step_cycles": (_P, _I),
+    "gst_overlay_blend": (_P,) * 7 + (_LL,) * 23,
 }
 
 _lib: Optional[ctypes.CDLL] = None

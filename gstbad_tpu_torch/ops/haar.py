@@ -23,9 +23,10 @@ launch-bound on the card as plain ops (about 10^5 small ops a frame):
   equals it where `passed`; the elements read score only there.
 - `tilted_integral` (H2) is the rotated table's row recurrence as a
   wavefront, one block a plane, one barrier a row; bit exact.
-CPU tensors take the plain versions, which evaluate every tree as the JAX
-package does and also count the (window, node) evaluations the kernel's
-early exit leaves (the kernel's work, for its bound)."""
+CPU tensors take the plain versions, which give the JAX package's passes
+and scores at every window (a stage but the last only where the stages
+before it passed) and also count the (window, node) evaluations the
+kernel's early exit leaves (the kernel's work, for its bound)."""
 
 from __future__ import annotations
 
@@ -228,24 +229,34 @@ def _vnorm(ii, sq, packed: Packed, ny: int, nx: int):
 
 def eval_cascade_plain(ii, sq, tii, packed: Packed, ny: int, nx: int,
                        count: bool = False):
-    """Every tree at every window, as the JAX package evaluates it.
-    ii, sq [B, H+1, W+1]; tii [B, H+1, Wp+1] or None.  Returns (passed
-    [B, ny, nx] bool, score [B, ny, nx] f32: the last stage's sum) and,
-    with count, the (window, node) evaluations that a walk stopping at
-    each window's first failed stage makes."""
+    """Every tree at every window that reaches it, as the JAX package
+    evaluates it.  ii, sq [B, H+1, W+1]; tii [B, H+1, Wp+1] or None.
+    Returns (passed [B, ny, nx] bool, score [B, ny, nx] f32: the last
+    stage's sum) and, with count, the (window, node) evaluations that a
+    walk stopping at each window's first failed stage makes.
+
+    A stage but the last is evaluated at the windows that passed every
+    stage before it only: a window that failed stays failed, and its
+    later stage sums are not read; the last stage at every window, which
+    gives the JAX package's score everywhere.  Each window's own
+    arithmetic is the same either way."""
     b = ii.shape[0]
     dev = ii.device
     wi = ii.shape[-1]
     p = ny * nx
     iy = torch.arange(ny, device=dev)[:, None] * STRIDE
     ix = torch.arange(nx, device=dev)[None, :] * STRIDE
-    base = (iy * wi + ix).reshape(-1)
-    iif = ii.reshape(b, -1)
+    frame = torch.arange(b, device=dev)[:, None]
+    base = (frame * ii[0].numel() + (iy * wi + ix).reshape(1, -1)
+            ).reshape(-1)
+    iif = ii.reshape(-1)
     if packed.any_tilted:
         wt = tii.shape[-1]
-        tpad = torch.nn.functional.pad(tii, (0, 0, 0, 64)).reshape(b, -1)
-        tbase = (iy * wt + ix + TILT_PAD).reshape(-1)
-    vnorm = _vnorm(ii, sq, packed, ny, nx).reshape(b, p)
+        tpad = torch.nn.functional.pad(tii, (0, 0, 0, 64))
+        tbase = (frame * tpad[0].numel()
+                 + (iy * wt + ix + TILT_PAD).reshape(1, -1)).reshape(-1)
+        tpad = tpad.reshape(-1)
+    vnorm = _vnorm(ii, sq, packed, ny, nx).reshape(-1)
 
     rects = torch.from_numpy(packed.rects.astype(np.int64)).to(dev)
     wts = torch.from_numpy(packed.weights).to(dev)
@@ -257,74 +268,83 @@ def eval_cascade_plain(ii, sq, tii, packed: Packed, ny: int, nx: int,
     inv_area = _inv_area(packed)
     inv_area64 = 1.0 / float(packed.window[0] * packed.window[1])
 
-    def go_left(n0: int, n1: int, vnorm):
-        """[B, n1 - n0, P]: node feature < threshold * vnorm for nodes
-        n0..n1-1.  A plain feature is float32; a tilted one float64, as
-        the JAX package's float64 rotated table (its zeros are x64's
-        default dtype) makes it."""
+    def go_left(n0: int, n1: int, sel):
+        """[n1 - n0, S]: node feature < threshold * vnorm for nodes
+        n0..n1-1 at the windows sel.  A plain feature is float32; a
+        tilted one float64, as the JAX package's float64 rotated table
+        (its zeros are x64's default dtype) makes it."""
         r = rects[n0:n1]
         ry, rx, rh, rw = r[..., 0], r[..., 1], r[..., 2], r[..., 3]
         tilt = torch.from_numpy(tilted[n0:n1].astype(bool)).to(dev)
-        acc = torch.zeros((b, n1 - n0, p), dtype=torch.float32, device=dev)
+        acc = torch.zeros((n1 - n0, sel.shape[0]), dtype=torch.float32,
+                          device=dev)
         acc_t = acc.to(torch.float64)
+        at = base[sel][None, :]
         for k in range(MAX_RECTS):
             a, bb, c, d = (ry[:, k], rx[:, k], rh[:, k], rw[:, k])
-            w = wts[n0:n1, k][None, :, None]
+            w = wts[n0:n1, k][:, None]
             if not bool(tilt.all()):
                 offs = [(a + c) * wi + bb + d, a * wi + bb + d,
                         (a + c) * wi + bb, a * wi + bb]
-                v = [iif[:, o[:, None] + base[None, :]] for o in offs]
+                v = [iif[o[:, None] + at] for o in offs]
                 acc = fma32(w, v[0] - v[1] - v[2] + v[3], acc)
             if bool(tilt.any()):
                 offs = [a * wt + bb, (a + c) * wt + bb - c,
                         (a + d) * wt + bb + d, (a + d + c) * wt + bb + d - c]
-                v = [tpad[:, o[:, None] + tbase[None, :]] for o in offs]
+                tat = tbase[sel][None, :]
+                v = [tpad[o[:, None] + tat] for o in offs]
                 acc_t = _fma64(w.to(torch.float64), v[0] - v[1] - v[2] + v[3],
                                acc_t)
-        limit = thr[n0:n1, None] * vnorm[:, None, :]
+        limit = thr[n0:n1, None] * vnorm[sel][None, :]
         left = acc * inv_area < limit
         if bool(tilt.any()):
             left_t = acc_t * inv_area64 < limit.to(
                 torch.float64)
-            left = torch.where(tilt[None, :, None], left_t, left)
+            left = torch.where(tilt[:, None], left_t, left)
         return left
 
-    passed = torch.ones((b, p), dtype=torch.bool, device=dev)
-    score = torch.zeros((b, p), dtype=torch.float32, device=dev)
-    evals = torch.zeros((b, p), dtype=torch.int64, device=dev)
+    passed = torch.ones(b * p, dtype=torch.bool, device=dev)
+    score = torch.zeros(b * p, dtype=torch.float32, device=dev)
+    evals = torch.zeros(b * p, dtype=torch.int64, device=dev)
+    every = torch.arange(b * p, device=dev)
     tn = packed.tree_nodes
-    budget = max(1, (1 << 25) // max(b * p * 4 * MAX_RECTS, 1))
-    for s_i in range(len(packed.stage_thr)):
+    n_stages = len(packed.stage_thr)
+    for s_i in range(n_stages):
+        sel = every if s_i == n_stages - 1 else every[passed]
+        n = sel.shape[0]
+        if n == 0:
+            continue
         t0, t1 = int(packed.stage_trees[s_i]), int(packed.stage_trees[s_i + 1])
-        st_sum = torch.zeros((b, p), dtype=torch.float32, device=dev)
-        alive = passed.clone()
+        budget = max(1, (1 << 25) // (n * 4 * MAX_RECTS))
+        st_sum = torch.zeros(n, dtype=torch.float32, device=dev)
+        alive = passed[sel]
         t = t0
         while t < t1:
             t_end = t + 1
             while t_end < t1 and tn[t_end + 1] - tn[t] <= budget:
                 t_end += 1
             n0, n1 = int(tn[t]), int(tn[t_end])
-            left = go_left(n0, n1, vnorm)
+            left = go_left(n0, n1, sel)
             for tr in range(t, t_end):
-                cur = torch.full((b, p), int(tn[tr]) - n0, dtype=torch.int64,
+                cur = torch.full((n,), int(tn[tr]) - n0, dtype=torch.int64,
                                  device=dev)
-                val = torch.zeros((b, p), dtype=torch.float32, device=dev)
-                done = torch.zeros((b, p), dtype=torch.bool, device=dev)
+                val = torch.zeros(n, dtype=torch.float32, device=dev)
+                done = torch.zeros(n, dtype=torch.bool, device=dev)
                 for _ in range(int(tn[tr + 1] - tn[tr])):
-                    gl = left.gather(1, cur[:, None])[:, 0]
+                    gl = left.gather(0, cur[None, :])[0]
                     side = torch.where(gl, 0, 1)
                     nxt = child[n0 + cur, side]
                     lv = leaf[n0 + cur, side]
                     stop = ~done & (nxt < 0)
                     if count:
-                        evals += (~done & alive).to(torch.int64)
+                        evals[sel] += (~done & alive).to(torch.int64)
                     val = torch.where(stop, lv, val)
                     done = done | stop
                     cur = torch.where(done, cur, nxt - n0)
                 st_sum = st_sum + val
             t = t_end
-        passed = passed & (st_sum >= float(packed.stage_thr[s_i]))
-        score = st_sum
+        passed[sel] = alive & (st_sum >= float(packed.stage_thr[s_i]))
+        score[sel] = st_sum
     out = (passed.reshape(b, ny, nx), score.reshape(b, ny, nx))
     return out + (evals.reshape(b, ny, nx),) if count else out
 

@@ -43,7 +43,7 @@ from gstbad_tpu_torch.core.tablefuse import LinearIndex, TableChain
 from gstbad_tpu_torch.golden import geometric
 from gstbad_tpu_torch.models import benchmarks
 from gstbad_tpu_torch.ops import (audio, blur, chainfuse, comb, fieldanalysis,
-                                  lut, remap)
+                                  lut, overlay, remap)
 
 pytestmark = pytest.mark.cuda
 
@@ -1183,3 +1183,63 @@ def test_detector_on_card_equals_cpu_port(dev, desc):
         np.testing.assert_array_equal(x.data, y.data)
         np.testing.assert_array_equal(x.valid, y.valid)
     assert am == bm
+
+
+@pytest.mark.parametrize("mode", sorted(overlay.MODES))
+@pytest.mark.parametrize("c,size,n_layers", [(4, (5, 7), 1), (3, (13, 17), 3),
+                                             (1, (9, 31), 2),
+                                             (4, (1080, 1921), 3)])
+def test_overlay_blend_kernel_matches_plain(dev, mode, c, size, n_layers):
+    """H4 against its plain version on the card: strided and shifted
+    planes, overlapping layers with gaps, odd sizes."""
+    h, w = size
+    rng = np.random.default_rng(h * w + c)
+    frames = torch.from_numpy(rng.integers(0, 256, (3, h, w, c),
+                                           dtype=np.uint8)).to(dev)
+    bank = torch.from_numpy(rng.integers(0, 256, (4, 2 * h + 1, 2 * w + 1, 4),
+                                         dtype=np.uint8)).to(dev)
+    layers = torch.from_numpy(rng.integers(-1, 4, (3, n_layers)).astype(
+        np.int32)).to(dev)
+    alpha = bank[:, ::2, ::2, 0][:, :h, :w]
+    planes = [(bank[:, :h, :w, 1], 0), (bank[..., 2], 1),
+              (bank[:, 1::2, 1::2, 3], 0)]
+    chan = {1: (1,), 3: (2, 0, 3 if mode == "cairo_over" else 1),
+            4: (3 if mode == "cairo_over" else None, 1, 0, 2)}[c]
+    ac = 0 if mode == "shr8_rgb_alpha" and c == 4 else None
+    got = overlay.overlay_blend(frames, alpha, planes, layers, chan, mode, ac)
+    want = overlay.overlay_blend_plain(frames, alpha, planes, layers, chan,
+                                       mode, ac)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+OVERLAY_SVG = ('<svg xmlns="http://www.w3.org/2000/svg" width="20" '
+               'height="10"><circle cx="8" cy="5" r="4" fill="#ff4020" '
+               'fill-opacity="0.6"/></svg>')
+
+
+@pytest.mark.parametrize("name,fmt,kw", [
+    ("qroverlay", "BGR", {"data": "card", "pixel-size": 2}),
+    ("debugqroverlay", "RGBA", {"max-frames": 3}),
+    ("rsvgoverlay", "BGRA", {"fit-to-frame": True, "data": OVERLAY_SVG})])
+def test_overlay_element_on_card_equals_cpu_port(dev, name, fmt, kw):
+    from gstbad_tpu_torch.core.harness import Harness
+    from gstbad_tpu_torch.core.spec import MediaSpec
+    from gstbad_tpu_torch.elements.video.qroverlay import DebugQrOverlay
+    from gstbad_tpu_torch.io import rsvg
+    if name == "rsvgoverlay" and not rsvg.available():
+        pytest.skip("librsvg/cairo not present")
+    frames = np.random.default_rng(5).integers(
+        0, 256, (4, 37, 61, len(fmt)), dtype=np.uint8)
+    out = []
+    for device in ("cuda", "cpu"):
+        launched = overlay.overlay_blend.launches
+        DebugQrOverlay._instances = 0        # the JSON names its instance
+        hn = Harness(name, device=device, **kw)
+        hn.set_src_spec(MediaSpec(kind="video", format=fmt, width=61,
+                                  height=37))
+        out.append(hn.push(frames[:2]) + hn.push(frames[2:]))
+        if device == "cuda":
+            assert overlay.overlay_blend.launches == launched + 2
+    for x, y in zip(*out):
+        np.testing.assert_array_equal(x.data, y.data)

@@ -276,5 +276,5 @@ def test_registry_has_the_cv_names():
     assert new <= set(t_names())
     assert set(t_names()) <= set(j_names())
     # 93 after the cv slice, 17 more with audio breadth, 9 with the rest
-    # of CV
-    assert len(set(t_names())) == 119
+    # of CV, 19 with overlay and the text renderers
+    assert len(set(t_names())) == 138

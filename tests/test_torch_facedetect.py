@@ -26,8 +26,11 @@ def _frames():
 
 
 def test_facedetect_messages_and_display():
+    # a coarser pyramid than the default 1.25 keeps the JAX element's
+    # compile short; the face is found at it in both frames
     (jr, jb), (tr, tb) = push_both("facedetect", "RGB", [_frames()],
-                                   {"profile": ALT2, "min-neighbors": 1})
+                                   {"profile": ALT2, "min-neighbors": 1,
+                                    "scale-factor": 1.5})
     assert_frames(jr, tr)
     assert_messages(jb, tb)
     assert [m.fields["n_faces"] for m in tb.messages] == [1, 1]
@@ -36,6 +39,7 @@ def test_facedetect_messages_and_display():
 def test_faceblur_blurs_the_face():
     frames = _frames()
     (jr, _), (tr, _) = push_both("faceblur", "RGB", [frames],
-                                 {"profile": ALT2, "min-neighbors": 1})
+                                 {"profile": ALT2, "min-neighbors": 1,
+                                  "scale-factor": 2.0})
     assert_frames(jr, tr)
     assert (tr[0].data != frames).any()

@@ -100,11 +100,15 @@ def test_unrolled_evaluator_exact(name):
     np.testing.assert_array_equal(ts, js)
 
 
-@pytest.mark.parametrize("h,w", [(161, 161), (72, 128), (48, 64)])
+@pytest.mark.parametrize("h,w", [(161, 161), (72, 128), (48, 64),
+                                 (720, 1280)])
 def test_resize_within_4_ulp(h, w):
+    """Every scale of the 1.25 pyramid the detectors take (at most
+    haar.MAX_SCALES: 16 of the 720x1280 plane's)."""
     x = np.random.default_rng(h).integers(0, 256, (h, w)).astype(np.float32)
-    f = 1.0
-    while int(h / f) >= 20 and int(w / f) >= 20:
+    f, n = 1.0, 0
+    while int(h / f) >= 20 and int(w / f) >= 20 and n < haar.MAX_SCALES:
+        n += 1
         sh, sw = int(h / f), int(w / f)
         a = np.asarray(jax.jit(lambda g: jax.image.resize(
             g, (sh, sw), "linear"))(x))
@@ -113,3 +117,44 @@ def test_resize_within_4_ulp(h, w):
         assert np.abs(b - a).max() <= 4 * ulp.max(), (sh, sw)
         assert (np.abs(b - a) <= 4 * ulp).all(), (sh, sw)
         f *= 1.25
+
+
+_RESIZE_CHILD = """
+import os, sys
+import numpy as np
+if sys.argv[1] == "one":
+    os.sched_setaffinity(0, {min(os.sched_getaffinity(0))})
+import jax
+jax.config.update("jax_enable_x64", True)   # as gstbad_tpu runs it
+x = np.random.default_rng(720).integers(0, 256, (720, 1280)).astype(
+    np.float32)
+np.save(sys.argv[2], np.asarray(jax.jit(lambda g: jax.image.resize(
+    g, (576, 1024), "linear"))(x)))
+"""
+
+
+def test_resize_reference_moves_with_the_core_count(tmp_path):
+    """Why ops/resize.py cannot match jax.image.resize bit for bit on every
+    host: XLA's CPU dot splits its k sums across its thread pool, so the
+    reference gives other bits on one core than on all of them.  Each
+    run is a process of its own, as the JAX package runs (without these
+    tests' 8 virtual devices, under which the pool ignores the affinity);
+    the port is within 4 ulp of both."""
+    import subprocess
+    import sys
+    if len(os.sched_getaffinity(0)) < 2:
+        pytest.skip("needs a host with more than one core")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    procs = {mode: subprocess.Popen(
+        [sys.executable, "-c", _RESIZE_CHILD, mode,
+         str(tmp_path / f"{mode}.npy")], env=env) for mode in ("one", "all")}
+    assert all(p.wait(timeout=300) == 0 for p in procs.values())
+    one, every = (np.load(tmp_path / f"{m}.npy") for m in ("one", "all"))
+    assert one.shape == every.shape == (576, 1024)
+    assert (one != every).any()
+    x = np.random.default_rng(720).integers(0, 256, (720, 1280)).astype(
+        np.float32)
+    port = resize_linear(torch.from_numpy(x), 576, 1024).numpy()
+    for ref in (one, every):
+        ulp = np.spacing(np.abs(ref).astype(np.float32))
+        assert (np.abs(port - ref) <= 4 * ulp).all()

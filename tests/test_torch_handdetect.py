@@ -32,7 +32,9 @@ def _first_stage(name, path):
 def test_handdetect_walk_messages_and_display(tmp_path):
     props = {"profile-fist": _first_stage("fist", tmp_path / "fist.xml"),
              "profile-palm": _first_stage("palm", tmp_path / "palm.xml")}
-    hand = np.random.default_rng(3).integers(0, 256, (4, 40, 44, 3)
+    # 34x36 frames: fewer pyramid scales to compile than at 40x44, and
+    # the walk still posts a gesture a frame
+    hand = np.random.default_rng(3).integers(0, 256, (4, 34, 36, 3)
                                              ).astype(np.uint8)
     (jr, jb), (tr, tb) = push_both("handdetect", "RGB", [hand[:2], hand[2:]],
                                    props)

@@ -66,6 +66,14 @@ def test_carried_data_equals_the_jax_package():
     got, want = t_gaudi.chromium_cos_table(), j_gaudi.chromium_cos_table()
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
+    # the caption glyph atlas, a byte-for-byte copy
+    import gstbad_tpu
+    import gstbad_tpu_torch
+    font = [os.path.join(os.path.dirname(pkg.__file__), "data",
+                         "cc_font.npz") for pkg in (gstbad_tpu,
+                                                    gstbad_tpu_torch)]
+    with open(font[0], "rb") as a, open(font[1], "rb") as b:
+        assert a.read() == b.read()
 
 
 def test_exports_match_the_jax_package():
@@ -111,7 +119,7 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
 
 def test_unported_parts_refuse_cleanly():
     with pytest.raises(KeyError):
-        gtt.parse_launch("videotestsrc ! qroverlay ! fakesink",
+        gtt.parse_launch("videotestsrc ! netsim ! fakesink",
                          device="cpu")
     # formats and patterns that neither package knows
     p = gtt.parse_launch("videotestsrc ! videoconvert format=NV16 "
