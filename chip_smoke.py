@@ -60,7 +60,8 @@ line):
    around gaussianblur (transcode_i420_blur: K3 once a window), the 1080p
    iqa DSSIM fan-in (iqa_dssim_1080p, window 16: K3 once a window) and
    freeverb at 22.05 kHz (freeverb_22k, 64 blocks of 2205 samples:
-   freeverb_scan once a window).  Each path's launch counters are zeroed
+   freeverb_scan once a window; its counted run and its check against the
+   CPU port a window of 16 blocks).  Each path's launch counters are zeroed
    just before and read just after; each of its kernels must have
    launched as planned, and its frames must equal the same graph run by
    the port on the CPU: exactly, but config 3's and freeverb_22k's S16
@@ -105,7 +106,7 @@ line):
    wide-angle lens) and dewarp_1080p (ball RGBA ! dewarp to a 1992x448
    panorama), window 16, and lcms_motion_720p (ball BGRx 1280x720 ! lcms
    to a gamma-2.2 wide-gamut profile written into a temporary directory
-   ! videoconvert format=RGB ! motioncells), 4 windows of 64: frames and
+   ! videoconvert format=RGB ! motioncells), 2 windows of 64: frames and
    bus messages against the CPU port's (exact; lcms_motion_720p's frames
    within 1 LSB on under 1% of the bytes), the counted run's peak device
    memory and frames/s (median of 5).  Then the
@@ -118,7 +119,7 @@ line):
    methods with and without post-processing, digitalzoom at zoom 1, 1.7
    and 4 and a per-frame ramp on BGRx and I420, lcms's four intents and
    preserve-black, motioncells over two windows, alphacombine and
-   codecalphademux) on 4-frame 1280x720 windows, card against CPU port:
+   codecalphademux) on 4-frame 640x360 windows, card against CPU port:
    exact, but bilateral, retinex, lcms and digitalzoom within 1 LSB on
    under 1% of the bytes, and templatematch's result within 1e-5 of the
    score map's largest (its best location equal unless a near tie on the
@@ -197,10 +198,42 @@ line):
    paths made, timed on dvbsub_1080p's and assrender_1080p's windows.
    Which of pango, librsvg and PIL load is printed first; a path whose
    library is missing is reported there and not run.
+   Then what the runtime slice deferred and the small elements of begun
+   modules (deferred_slice, phase 4i): H5 (netsim_bucket,
+   csrc/netsim_kernels.cu; not a TPU kernel: it replaces netsim's
+   lax.scan over a window's token bucket and drop-packets counter)
+   against its plain walk on 30 windows of 0-200 frames in six property
+   sets, the carry threaded through; then, window 64 at full width, each
+   path with the counts set to 0 just before its counted run of 2 windows
+   and read just after (H5 once a window on netsim_1080p, every other
+   count 0), its peak device memory and frames/s (median of 5; the host
+   clock where the host does the work), and the card against the CPU
+   port (a window of 16 but netsim's): netsim_1080p (ball 1920x1080 BGRx at
+   30/1 through a 1.5 Gb/s bucket of 200 Mb with drop-packets 3, drop 0.02,
+   duplicate 0.05 and gamma delays of 20-80 ms at 0.2, no reordering:
+   exactly with its probabilities at 0; with them H5's inputs, the doubled
+   window's frames and flags equal and its valid within H5's keep, over 2
+   windows; the card's gamma, normal and uniform delays by a KS test
+   against scipy.stats' draws, p above 1e-3), speed_48k (audiotestsrc F32
+   stereo in blocks of 4800 ! speed 1.5), timecode_1080p_2997df
+   (timecodestamper drop-frame at 30000/1001), videoparse_1080p (64 seeded
+   I420 frames as bytes ! videoconvert BGRx ! checksumsink, the host
+   clock), autovideoconvert_1080p (ball I420 ! autovideoconvert !
+   videoconvert BGRx ! solarize), each exact (frames, pts, valid, messages,
+   checksums), and transcode_gdp_1080p (64 seeded I420 1080p frames through
+   the CLI with --profile gdp, the host clock end to end: the .gdp's bytes
+   equal the CPU port's and the .gdp back to y4m gives the input's bytes);
+   then aesenc -> aesdec, id3mux, pnmenc/pnmdec, aiffparse, aifffilesrc !
+   aifffilesink, accurip, uvch264mjpgdemux (on a seeded frame, uvc_mjpeg),
+   switchbin, watchdog, clockselect and jaxfilter fn=255 - x, card against
+   CPU port; then H5 on the launch its main path made, timed there.
+   Each phase logs its seconds on a line of its own ("phase 4i: ... s").
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
-   around 10 steps of a 64-frame window, 16 at 4K, data kept on the card),
-   a torch.profiler breakdown of each graph's step, the fourteen, the
-   five cv paths, the nine audio paths and phase 4g's ten (device busy
+   around 10 steps of a 64-frame window, 16 at 4K, data kept on the card;
+   4 steps where a step takes 50 ms or more),
+   a torch.profiler breakdown of each graph's step, the fourteen and
+   phase 4i's four device graphs (the earlier slices' paths are timed,
+   their traces taken in their own PRs) (device busy
    time, device ops per step, idle share),
    traced in a second process that runs nothing else (chip_smoke.py
    --profile, which the run starts and waits for), and each kernel
@@ -276,6 +309,9 @@ BLUR_SIGMAS = (1.2, 2.0, 3.2, 8.0, 20.0)
 SPIN_CYCLES = 5_000_000
 # host seconds of idle time before and after the steps a trace records
 PROFILE_PAD_S = 0.02
+# a step at least this long (host seconds, warm-up included) is timed as
+# the median of 3 runs of 4 steps instead of 5 runs of 10
+SLOW_STEP_S = 0.05
 # the compiled-C audio chain of BASELINE config 3 on the host CPU
 # (BASELINE_C.json audio_chain_realtime_x), the denominator of the
 # audio graphs' realtime factor
@@ -397,8 +433,8 @@ def kernel_counters() -> dict:
     """{kernel: its wrapper}: each wrapper's `launches` counts its
     kernel's launches."""
     from gstbad_tpu_torch.ops import (audio, blur, chainfuse, comb,
-                                      fieldanalysis, haar, lut, overlay,
-                                      remap, stereo)
+                                      fieldanalysis, haar, lut, netsim,
+                                      overlay, remap, stereo)
     return {"dilate_zebra_fused": chainfuse.dilate_zebra_fused,
             "apply_word_table": lut.apply_word_table,
             "metrics_default": fieldanalysis.metrics_default,
@@ -416,7 +452,8 @@ def kernel_counters() -> dict:
             "haar_cascade": haar.haar_cascade,
             "tilted_integral": haar.tilted_integral,
             "sgm_aggregate": stereo.sgm_aggregate,
-            "overlay_blend": overlay.overlay_blend}
+            "overlay_blend": overlay.overlay_blend,
+            "netsim_bucket": netsim.netsim_bucket}
 
 
 def profile_step(p, step_ms: float, key: str, window: int,
@@ -439,7 +476,7 @@ def profile_step(p, step_ms: float, key: str, window: int,
     steps = 20 if step_ms < 1.0 else (3 if step_ms < 50.0 else 1)
     step = p.compile(window)
     params, states = p.params(), p.init_states(window)
-    for _ in range(2):
+    for _ in range(2 if step_ms < 50.0 else 1):   # warm-up steps
         states, _, _ = step(params, states, batch)
     torch.cuda.synchronize()
     for c in counters.values():
@@ -507,34 +544,16 @@ def profile_graphs(step_ms: dict) -> None:
 
 def profile_main(spec: str) -> int:
     """`chip_smoke.py --profile SPEC`, SPEC a JSON {key: [untraced step
-    ms, window]}: profile_step of each graph named there."""
-    import shutil
-    import tempfile
-
+    ms, window]}: profile_step of each graph named there, one of the
+    fourteen or one of phase 4i's (source graphs: no host feed)."""
     sys.path.insert(0, ROOT)
     import gstbad_tpu_torch as gtt
     from gstbad_tpu_torch.models import benchmarks
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_profile_")
-    try:
-        wide = os.path.join(tmp, "wide.icc")
-        with open(wide, "wb") as f:
-            f.write(benchmarks.wide_gamma22_icc())
-        builds = dict(main_graphs(gtt, benchmarks)[0])
-        builds.update((k, v[0]) for k, v in cv_graphs(benchmarks,
-                                                      wide).items())
-        feeds = {}
-        for key, path in audio_paths(benchmarks).items():
-            builds[key], feeds[key] = path[0], path[1]
-        for key, path in detect_paths(gtt).items():
-            builds[key], feeds[key] = path[0], path[1]
-        for key, (ms, window) in json.loads(spec).items():
-            p = builds[key]("cuda")
-            batch = fed_input(p, feeds[key], window) if key in feeds \
-                else None
-            profile_step(p, ms, key, window, batch=batch)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    builds = dict(main_graphs(gtt, benchmarks)[0])
+    builds.update((k, v[0]) for k, v in deferred_paths(gtt).items())
+    for key, (ms, window) in json.loads(spec).items():
+        profile_step(builds[key]("cuda"), ms, key, window)
     return 0
 
 
@@ -547,7 +566,9 @@ def fps_runs(build, window, reps: int = 5, n_steps: int = 10, feed=None,
     then takes the same input window.  clock="host" times instead each
     run's run() of n_steps windows by the host clock, on a pipeline built
     and fed (feed(p, n_steps)) before the clock starts: for graphs whose
-    elements work on the host after each window, outside the step."""
+    elements work on the host after each window, outside the step.  A
+    device-clock run whose warm-up steps took SLOW_STEP_S or more each
+    takes the median of 3 runs of 4 steps."""
     import torch
     if clock == "host":
         out = []
@@ -571,9 +592,12 @@ def fps_runs(build, window, reps: int = 5, n_steps: int = 10, feed=None,
         holder["states"], leaves, _ = step(params, holder["states"], batch)
         holder["out"] = leaves[0]
 
+    t0 = time.perf_counter()
     for _ in range(2):
         one()
     torch.cuda.synchronize()
+    if (time.perf_counter() - t0) / 2 >= SLOW_STEP_S:
+        n_steps, reps = min(n_steps, 4), min(reps, 3)
     out = []
     for _ in range(reps):
         ms = cuda_ms(one, iters=n_steps, warmup=0)
@@ -861,8 +885,9 @@ def runtime_surface(gtt, benchmarks, runs, counters, launches, card):
 
 
 WINDOW_CV = 16                  # the 1080p cv paths' window
-WINDOW_LM, WINDOWS_LM = 64, 4   # lcms_motion_720p: 4 windows of 64
-SWEEP_FRAMES = 4                # the equality sweep: 4-frame windows at 720p
+WINDOW_LM, WINDOWS_LM = 64, 2   # lcms_motion_720p: 2 windows of 64
+SWEEP_FRAMES = 4                # the equality sweep: 4-frame windows
+SW, SH = 640, 360               # at 640x360
 
 
 def batches_close(key, got, cpu, lsb: int = 0, share: float = 0.01,
@@ -973,9 +998,9 @@ def cv_slice(gtt, benchmarks, counters, card) -> dict:
     hold no hand-written kernel, so every count must stay 0.  Their
     frames and bus messages against the same graph on the CPU port, the
     run's peak device memory and frames/s (median of 5); returns {key:
-    (untraced step ms, window)} for the profile process (phase 5).
+    (untraced step ms, window)}.
     Then the equality sweep: every new element under its properties on
-    4-frame 1280x720 windows, card against CPU port (exact, but retinex,
+    4-frame 640x360 windows, card against CPU port (exact, but retinex,
     bilateral, lcms and digitalzoom within 1 LSB on under 1% of the bytes
     and templatematch's scores within 1e-5 of the map's largest)."""
     import shutil
@@ -1041,15 +1066,15 @@ def cv_slice(gtt, benchmarks, counters, card) -> dict:
         def rand(*shape):
             return rng.integers(0, 256, shape, dtype=np.uint8)
 
-        data = {"RGB": rand(n, H5, W5, 3), "BGRx": rand(n, H5, W5, 4),
-                "RGBA": rand(n, H5, W5, 4), "GRAY8": rand(n, H5, W5),
-                "I420": {"y": rand(n, H5, W5),
-                         "u": rand(n, H5 // 2, W5 // 2),
-                         "v": rand(n, H5 // 2, W5 // 2)}}
+        data = {"RGB": rand(n, SH, SW, 3), "BGRx": rand(n, SH, SW, 4),
+                "RGBA": rand(n, SH, SW, 4), "GRAY8": rand(n, SH, SW),
+                "I420": {"y": rand(n, SH, SW),
+                         "u": rand(n, SH // 2, SW // 2),
+                         "v": rand(n, SH // 2, SW // 2)}}
         ball = [b.data for b in gtt.parse_launch(
-            f"videotestsrc pattern=ball width={W5} height={H5} format=RGB "
+            f"videotestsrc pattern=ball width={SW} height={SH} format=RGB "
             "! fakesink", device="cpu").run(n_frames=2 * n, window=n)]
-        ty, tx = H5 // 3, W5 // 3
+        ty, tx = SH // 3, SW // 3
         templ = data["RGB"][1, ty:ty + 16, tx:tx + 24].copy()
         n_cases = 0
 
@@ -1063,7 +1088,7 @@ def cv_slice(gtt, benchmarks, counters, card) -> dict:
                 if setup:
                     setup(h.element)
                 h.set_src_spec(MediaSpec(kind="video", format=fmt,
-                                         width=W5, height=H5))
+                                         width=SW, height=SH))
                 res = []
                 for x in wins:
                     res += h.push(x)
@@ -1178,9 +1203,9 @@ def cv_slice(gtt, benchmarks, counters, card) -> dict:
                 f"{n_diff} green bytes differ by up to {worst}")
         # alphacombine and codecalphademux: a fan-in graph, card against CPU
         for tail in ("", "codecalphademux ! "):
-            desc = (f"videotestsrc pattern=ball width={W5} height={H5} "
+            desc = (f"videotestsrc pattern=ball width={SW} height={SH} "
                     f"format=I420 ! m.  videotestsrc pattern=gradient "
-                    f"width={W5} height={H5} format=GRAY8 ! m.  "
+                    f"width={SW} height={SH} format=GRAY8 ! m.  "
                     f"alphacombine name=m ! {tail}fakesink")
             res = {}
             for d in ("cuda", "cpu"):
@@ -1190,7 +1215,7 @@ def cv_slice(gtt, benchmarks, counters, card) -> dict:
             batches_close(key, res["cuda"][0], res["cpu"][0])
             messages_close(key, res["cuda"][1], res["cpu"][1])
             n_cases += 1
-        log(f"equality sweep: {n_cases} cases at {W5}x{H5}, {n} frames a "
+        log(f"equality sweep: {n_cases} cases at {SW}x{SH}, {n} frames a "
             f"window, card against CPU port, in "
             f"{time.perf_counter() - t_sweep:.1f} s")
     finally:
@@ -1821,8 +1846,9 @@ def cv_detect_slice(gtt, counters, launches, err, card) -> dict:
     the launch counts set to 0 just before its counted run and read just
     after (each kernel of the path launched as its pyramid or its passes
     say, every other count 0), its peak device memory and frames/s (median
-    of 5 runs of 10 steps, or the host clock around run() for the
-    scanners), and the same graph at DETECT_SMALL on the card against the
+    of 5 runs of 10 steps, of 3 of 4 where a step takes 50 ms or more, or
+    of 2 runs of the host clock around run() for the scanners), and the
+    same graph at DETECT_SMALL on the card against the
     CPU port (frames, valid and messages equal); then each kernel against
     its plain version on the inputs its main path gave it (H1: passed
     equal everywhere, score equal where passed).  Returns {"step_ms":
@@ -1965,8 +1991,10 @@ def cv_detect_slice(gtt, counters, launches, err, card) -> dict:
                      "(the path must detect something in both)")
             seen = (f"; {hits[0]} {hits[1]} in the counted run, "
                     f"{small_hits[0]} in the check")
+        # the scanners' windows are the longest by the host clock: 2 runs
         med, all_runs = fps_runs(build, window, feed=feed, clock=clock,
-                                 n_steps=10 if clock == "device" else 1)
+                                 n_steps=10 if clock == "device" else 1,
+                                 reps=5 if clock == "device" else 2)
         step_ms[key] = (window * 1000.0 / med, window)
         log(f"{key}: launches {delta}; {n_windows} windows of {window} "
             f"{got[0].data.shape[1:]} {got[0].data.dtype}, {n_msgs} bus "
@@ -1976,8 +2004,9 @@ def cv_detect_slice(gtt, counters, launches, err, card) -> dict:
             f"device memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f}"
             f" MiB above the {held / 2**20:.1f} MiB held before the run); "
             f"counted run {t_card:.2f} s, card-against-CPU check {t_cpu:.2f} s")
-        how = ("device step, 10 steps a run" if clock == "device" else
-               "host clock around run(), 1 window a run")
+        how = ("device step, 10 steps a run, 4 where a step takes "
+               "50 ms or more" if clock == "device" else
+               "host clock around run(), 1 window a run, 2 runs")
         log(f"fps {key} window {window}: median {med:.2f} source frames/s of "
             f"{[round(x, 2) for x in all_runs]}, step {step_ms[key][0]:.3f} "
             f"ms ({how}; {card})")
@@ -2155,6 +2184,42 @@ def _bits(pairs):
     bits = "".join(format(v, f"0{n}b") for v, n in pairs)
     bits += "0" * (-len(bits) % 8)
     return bytes(int(bits[i:i + 8], 2) for i in range(0, len(bits), 8))
+
+
+def uvc_mjpeg(seed=41, n_aux=2, seg=1000):
+    """A UVC H.264 camera's MJPEG frame, made from `seed`: SOI, an APP0,
+    then n_aux auxiliary payloads (H264, then YUY2 and NV12 in turn) each
+    split over APP4 segments of at most `seg` bytes (the first carrying
+    the 22-byte AuxiliaryStreamHeader and the payload size), then SOS,
+    scan bytes and EOI (sys/uvch264/gstuvch264_mjpgdemux.c's layout).
+    -> (frame bytes, [(fourcc, payload)], the frame without its APP4s)."""
+    import struct
+
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    head = b"\xff\xd8" + b"\xff\xe0" + struct.pack(">H", 16) \
+        + b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+    scan = b"\xff\xda" + rng.integers(0, 256, 3000, dtype=np.uint8
+                                       ).tobytes() + b"\xff\xd9"
+    app4, payloads = b"", []
+    for k in range(n_aux):
+        fourcc = ("H264", "YUY2", "NV12")[k % 3]
+        data = rng.integers(0, 256, int(rng.integers(500, 4000)),
+                            dtype=np.uint8).tobytes()
+        payloads.append((fourcc, data))
+        hdr = (struct.pack(">H", 0x0100) + struct.pack("<H", 22)
+               + fourcc.encode() + struct.pack("<HHIHI", 640 >> k, 480 >> k,
+                                               333333, 40 + k, 1000 * k)
+               + struct.pack("<I", len(data)))
+        body, first = data, True
+        while body or first:
+            room = seg - (len(hdr) if first else 0)
+            part, body = body[:room], body[room:]
+            content = (hdr if first else b"") + part
+            app4 += b"\xff\xe4" + struct.pack(">H", len(content) + 2) \
+                + content
+            first = False
+    return head + app4 + scan, payloads, head + scan
 
 
 def dvb_display_sets(n_sets, step_ns, seed=31):
@@ -2739,7 +2804,8 @@ def overlay_slice(gtt, counters, launches, err, card) -> dict:
                 f"above the {held / 2**20:.1f} MiB held before the run); "
                 f"counted run {t_card:.2f} s, card-against-CPU check "
                 f"{t_cpu:.2f} s")
-            how = ("device step, 10 steps a run" if clock == "device" else
+            how = ("device step, 10 steps a run, 4 where a step takes "
+                   "50 ms or more" if clock == "device" else
                    "host clock around run(), 2 windows a run")
             log(f"fps {key} window {window}: median {med:.2f} source "
                 f"frames/s of {[round(x, 2) for x in all_runs]}, step "
@@ -2807,6 +2873,556 @@ def overlay_slice(gtt, counters, launches, err, card) -> dict:
     return {"step_ms": step_ms, "times": times, "bounds": bounds}
 
 
+WINDOW_4I = 64                  # phase 4i's window
+CHECK_4I = 16                   # its card-against-CPU checks' (CPU time)
+# phase 4i's graphs the profile traces (the others hash or transcode on
+# the host)
+TRACED_4I = ("netsim_1080p", "speed_48k", "timecode_1080p_2997df",
+             "autovideoconvert_1080p")
+NETSIM_1080P = (f"videotestsrc pattern=ball width={W} height={H} "
+                "format=BGRx framerate=30/1 ! netsim max-kbps=1500000 "
+                "max-bucket-size=200000 drop-packets=3 drop-probability={} "
+                "duplicate-probability={} delay-probability={} "
+                "delay-distribution=gamma min-delay=20 max-delay=80 "
+                "allow-reordering=false ! fakesink")
+
+
+def i420_frames(n, seed=61):
+    """n seeded I420 frames of W x H, {plane: [n, ...]} (uint8)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    w, h = W, H
+    return {"y": rng.integers(0, 256, (n, h, w), dtype=np.uint8),
+            "u": rng.integers(0, 256, (n, h // 2, w // 2), dtype=np.uint8),
+            "v": rng.integers(0, 256, (n, h // 2, w // 2), dtype=np.uint8)}
+
+
+def deferred_paths(gtt):
+    """The paths of phase 4i: {key: (build(device) -> Pipeline, feed(p,
+    n_windows) or None, n_windows of the counted run, clock, H5 launches
+    a window)}."""
+    import numpy as np
+
+    def launch(desc):
+        return lambda device: gtt.parse_launch(desc, device=device)
+
+    raw = []
+
+    def push_raw(p, n, frames=WINDOW_4I):
+        """n times the first `frames` of 64 seeded frames, as raw I420
+        bytes."""
+        if not raw:
+            planes = i420_frames(WINDOW_4I)
+            raw.append(b"".join(planes[k][i].tobytes()
+                                for i in range(WINDOW_4I)
+                                for k in ("y", "u", "v")))
+        p.get_by_name("vp").push_bytes(raw[0][:frames * W * H * 3 // 2]
+                                       * n)
+
+    return {
+        # a receiver's jitter buffer tested against a constrained, lossy
+        # link: 66355 Kb frames against 50000 Kb of tokens a frame interval
+        "netsim_1080p": (launch(NETSIM_1080P.format(0.02, 0.05, 0.2)),
+                         None, 2, "device", 1),
+        "speed_48k": (launch(
+            "audiotestsrc wave=sine format=F32 rate=48000 channels=2 "
+            f"samplesperbuffer={AUDIO_BLOCK} ! speed speed=1.5 ! fakesink"),
+            None, 2, "device", 0),
+        "timecode_1080p_2997df": (launch(
+            f"videotestsrc width={W} height={H} framerate=30000/1001 "
+            "! timecodestamper drop-frame=true ! fakesink"),
+            None, 2, "device", 0),
+        "videoparse_1080p": (launch(
+            f"videoparse name=vp format=I420 width={W} height={H} "
+            "framerate=30/1 ! videoconvert format=BGRx ! checksumsink "
+            "name=c"), push_raw, 2, "host", 0),
+        "autovideoconvert_1080p": (launch(
+            f"videotestsrc pattern=ball width={W} height={H} format=I420 "
+            "! autovideoconvert ! videoconvert format=BGRx ! solarize "
+            "! fakesink"), None, 2, "device", 0),
+    }
+
+
+def deferred_host_checks(gtt, tmp):
+    """The host elements of phase 4i at small sizes, each on the card
+    against the CPU port: aesenc -> aesdec, id3mux, pnmenc/pnmdec,
+    aiffparse, aifffilesrc ! aifffilesink, accurip, uvch264mjpgdemux,
+    switchbin, watchdog, clockselect and jaxfilter.  -> {name: what was
+    compared}."""
+    import numpy as np
+    import torch
+    from gstbad_tpu_torch.core.spec import MediaSpec
+    from gstbad_tpu_torch.io import aiff
+    rng = np.random.default_rng(71)
+    out = {}
+
+    def on_both(make):
+        res = {d: make(d) for d in ("cuda", "cpu")}
+        return res["cuda"], res["cpu"]
+
+    def el(name, device, **props):
+        e = gtt.make(name, **props)
+        e.device = torch.device(device)
+        return e
+
+    payload = rng.integers(0, 256, 20003, dtype=np.uint8).tobytes()
+    key = "1f9423681beb9a79215820f6bda73d0f"
+    iv = "e9aa8e834d8d70b7e0d254ff670dd718"
+
+    def aes(d):
+        """Two buffers, each padded, the IV in band before the first."""
+        enc = el("aesenc", d, key=key, iv=iv, **{"serialize-iv": True})
+        cts = [enc.chain(payload[:9000]), enc.chain(payload[9000:]),
+               enc.finish()]
+        dec = el("aesdec", d, key=key, iv=iv, **{"serialize-iv": True})
+        return b"".join(cts), b"".join(
+            [dec.chain(x) for x in cts if x] + [dec.finish()])
+    a, b = on_both(aes)
+    if a != b or a[1] != payload:
+        fail("aesenc -> aesdec: the card's bytes differ from the CPU port's "
+             "or the round trip does not return the payload")
+    out["aes"] = f"{len(a[0])} bytes"
+
+    def id3(d):
+        mux = el("id3mux", d, **{"write-v1": True, "v2-version": 4})
+        mux.set_tags(title="chip smoke", artist="seeded", date=2026,
+                     **{"track-number": 7})
+        mux.chain(payload[:4000])
+        return mux.finish()
+    a, b = on_both(id3)
+    if a != b or a[:3] != b"ID3":
+        fail("id3mux: the card's bytes differ from the CPU port's")
+    out["id3mux"] = f"{len(a)} bytes"
+    img = rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)
+
+    def pnm(d):
+        doc = el("pnmenc", d).chain(img)
+        return doc, el("pnmdec", d).chain(doc)
+    a, b = on_both(pnm)
+    if a[0] != b[0] or not np.array_equal(a[1], img):
+        fail("pnmenc/pnmdec: the card's differ from the CPU port's")
+    out["pnm"] = f"{len(a[0])} bytes"
+    # 47 blocks of 1024: the last window of 16 holds 15
+    samples = rng.integers(-30000, 30000, (47 * 1024, 2)).astype(np.int16)
+    src = os.path.join(tmp, "in.aiff")
+    aiff.write_aiff(src, MediaSpec(kind="audio", format="S16", rate=48000,
+                                   channels=2), samples)
+    with open(src, "rb") as f:
+        blob = f.read()
+
+    def parse(d):
+        p = el("aiffparse", d)
+        p.chain(blob[:777])
+        p.chain(blob[777:])
+        return p.finish()
+    a, b = on_both(parse)
+    if a["caps"] != b["caps"] or not np.array_equal(a["data"], samples):
+        fail("aiffparse: the card's differs from the CPU port's")
+
+    def aiff_files(d):
+        dst = os.path.join(tmp, f"out_{d}.aiff")
+        p = gtt.parse_launch(f"aifffilesrc location={src} "
+                             "samplesperbuffer=1024 ! identity ! "
+                             f"aifffilesink location={dst}", device=d)
+        res = p.run(window=16)
+        p.close()
+        with open(dst, "rb") as f:
+            return res, f.read()
+    a, b = on_both(aiff_files)
+    batches_close("aifffilesrc", a[0], b[0])
+    if a[1] != b[1] or not np.array_equal(aiff.read_aiff(a[1])[1], samples):
+        fail("aifffilesink: the card's file differs from the CPU port's or "
+             "from the input")
+    out["aiff"] = f"{len(a[1])} bytes"
+
+    def accurip(d):
+        p = gtt.parse_launch("appsrc name=s kind=audio format=S16 rate=44100 "
+                             "channels=2 ! accurip name=a ! fakesink",
+                             device=d)
+        p.get_by_name("s").push_frames(samples[:47040].reshape(80, 588, 2))
+        p.run(window=16)
+        e = p.get_by_name("a")
+        return e.crc, e.crc_v2
+    a, b = on_both(accurip)
+    if a != b or not a[0]:
+        fail(f"accurip: CRCs {a} on the card, {b} on the CPU port")
+    out["accurip"] = f"v1 {a[0]:08x} v2 {a[1]:08x}"
+    frame, payloads, bare = uvc_mjpeg(43, 3, 700)
+    a, b = on_both(lambda d: el("uvch264mjpgdemux", d).chain(frame, 10**9))
+    if a != b or a["jpeg"] != bare or [(x["fourcc"], x["data"])
+                                       for x in a["aux"]] != payloads:
+        fail("uvch264mjpgdemux: the card's differs from the CPU port's or "
+             "from the fixture's payloads")
+    out["uvch264mjpgdemux"] = f"{len(a['aux'])} payloads"
+    graphs = {
+        "switchbin": "videotestsrc pattern=ball width=320 height=240 "
+                     "format=GRAY8 ! switchbin paths=\"video/x-raw,"
+                     "format=GRAY8 : zebrastripe threshold=90 ; ANY : "
+                     "identity\" ! fakesink",
+        "watchdog_clockselect": "videotestsrc pattern=ball width=320 "
+                                "height=240 ! watchdog name=w timeout=600000 "
+                                "! clockselect name=k clock-id=monotonic "
+                                "! fakesink",
+        "jaxfilter": "videotestsrc pattern=ball width=320 height=240 "
+                     "format=BGRx ! fakesink"}
+    for name, desc in graphs.items():
+        res = {}
+        for d in ("cuda", "cpu"):
+            p = gtt.parse_launch(desc, device=d)
+            if name == "jaxfilter":
+                p.insert_after("videotestsrc", gtt.make(
+                    "jaxfilter", fn=lambda x: 255 - x))
+            res[d] = p.run(n_frames=8, window=4)
+            if name == "watchdog_clockselect":
+                p.get_by_name("w").check()
+                if p.get_by_name("k").clock() is not time.monotonic:
+                    fail("clockselect: clock-id=monotonic is not "
+                         "time.monotonic")
+        batches_close(name, res["cuda"], res["cpu"])
+        out[name] = f"{sum(b.batch for b in res['cpu'])} frames"
+    src = gtt.parse_launch(graphs["jaxfilter"], device="cpu").run(
+        n_frames=8, window=4)
+    if not all(np.array_equal(x.data, 255 - y.data)
+               for x, y in zip(res["cuda"], src)):
+        fail("jaxfilter: the card's frames are not 255 - the source's")
+    return out
+
+
+def deferred_slice(gtt, counters, launches, err, card) -> dict:
+    """Phase 4i: what the runtime slice deferred and the small elements of
+    begun modules (netsim, speed, timecodestamper, videoparse with
+    checksumsink, the GDP transcode, autovideoconvert; the host elements).
+
+    H5 (netsim_bucket) against its plain walk at ragged shapes; then each
+    path of deferred_paths at full width, the launch counts set to 0 just
+    before its counted run and read just after (H5 once a window on
+    netsim_1080p, every other count 0), its peak device memory and
+    frames/s (median of 5; the host clock around run() where the host
+    hashes), and the card against the CPU port: netsim with its
+    probabilities at 0 exactly, with them on the doubled window's frames
+    and flags, H5's inputs (its bucket and counter) and valid within H5's
+    keep; its gamma, normal and uniform delays on the card by a KS test
+    against scipy.stats' draws; the rest exactly (frames, pts, valid,
+    messages, checksums); transcode_gdp_1080p through the CLI (the .gdp
+    bytes equal the CPU port's, the round trip back to y4m returns the
+    input's bytes); then the host elements; then H5 on every launch the
+    paths made, timed on netsim_1080p's.  Returns {"step_ms", "times",
+    "bounds", "chains"}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import scipy.stats
+    import torch
+    from gstbad_tpu_torch.cli import transcode_main
+    from gstbad_tpu_torch.core.spec import MediaSpec
+    from gstbad_tpu_torch.io import y4m
+    from gstbad_tpu_torch.ops import _cuda
+    from gstbad_tpu_torch.ops import netsim as netsim_ops
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(81)
+
+    def check_h5(args):
+        got = netsim_ops.netsim_bucket(*args)
+        want = netsim_ops.netsim_bucket_plain(*args)
+        e = int(not (torch.equal(got[0].cpu(), want[0].cpu())
+                     and torch.equal(got[1].cpu(), want[1].cpu())))
+        err["netsim_bucket"] = max(err["netsim_bucket"], e)
+
+    # H5 at ragged shapes: window lengths 0-200, the carry threaded through
+    n_cases = 0
+    for kbps, mbs, dropn, bits in ((1500000, 200000, 3, 66355200),
+                                   (-1, 50, 0, 1536), (0, 40, 9, 1536),
+                                   (45, -1, 2, 1536), (30, 5, 1, 1536),
+                                   (2**31 - 1, 2**31 - 1, 0, 2**40)):
+        carry = torch.tensor([mbs * 1000 if mbs > 0 else 0, -1, dropn],
+                             device=dev)
+        k = torch.tensor(kbps, dtype=torch.int32, device=dev)
+        m = torch.tensor(mbs, dtype=torch.int32, device=dev)
+        t = 0
+        for n in (64, 1, 0, 200, 17):
+            pts = t + np.cumsum(rng.integers(-20, 80, n) * 10**6)
+            t = int(pts[-1]) if n else t
+            args = (torch.from_numpy(pts.astype(np.int64)).to(dev),
+                    torch.from_numpy(rng.random(n) < 0.8).to(dev), bits, k,
+                    m, carry)
+            check_h5(args)
+            carry = netsim_ops.netsim_bucket_plain(*args)[1]
+            n_cases += 1
+    torch.cuda.synchronize()
+    log(f"netsim_bucket at ragged shapes: {n_cases} windows, max_abs_err "
+        f"{err['netsim_bucket']}")
+    if err["netsim_bucket"]:
+        fail("netsim_bucket disagrees with its plain version")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deferred_")
+    try:
+        paths = deferred_paths(gtt)
+        step_ms = {}
+        for key, (build, feed, n_windows, clock, h5) in paths.items():
+            t0 = time.perf_counter()
+            pipe = build("cuda")
+            pipe.negotiate()
+            if feed is not None:
+                feed(pipe, n_windows)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            for c in counters.values():
+                c.launches = 0
+            got = pipe.run(n_frames=n_windows * WINDOW_4I, window=WINDOW_4I)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            delta = {k: c.launches for k, c in counters.items()}
+            for k, c in delta.items():
+                want = h5 * n_windows if k == "netsim_bucket" else 0
+                if c != want:
+                    fail(f"{key}: {k} launched {c} times in {n_windows} "
+                         f"windows ({want} expected)")
+            for k in launches:
+                launches[k] += delta[k]
+            t_card = time.perf_counter() - t0
+            n_out = sum(int(np.asarray(b.valid).sum()) for b in got)
+            if not n_out:
+                fail(f"{key}: no frames out")
+            # the card against the CPU port, one window of CHECK_4I
+            t0 = time.perf_counter()
+            outs = {}
+            for d in ("cuda", "cpu"):
+                p = build(d)
+                p.negotiate()
+                if feed is not None:
+                    feed(p, 1, CHECK_4I)
+                outs[d] = (p.run(n_frames=CHECK_4I, window=CHECK_4I),
+                           bus_messages(p), p)
+            if key != "netsim_1080p":
+                worst, n_diff, total = batches_close(key, outs["cuda"][0],
+                                                     outs["cpu"][0])
+                messages_close(key, outs["cuda"][1], outs["cpu"][1])
+                what = f"{total} values, {len(outs['cpu'][1])} messages"
+            else:
+                what = "pts after the delays not compared (random)"
+            if key == "videoparse_1080p":
+                sums = [outs[d][2].get_by_name("c").checksums
+                        for d in ("cuda", "cpu")]
+                if sums[0] != sums[1] or len(sums[0]) != CHECK_4I:
+                    fail("videoparse_1080p: checksums differ from the CPU "
+                         "port's")
+                what += f", {len(sums[0])} checksums"
+            if key == "timecode_1080p_2997df" and not outs["cpu"][1]:
+                fail("timecode_1080p_2997df: no timecode messages")
+            t_cpu = time.perf_counter() - t0
+            med, all_runs = fps_runs(build, WINDOW_4I, feed=feed,
+                                     clock=clock,
+                                     n_steps=10 if clock == "device" else 2)
+            step_ms[key] = (WINDOW_4I * 1000.0 / med, WINDOW_4I)
+            log(f"{key}: launches {delta}; {n_windows} windows of "
+                f"{WINDOW_4I}, {n_out} frames out, "
+                f"{len(pipe.bus.messages)} bus messages; the card equals "
+                f"the CPU port ({what}); peak device memory "
+                f"{peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB "
+                f"above the {held / 2**20:.1f} MiB held before the run); "
+                f"counted run {t_card:.2f} s, card-against-CPU check "
+                f"{t_cpu:.2f} s")
+            how = ("device step, 10 steps a run, 4 where a step takes "
+                   "50 ms or more" if clock == "device" else
+                   "host clock around run(), 2 windows a run")
+            log(f"fps {key} window {WINDOW_4I}: median {med:.2f} source "
+                f"frames/s of {[round(x, 2) for x in all_runs]}, step "
+                f"{step_ms[key][0]:.3f} ms ({how}; {card})")
+
+        # netsim_1080p, deterministic parts: with its probabilities at 0
+        # the card equals the CPU port exactly; with them, the doubled
+        # window's frames and flags, H5's inputs (bucket, counter, carry)
+        # and valid within H5's keep, over two windows
+        t0 = time.perf_counter()
+        res = {}
+        for d in ("cuda", "cpu"):
+            p = gtt.parse_launch(NETSIM_1080P.format(0, 0, 0), device=d)
+            res[d] = p.run(n_frames=2 * WINDOW_4I, window=WINDOW_4I)
+        batches_close("netsim_1080p at probability 0", res["cuda"],
+                      res["cpu"])
+        n_zero = sum(b.batch for b in res["cpu"])
+        steps = {}
+        for d in ("cuda", "cpu"):
+            p = gtt.parse_launch(NETSIM_1080P.format(0.02, 0.05, 0.2),
+                                 device=d)
+            step = p.compile(WINDOW_4I)
+            params, states = p.params(), p.init_states(WINDOW_4I)
+            store = {}
+            undo = capture(netsim_ops, "netsim_bucket", store)
+            wins = []
+            try:
+                for wi in range(2):
+                    states, leaves, _ = step(params, states, None)
+                    b = leaves[0]
+                    wins.append((b.data.cpu() if wi == 0 else None,
+                                 b.flags.cpu(), b.valid.cpu()))
+            finally:
+                undo()
+            steps[d] = (wins, store["netsim_bucket"])
+        kept = 0
+        for wi in range(2):
+            (cd, cf, cv), (pd, pf, pv) = steps["cuda"][0][wi], \
+                steps["cpu"][0][wi]
+            (ca, _), (pa, _) = steps["cuda"][1][wi], steps["cpu"][1][wi]
+            same_in = all(torch.equal(torch.as_tensor(x).cpu(),
+                                      torch.as_tensor(y).cpu())
+                          for x, y in zip(ca, pa))
+            if not same_in or not torch.equal(cf, pf) or (
+                    cd is not None and not torch.equal(cd, pd)):
+                fail("netsim_1080p: H5's inputs, the flags or the frames "
+                     "differ from the CPU port's")
+            keep = netsim_ops.netsim_bucket_plain(*pa)[0].cpu()
+            kept += int(keep.sum())
+            for v in (cv, pv):
+                b = WINDOW_4I
+                if (v[:b] & ~keep).any() or (v[b:] & ~v[:b]).any():
+                    fail("netsim_1080p: a frame the bucket dropped came out")
+        # the delays on the card, against scipy.stats' draws of the same
+        # distributions (rounded as the element rounds them)
+        ks = {}
+        ref_rng = np.random.default_rng(17)
+        lo, hi = 20, 80
+        for dist in ("gamma", "normal", "uniform"):
+            e = gtt.make("netsim", **{"delay-distribution": dist,
+                                      "min-delay": lo, "max-delay": hi})
+            e.device = dev
+            e.set_info(MediaSpec(kind="video", format="BGRx", width=W,
+                                 height=H))
+            gen = torch.Generator(device=dev).manual_seed(3)
+            drawn = e._delay_ms((20000,), e.dynamic_params(), gen).cpu(
+                ).numpy()
+            if dist == "uniform":
+                ref = scipy.stats.randint(lo, hi + 1).rvs(
+                    20000, random_state=ref_rng)
+            else:
+                x = (scipy.stats.norm((lo + hi) / 2, (hi - lo) / 3.92)
+                     if dist == "normal" else scipy.stats.gamma(
+                         1.25, loc=lo, scale=(hi - lo) / 3.4640381)).rvs(
+                    20000, random_state=ref_rng)
+                ref = np.maximum(np.round(x), 0)
+            ks[dist] = scipy.stats.ks_2samp(drawn, ref).pvalue
+            if not ks[dist] > 1e-3:
+                fail(f"netsim_1080p: the card's {dist} delays fail the KS "
+                     f"test against scipy.stats (p {ks[dist]:.2e})")
+        log(f"netsim_1080p: at probability 0 the card equals the CPU port "
+            f"({n_zero} frames); with the probabilities H5's inputs, the "
+            f"flags and the frames equal the CPU port's over 2 windows "
+            f"({kept} frames the bucket and counter keep of "
+            f"{2 * WINDOW_4I}); delays on the card against scipy.stats, KS "
+            "p " + ", ".join(f"{k} {v:.3f}" for k, v in ks.items())
+            + f" ({time.perf_counter() - t0:.2f} s)")
+
+        # transcode_gdp_1080p: the CLI, y4m in and .gdp out on the card,
+        # against the CPU port's bytes; then the .gdp back to y4m
+        planes = i420_frames(WINDOW_4I, seed=62)
+        i420 = MediaSpec(kind="video", format="I420", width=W, height=H)
+        files = {k: os.path.join(tmp, f"{k}") for k in (
+            "in.y4m", "card.gdp", "cpu.gdp", "back.y4m")}
+        y4m.write_y4m(files["in.y4m"], i420, planes)
+        for c in counters.values():
+            c.launches = 0
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            transcode_main([files["in.y4m"], files["card.gdp"], "--profile",
+                            "gdp", "--device", "cuda", "--window",
+                            str(WINDOW_4I)])
+            runs.append(WINDOW_4I / (time.perf_counter() - t0))
+        if any(c.launches for c in counters.values()):
+            fail("transcode_gdp_1080p: a kernel launched")
+        transcode_main([files["in.y4m"], files["cpu.gdp"], "--profile",
+                        "gdp", "--device", "cpu", "--window",
+                        str(WINDOW_4I)])
+        transcode_main([files["card.gdp"], files["back.y4m"], "--device",
+                        "cuda", "--window", str(WINDOW_4I)])
+        data = {}
+        for k in files:
+            with open(files[k], "rb") as f:
+                data[k] = f.read()
+        if data["card.gdp"] != data["cpu.gdp"]:
+            fail("transcode_gdp_1080p: the card's .gdp differs from the CPU "
+                 "port's")
+        if data["back.y4m"] != data["in.y4m"]:
+            fail("transcode_gdp_1080p: y4m -> gdp -> y4m does not return "
+                 "the input's bytes")
+        med = statistics.median(runs)
+        step_ms["transcode_gdp_1080p"] = (WINDOW_4I * 1000.0 / med,
+                                          WINDOW_4I)
+        log(f"transcode_gdp_1080p: {WINDOW_4I} I420 frames {W}x{H} to a "
+            f"{len(data['card.gdp'])}-byte .gdp through the CLI equal the "
+            "CPU port's bytes; back to y4m gives the input's bytes")
+        log(f"fps transcode_gdp_1080p window {WINDOW_4I}: median {med:.2f} "
+            f"source frames/s of {[round(x, 2) for x in runs]} (host clock "
+            f"around the CLI, end to end; {card})")
+
+        hosts = deferred_host_checks(gtt, tmp)
+        log("phase 4i host elements on the card equal the CPU port: "
+            + "; ".join(f"{k} {v}" for k, v in hosts.items()))
+
+        # H5 on every launch the paths made in one step
+        inputs = []
+        for key, (build, feed, _, _, h5) in paths.items():
+            if not h5:
+                continue
+            p = build("cuda")
+            store = {}
+            undo = capture(netsim_ops, "netsim_bucket", store)
+            try:
+                step = p.compile(WINDOW_4I)
+                step(p.params(), p.init_states(WINDOW_4I), None)
+                torch.cuda.synchronize()
+            finally:
+                undo()
+            inputs += store["netsim_bucket"]
+        for args, kw in inputs:
+            check_h5(args)
+        log(f"netsim_bucket on its main path's inputs: {len(inputs)} "
+            f"launches, max_abs_err {err['netsim_bucket']}")
+        if err["netsim_bucket"] or not inputs:
+            fail("netsim_bucket disagrees with its plain version on the "
+                 "main path's inputs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # H5's time and bound on netsim_1080p's launch: the chain of its frames
+    # walked in order, one dependent step each (gst_netsim_step_cycles on
+    # registers); its bytes are a few hundred
+    sm_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True).stdout.split()[0]) * 1e6
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    int32_per_s = n_sm * INT32_LANES * sm_hz
+    args, _ = inputs[0]
+    times = {"netsim_bucket": (
+        cuda_ms(lambda: netsim_ops.netsim_bucket(*args)),
+        cuda_ms(lambda: netsim_ops.netsim_bucket_plain(*args), iters=3,
+                warmup=1), None)}
+    probe = torch.zeros(2, dtype=torch.int64, device=dev)
+    probe_steps = 1 << 16
+    _cuda.launch("gst_netsim_step_cycles", probe, probe_steps)
+    torch.cuda.synchronize()
+    cycles = probe[0].item() / probe_steps
+    n = args[0].numel()
+    chains = {"netsim_bucket": n * cycles / sm_hz * 1e3}
+    # pts read (8 bytes), valid (1) and keep written (1) a frame; the two
+    # properties and the carry in and out.  About 30 int64 operations a
+    # frame, each two INT32 instructions
+    nbytes = 10 * n + 2 * 4 + 2 * 24
+    bounds = {"netsim_bucket": bound(nbytes, 60 * n, int32_per_s,
+                                     chains["netsim_bucket"])}
+    log(f"netsim_bucket on netsim_1080p's window ({n} frames): {n} steps in "
+        f"order x {cycles:.3f} cycles (probe, {probe_steps} steps) at "
+        f"{sm_hz / 1e6:.0f} MHz = chain {chains['netsim_bucket']:.4f} ms; "
+        f"{nbytes} bytes")
+    log(f"deferred_slice: {time.perf_counter() - t_phase:.1f} s")
+    return {"step_ms": step_ms, "times": times, "bounds": bounds,
+            "chains": chains}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2825,6 +3441,13 @@ def main() -> int:
     device_kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     t_start = time.perf_counter()
+    t_mark = [t_start]
+
+    def phase_done(name):
+        """Log the seconds since the last phase ended."""
+        now = time.perf_counter()
+        log(f"phase {name}: {now - t_mark[0]:.1f} s")
+        t_mark[0] = now
 
     # 1. the card
     smi = subprocess.run(
@@ -2851,6 +3474,8 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} triton "
         f"{triton} python {sys.version.split()[0]} devices {count}")
 
+    phase_done("1")
+
     # 2. build
     t0 = time.perf_counter()
     _cuda.library()
@@ -2861,6 +3486,8 @@ def main() -> int:
         if ("registers" in line or "spill" in line or "error" in line
                 or "Compiling entry" in line):
             log(f"  ptxas: {line.strip()}")
+
+    phase_done("2")
 
     # 3. kernels against their plain versions on the card
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -2893,7 +3520,8 @@ def main() -> int:
                           "adpcm_ima_decode", "adpcm_ms_decode",
                           "adpcm_ima_encode", "scope_filter",
                           "haar_cascade", "tilted_integral",
-                          "sgm_aggregate", "overlay_blend")}
+                          "sgm_aggregate", "overlay_blend",
+                          "netsim_bucket")}
     wide = LinearIndex((300, 1000, 7, 0), 0, 11)     # weights above 255
 
     def check_k1(shape, batch, index, erode, thr):
@@ -3281,6 +3909,8 @@ def main() -> int:
     if any(v for k, v in err.items() if k != "freeverb_scan"):
         fail(f"kernels disagree with their plain versions: {err}")
 
+    phase_done("3")
+
     # 4. the main paths through parse_launch on the card
     runs, windows = main_graphs(gtt, benchmarks)
     audio_keys = ("config3_audio", "vad_square")
@@ -3304,8 +3934,9 @@ def main() -> int:
                                        "vad_powers_serial": 1}),
             "transcode_i420_blur": (2, 8, {"gaussian_blur_words": 1}),
             "iqa_dssim_1080p": (2, 4, {"gaussian_blur_words": 1}),
-            # one window: the CPU port walks its 141120 samples one by one
-            "freeverb_22k": (1, WINDOW, {"freeverb_scan": 1})}
+            # a window of 16: the CPU port walks its 35280 samples one by
+            # one (the kernel's plain check takes the 64-block window)
+            "freeverb_22k": (1, 16, {"freeverb_scan": 1})}
     shapes = {"headline_bars": (H, W, 4), "headline_ball": (H, W, 4),
               "prefix_bars": (H, W, 4), "config5_ivtc": (H5, W5),
               "combdetect_720p": (H5, W5), "config2_blur_bars": (H, W, 4),
@@ -3405,8 +4036,10 @@ def main() -> int:
     log(f"main path launches {launches}")
     for key, build in runs.items():
         n_windows, window, _ = plan[key]
+        t0 = time.perf_counter()
         pipe = build("cpu")
         cpu = pipe.run(n_frames=n_windows * window, window=window)
+        log(f"{key}: the CPU port's run {time.perf_counter() - t0:.1f} s")
         if key in audio_keys or key == "freeverb_22k":
             # S16 samples within 1 LSB (config 3 and freeverb_22k: the
             # float32 reverb's sums), exact for vad_square, at any share
@@ -3443,6 +4076,8 @@ def main() -> int:
     log(f"config5_fidelity card {fid['cuda']} cpu {fid['cpu']}")
     if fid["cuda"] != fid["cpu"]:
         fail("config5_fidelity differs between the card and the CPU port")
+
+    phase_done("4")
 
     # 4b. videoconvert's format matrix: every (source, target) pair of its
     # 26 formats on a random 64x48 window of 4 frames, card against CPU
@@ -3503,6 +4138,8 @@ def main() -> int:
         f"{len(CONVERT_ALL)} formats at {CONVERT_W}x{CONVERT_H}, 4 frames: "
         "card equals CPU")
 
+    phase_done("4b")
+
     # 4c. the noise sources: window independence and determinism on the
     # card, card against CPU (both draw from the same integer hash)
     def noise_run(desc, device, n, window):
@@ -3552,20 +4189,32 @@ def main() -> int:
         f"variance {x.var():.6f} (uniform on [-0.8, 0.8]: 0, "
         f"{0.64 / 3:.6f})")
 
+    phase_done("4c")
+
     # 4d. the runtime surface (runtime_surface)
     runtime_surface(gtt, benchmarks, runs, counters, launches, card)
+    phase_done("4d")
 
     # 4e. the opencv family, digitalzoom, lcms and codecalpha (cv_slice)
-    cv_step_ms = cv_slice(gtt, benchmarks, counters, card)
+    cv_slice(gtt, benchmarks, counters, card)
+    phase_done("4e")
 
     # 4f. audio breadth (audio_slice)
     walk = audio_slice(gtt, benchmarks, counters, launches, err, card)
+    phase_done("4f")
 
     # 4g. the rest of the OpenCV family (cv_detect_slice)
     detect = cv_detect_slice(gtt, counters, launches, err, card)
+    phase_done("4g")
 
     # 4h. overlay and the text renderers (overlay_slice)
     overlays = overlay_slice(gtt, counters, launches, err, card)
+    phase_done("4h")
+
+    # 4i. what the runtime slice deferred and the small elements of begun
+    # modules (deferred_slice)
+    deferred = deferred_slice(gtt, counters, launches, err, card)
+    phase_done("4i")
 
     # 5. timing
     fps = {}
@@ -3590,10 +4239,14 @@ def main() -> int:
         "x that")
     step_ms = {key: (windows[key] * 1000.0 / fps[key], windows[key])
                for key in runs}
-    step_ms.update(cv_step_ms)
-    step_ms.update(walk["step_ms"])
-    step_ms.update(detect["step_ms"])
+    # the traces: the fourteen and phase 4i's graphs whose step is device
+    # work; the earlier slices' traces stand in PERF.md section 5 from
+    # their own runs (tracing them took most of the profile process)
+    step_ms.update((k, v) for k, v in deferred["step_ms"].items()
+                   if k in TRACED_4I)
+    phase_done("5 (frames/s)")
     profile_graphs(step_ms)
+    phase_done("5 (profiles)")
 
     src_bcast = rand_i32(1, H, W)
     src_full = rand_i32(WINDOW, H, W)
@@ -3894,6 +4547,10 @@ def main() -> int:
     times.update(overlays["times"])
     bounds.update(overlays["bounds"])
     chains.update(detect["chains"])
+    # H5 (phase 4i): timed on netsim_1080p's window there
+    times.update(deferred["times"])
+    bounds.update(deferred["bounds"])
+    chains.update(deferred["chains"])
     for label, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bounds[label]
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
@@ -3972,7 +4629,11 @@ def main() -> int:
         entry("overlay_blend", "overlay_blend_assrender",
               "overlay_kernels.cu",
               "gstbad_tpu/elements/video/assrender.py:128", "premul_floor"),
+        # not a TPU kernel: netsim's token-bucket scan
+        entry("netsim_bucket", "netsim_bucket", "netsim_kernels.cu",
+              "gstbad_tpu/elements/observability.py:223"),
     ]
+    phase_done("5 (kernels)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

@@ -4,6 +4,8 @@ transcode (the gst-transcoder CLI analog, tools/gst-transcoder.c).
     python -m gstbad_tpu_torch transcode in.y4m out.y4m \\
         --filters "videoconvert format=AYUV ! gaussianblur ! \\
                    videoconvert format=I420" [--device cpu]
+    python -m gstbad_tpu_torch transcode in.y4m out.gdp --profile gdp
+    python -m gstbad_tpu_torch transcode in.gdp out_%d.pnm --profile pnm:RGB
     python -m gstbad_tpu_torch launch videotestsrc ! solarize ! fakesink
 
 Both run on the CUDA card unless --device cpu is given; without a card a
@@ -71,19 +73,21 @@ def launch_main(argv=None):
 
 
 def transcode_main(argv=None):
-    """gst-transcoder analog: a y4m file through a filter chain into a
-    y4m file."""
+    """gst-transcoder analog: a y4m or GDP file through a filter chain
+    into a y4m file, a PNM image sequence or a GDP stream."""
     ap = argparse.ArgumentParser(
         prog="torch-transcode",
-        description="Transcode a y4m file through a gst-launch style "
-                    "filter chain (gst-transcoder analog).")
+        description="Transcode a y4m or .gdp file through a gst-launch "
+                    "style filter chain (gst-transcoder analog).")
     ap.add_argument("src")
     ap.add_argument("dest")
     ap.add_argument("--filters", default="",
                     help="gst-launch style filter chain")
     ap.add_argument("--window", type=int, default=8)
     ap.add_argument("--profile", default="y4m",
-                    help="encoding profile: y4m[:FMT]")
+                    help="encoding profile: y4m[:FMT], pnm[:FMT] (dest "
+                         "holds a %%d pattern) or gdp[:FMT]; hevc and av1 "
+                         "are not ported yet")
     _device_arg(ap)
     args = ap.parse_args(argv)
 

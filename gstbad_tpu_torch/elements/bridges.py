@@ -5,6 +5,7 @@ inter{video,audio}sink/src pairs bridge two pipelines in-process through a
 named channel queue; proxysink/proxysrc do the same.  An appsrc is a
 host-fed source the runner pulls outside the window step; it stacks each
 window on the host and sends it to the pipeline's device in one copy.
+gdppay/gdpdepay speak GDP 1.0 on bytes, on the host.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from gstbad_tpu_torch.core.element import Element, Property
 from gstbad_tpu_torch.core.frame import FrameBatch, upload_frames
 from gstbad_tpu_torch.core.registry import register
 from gstbad_tpu_torch.core.spec import MediaSpec
+from gstbad_tpu_torch.io import gdp as _gdp
 
 
 class Channel:
@@ -270,3 +272,97 @@ class ProxySink(_ChannelSink):
 @register
 class ProxySrc(_ChannelSrc):
     NAME = "proxysrc"
+
+
+@register
+class GdpPay(Element):
+    """gdppay (gst/gdp/gstgdppay.c) speaking REAL GDP 1.0: the first
+    buffer is preceded by the caps packet; every buffer becomes a
+    62-byte header + payload with optional header/payload CRCs
+    (crc-header/crc-payload properties, the reference defaults TRUE
+    header / FALSE payload).  A host byte element: io/gdp.py builds the
+    packets."""
+
+    NAME = "gdppay"
+    KIND = "host-source"
+    PROPERTIES = (
+        Property("crc-header", bool, True, static=True),
+        Property("crc-payload", bool, False, static=True),
+    )
+
+    def __init__(self, **props):
+        super().__init__(**props)
+        self._caps_sent = False
+        self.caps = "application/x-gdp"
+
+    def _flags(self) -> int:
+        f = 0
+        if self.props["crc-header"]:
+            f |= _gdp.DP_FLAG_CRC_HEADER
+        if self.props["crc-payload"]:
+            f |= _gdp.DP_FLAG_CRC_PAYLOAD
+        return f
+
+    def set_caps(self, caps: str) -> None:
+        self.caps = caps
+        self._caps_sent = False
+
+    def chain(self, data: bytes, pts: int = _gdp.CLOCK_TIME_NONE,
+              duration: int = _gdp.CLOCK_TIME_NONE,
+              buf_flags: int = 0) -> bytes:
+        out = b""
+        if not self._caps_sent:
+            out += _gdp.dp_payload_caps(self.caps, self._flags())
+            self._caps_sent = True
+        out += _gdp.dp_payload_buffer(data, pts=pts, duration=duration,
+                                      buf_flags=buf_flags,
+                                      flags=self._flags())
+        return out
+
+    def event_eos(self) -> bytes:
+        # GST_EVENT_EOS numeric group: gdppay serializes events as
+        # payload type 64 + type; EOS keeps an empty structure
+        return _gdp.dp_payload_event(1, "", flags=self._flags())
+
+    def process(self, params, state, batch):
+        return state, batch
+
+
+@register
+class GdpDepay(Element):
+    """gdpdepay: incremental GDP 1.0 parser with CRC validation."""
+
+    NAME = "gdpdepay"
+    KIND = "host-source"
+    PROPERTIES = ()
+
+    def __init__(self, **props):
+        super().__init__(**props)
+        self._buf = b""
+        self.caps = None
+        self.events = []
+
+    def chain(self, data: bytes):
+        """Returns buffer packets; caps land in .caps, events in
+        .events."""
+        self._buf += data
+        out = []
+        consumed = 0
+        try:
+            pos = 0
+            for pkt in _gdp.dp_depay(self._buf):
+                pos += _gdp.DP_HEADER_LENGTH + len(pkt["payload"])
+                consumed = pos
+                if pkt["type"] == _gdp.DP_PAYLOAD_CAPS:
+                    self.caps = pkt["payload"].rstrip(b"\x00").decode()
+                elif pkt["type"] >= _gdp.DP_PAYLOAD_EVENT_NONE:
+                    self.events.append(
+                        pkt["type"] - _gdp.DP_PAYLOAD_EVENT_NONE)
+                else:
+                    out.append(pkt)
+        finally:
+            self._buf = self._buf[consumed:]
+        return out
+
+    def process(self, params, state, batch):
+        return state, batch

@@ -1,4 +1,5 @@
-"""Test sources — the videotestsrc analog.
+"""Test sources — the videotestsrc and audiotestsrc analogs, and
+testsrcbin over them.
 
 The reference consumes gst-plugins-base's videotestsrc in every launch line
 and test; this one generates batched frames directly on the pipeline's
@@ -15,13 +16,14 @@ every product below 2^63, so the card and the CPU give the same bits.
 from __future__ import annotations
 
 from fractions import Fraction
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from gstbad_tpu_torch.core.element import Element, Property
 from gstbad_tpu_torch.core.frame import FrameBatch
-from gstbad_tpu_torch.core.registry import register
+from gstbad_tpu_torch.core.registry import make, register
 from gstbad_tpu_torch.core.spec import AudioFormat, MediaSpec, VideoFormat
 from gstbad_tpu_torch.ops.pointops import unpack32
 
@@ -405,3 +407,73 @@ class AudioTestSrc(Element):
         pts = (n0 // s + torch.arange(window, dtype=torch.int64,
                                       device=self.device)) * dur
         return n0 + window * s, FrameBatch.make(data, pts=pts)
+
+
+# properties a testbin:// stream forwards to its inner source (the JAX
+# package's session/testbin.py); anything else in the URI is refused
+_VIDEO_PROPS = {"pattern", "format", "width", "height", "framerate",
+                "foreground-color", "seed"}
+_AUDIO_PROPS = {"wave", "freq", "volume", "format", "rate", "channels",
+                "samplesperbuffer", "seed"}
+
+
+def parse_testbin_uri(uri: str) -> List[Tuple[str, Dict[str, str]]]:
+    """'testbin://video,pattern=ball+audio,freq=330' ->
+    [('video', {'pattern': 'ball'}), ('audio', {'freq': '330'})]
+    (gsttestsrcbin.c:353-415: '+' splits streams, each segment is a
+    caps-structure whose fields become child properties)."""
+    if not uri.startswith("testbin://"):
+        raise ValueError(f"not a testbin URI: {uri!r}")
+    location = uri[len("testbin://"):]
+    if not location:
+        raise ValueError("testbin URI names no streams")
+    streams = []
+    for segment in location.split("+"):
+        parts = [p for p in segment.split(",") if p]
+        if not parts:
+            continue
+        kind = parts[0].strip()
+        if kind not in ("audio", "video"):
+            raise ValueError(f"testbin: unknown stream type {kind!r} "
+                             "(want audio or video)")
+        allowed = _VIDEO_PROPS if kind == "video" else _AUDIO_PROPS
+        props = {}
+        for kv in parts[1:]:
+            k, _, v = kv.partition("=")
+            k = k.strip()
+            if k not in allowed:
+                raise ValueError(
+                    f"testbin: {kind} stream has no property {k!r} "
+                    f"(have {sorted(allowed)})")
+            props[k] = v.strip()
+        streams.append((kind, props))
+    if not streams:
+        raise ValueError("testbin URI names no streams")
+    return streams
+
+
+@register
+class TestSrcBin(Element):
+    """testsrcbin (gst/debugutils/gsttestsrcbin.c): wraps
+    audiotestsrc/videotestsrc per a stream spec.  The reference is a bin
+    exposing one sometimes-pad per stream and is consumed mainly through
+    `playbin uri=testbin://...`; here the factory returns the configured
+    inner source directly (the pad-proxy analog), so
+    `testsrcbin stream-types=video,pattern=ball ! ...` works inline.  A
+    multi-stream spec (`audio+video`) needs one chain per stream and is
+    refused here."""
+
+    NAME = "testsrcbin"
+    KIND = "source"
+    PROPERTIES = (Property("stream-types", str, "video", static=True),)
+
+    def __new__(cls, **props):
+        streams = parse_testbin_uri(
+            "testbin://" + str(props.get("stream-types", "video")))
+        if len(streams) != 1:
+            raise ValueError(
+                "testsrcbin: one stream per launch-chain instance; "
+                f"{len(streams)} streams need one chain each")
+        kind, sprops = streams[0]
+        return make("videotestsrc" if kind == "video" else "audiotestsrc",
+                    **sprops)

@@ -61,6 +61,8 @@ SIGNATURES = {
     "gst_sgm_aggregate": (_P, _P) + (_I,) * 9,
     "gst_sgm_step_cycles": (_P, _I),
     "gst_overlay_blend": (_P,) * 7 + (_LL,) * 23,
+    "gst_netsim_bucket": (_P,) * 7 + (_LL, _I),
+    "gst_netsim_step_cycles": (_P, _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

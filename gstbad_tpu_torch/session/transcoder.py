@@ -7,16 +7,24 @@ string selects the output:
 
     "y4m"            I420 YUV4MPEG2 (default)
     "y4m:FMT"        force an output format (appends videoconvert)
+    "pnm"            P5/P6 image sequence (dest must contain a %d
+                     pattern); "pnm:FMT" forces a GRAY8 or packed RGB
+                     output format
+    "gdp"            GDP packet stream (any negotiated format, caps on
+                     the wire; "gdp:FMT" forces one)
 
-The pnm, gdp, hevc and av1 profiles of the JAX package are not ported yet
-and raise.  Input: .y4m files, fed through an appsrc; the graph runs on
-`device` ("cuda", the default, or "cpu"; a CUDA request without a card
+The hevc and av1 profiles of the JAX package drive libx265 and libaom
+encoders that the port does not have yet, and raise.  Inputs: .y4m files,
+fed through an appsrc, or .gdp files, read by gdpfilesrc; the graph runs
+on `device` ("cuda", the default, or "cpu"; a CUDA request without a card
 raises).  Progress posts `position` messages and calls the optional
-on_position callback, like GstTranscoder's signals.
+on_position callback, like GstTranscoder's signals.  Every output is byte
+for byte the JAX package's.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import Callable, Optional
 
 import numpy as np
@@ -24,9 +32,13 @@ import numpy as np
 from gstbad_tpu_torch.core.bus import Message
 from gstbad_tpu_torch.core.pipeline import parse_launch
 from gstbad_tpu_torch.core.spec import VideoFormat
-from gstbad_tpu_torch.io import y4m
+from gstbad_tpu_torch.io import gdp, y4m
+from gstbad_tpu_torch.io.pnm import write_pnm
 
-NOT_PORTED = ("pnm", "gdp", "hevc", "av1")
+# the JAX package's profiles whose encoders (x265enc, av1enc) the port has
+# not yet ported
+NOT_PORTED = ("hevc", "av1")
+PROFILES = ("y4m", "pnm", "gdp")
 
 
 class Transcoder:
@@ -43,15 +55,20 @@ class Transcoder:
         self.container = container or "y4m"
         if self.container in NOT_PORTED:
             raise ValueError(f"profile container {self.container!r} is not "
-                             "ported yet (not yet ported: "
-                             f"{', '.join(NOT_PORTED)}); use y4m[:FMT]")
-        if self.container != "y4m":
+                             "ported yet: its encoder is not (not yet "
+                             f"ported: {', '.join(NOT_PORTED)}); use "
+                             f"{', '.join(PROFILES)}")
+        if self.container not in PROFILES:
             raise ValueError(f"unknown profile container {container!r}; "
-                             "known: y4m")
-        if not src_uri.endswith(".y4m"):
-            raise ValueError("transcoder reads .y4m input")
+                             f"known: {', '.join(PROFILES)}")
+        if self.container == "pnm" and "%" not in dest_uri:
+            raise ValueError("pnm profile writes an image sequence; "
+                             "dest must contain a %d pattern")
+        if not src_uri.endswith((".y4m", ".gdp")):
+            raise ValueError("transcoder reads .y4m or .gdp input")
         self.out_format = fmt or None
-        desc = "appsrc name=tsrc"
+        desc = ("gdpfilesrc name=tsrc location=" + src_uri
+                if src_uri.endswith(".gdp") else "appsrc name=tsrc")
         if self.filters:
             desc += " ! " + self.filters
         if self.out_format:
@@ -64,6 +81,10 @@ class Transcoder:
         return self.pipeline.bus
 
     def _read_input(self):
+        """(input spec, frames) of a y4m input pushed into the appsrc;
+        (None, None) for a .gdp input, whose length the stream gives."""
+        if self.src_uri.endswith(".gdp"):
+            return None, None
         spec, planes = y4m.read_y4m(self.src_uri)
         src = self.pipeline.get_by_name("tsrc")
         src.props["kind"] = "video"
@@ -79,24 +100,56 @@ class Transcoder:
         """Transcode to completion; returns the number of frames written."""
         spec, n = self._read_input()
         out_spec = self.pipeline.negotiate()
-        total_ns = int(n * spec.frame_duration_ns)
+        total_ns = int(n * spec.frame_duration_ns) if spec is not None \
+            else 0
         outs = self.pipeline.run(window=self.window)
+        self.pipeline.close()
         batches = outs if isinstance(outs, list) else outs[0]
         written = 0
         sink_planes = {"y": [], "u": [], "v": []}
+        packed_frames = []
+        gdp_blobs = []
         for b in batches:
-            if not isinstance(b.data, dict):
-                raise ValueError(
-                    f"y4m profile needs planar output; pipeline "
-                    f"produced {out_spec}; add `videoconvert format=I420`")
-            for k in sink_planes:
-                sink_planes[k].append(b.data[k])
+            if self.container == "y4m":
+                if not isinstance(b.data, dict):
+                    raise ValueError(
+                        f"y4m profile needs planar output; pipeline "
+                        f"produced {out_spec}; add `videoconvert "
+                        "format=I420` or use profile='gdp'/'pnm'")
+                for k in sink_planes:
+                    sink_planes[k].append(b.data[k])
+            elif self.container == "pnm":
+                if isinstance(b.data, dict):
+                    raise ValueError("pnm profile needs GRAY8 or packed "
+                                     "RGB output")
+                packed_frames.append(b.data)
+            else:
+                gdp_blobs.append(gdp.pay(b, out_spec))
             written += b.batch
             pos = int(b.pts[-1]) if b.batch else 0
             if self.on_position:
                 self.on_position(pos, total_ns)
             self.bus.post(Message("transcoder", "position", pos,
                                   {"position": pos, "duration": total_ns}))
-        merged = {k: np.concatenate(v) for k, v in sink_planes.items()}
-        y4m.write_y4m(self.dest_uri, out_spec, merged)
+        if self.container == "y4m":
+            merged = {k: np.concatenate(v) for k, v in sink_planes.items()}
+            y4m.write_y4m(self.dest_uri, out_spec, merged)
+        elif self.container == "pnm":
+            offs = None
+            if out_spec.format in VideoFormat.PACKED_RGB4 \
+                    or out_spec.format in VideoFormat.PACKED_RGB3:
+                offs = list(VideoFormat.rgb_offsets(out_spec.format)[:3])
+            i = 0
+            for chunk in packed_frames:
+                for frame in chunk:
+                    img = frame[..., offs] if offs and frame.ndim == 3 \
+                        else frame
+                    write_pnm(self.dest_uri % i, img)
+                    i += 1
+        else:
+            with open(self.dest_uri, "wb") as f:
+                for blob in gdp_blobs:
+                    # gdpfilesink's framing: a length, then the packet
+                    f.write(struct.pack("<Q", len(blob)))
+                    f.write(blob)
         return written

@@ -11,7 +11,9 @@ and encoder, the scopes' filter) against their plain walks, and six of its
 graphs on the card against the CPU port; and the OpenCV detectors'
 kernels (H1 haar_cascade, H2 tilted_integral, H3 sgm_aggregate) against
 their plain versions, with the face, hand and stereo elements on the card
-against the CPU port.
+against the CPU port; and H5 (netsim_bucket, netsim's token-bucket walk)
+against its plain walk, with netsim, speed, timecodestamper,
+autovideoconvert and checksumsink graphs on the card against the CPU port.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  They
 import neither jax nor gstbad_tpu, so they run on a machine that has only
@@ -1243,3 +1245,67 @@ def test_overlay_element_on_card_equals_cpu_port(dev, name, fmt, kw):
             assert overlay.overlay_blend.launches == launched + 2
     for x, y in zip(*out):
         np.testing.assert_array_equal(x.data, y.data)
+
+
+@pytest.mark.parametrize("kbps,mbs,dropn,bits", [
+    (1500000, 200000, 3, 66355200), (-1, 50, 0, 1536), (0, 40, 9, 1536),
+    (45, -1, 2, 1536), (30, 5, 1, 1536)])
+def test_netsim_bucket_kernel_matches_plain(dev, kbps, mbs, dropn, bits):
+    from gstbad_tpu_torch.ops import netsim as netsim_ops
+    rng = np.random.default_rng(kbps + 7)
+    carry = torch.tensor([mbs * 1000 if mbs > 0 else 0, -1, dropn])
+    k = torch.tensor(kbps, dtype=torch.int32)
+    m = torch.tensor(mbs, dtype=torch.int32)
+    t = 0
+    for n in (64, 1, 17):    # the carry threaded through three windows
+        pts = t + np.cumsum(rng.integers(-20, 80, n) * 10**6)
+        t = int(pts[-1])
+        pts = torch.from_numpy(pts.astype(np.int64))
+        valid = torch.from_numpy(rng.random(n) < 0.8)
+        launched = netsim_ops.netsim_bucket.launches
+        got = netsim_ops.netsim_bucket(pts.to(dev), valid.to(dev), bits,
+                                       k.to(dev), m.to(dev), carry.to(dev))
+        assert netsim_ops.netsim_bucket.launches == launched + 1
+        want = netsim_ops.netsim_bucket_plain(pts, valid, bits, k, m, carry)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        carry = want[1]
+
+
+@pytest.mark.parametrize("desc,n,window", [
+    ("videotestsrc pattern=ball width=64 height=48 format=BGRx ! netsim "
+     "max-kbps=1500 max-bucket-size=200 drop-packets=3 ! fakesink", 32, 16),
+    ("videotestsrc pattern=ball width=64 height=48 format=I420 ! netsim "
+     "duplicate-probability=1 delay-probability=1 min-delay=40 max-delay=40 "
+     "delay-distribution=gamma allow-reordering=false ! fakesink", 16, 8),
+    ("audiotestsrc samplesperbuffer=480 format=F32 ! speed speed=1.5 "
+     "! fakesink", 16, 8),
+    ("audiotestsrc samplesperbuffer=480 format=S16 ! speed speed=0.7 "
+     "! fakesink", 16, 8),
+    ("videotestsrc width=64 height=48 framerate=30000/1001 "
+     "! timecodestamper drop-frame=true set-internal-timecode=00:09:59;20 "
+     "! fakesink", 32, 16),
+    ("videotestsrc pattern=ball width=64 height=48 format=I420 "
+     "! autovideoconvert ! videoconvert format=BGRx ! checksumsink",
+     16, 8)])
+def test_deferred_graph_on_card_equals_cpu_port(dev, desc, n, window):
+    from gstbad_tpu_torch.ops import netsim as netsim_ops
+    out = {}
+    for device in ("cuda", "cpu"):
+        launched = netsim_ops.netsim_bucket.launches
+        p = gtt.parse_launch(desc, device=device)
+        res = p.run(n_frames=n, window=window)
+        out[device] = (res, [(m.element, m.name, m.pts, m.fields)
+                             for m in p.bus.messages])
+        if device == "cuda" and "netsim" in desc:
+            assert netsim_ops.netsim_bucket.launches == \
+                launched + n // window
+    assert out["cuda"][1] == out["cpu"][1]
+    assert len(out["cuda"][0]) == len(out["cpu"][0])
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        np.testing.assert_array_equal(a.pts, b.pts)
+        np.testing.assert_array_equal(a.valid, b.valid)
+        da = a.data if isinstance(a.data, dict) else {"": a.data}
+        db = b.data if isinstance(b.data, dict) else {"": b.data}
+        for k in db:
+            np.testing.assert_array_equal(da[k], db[k])

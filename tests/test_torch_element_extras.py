@@ -164,10 +164,12 @@ def test_ported_elements_match_jax_properties():
     flags."""
     for name in gtt.element_names():
         assert name in gt.element_names()
+        # jaxfilter is made around its function
+        kw = {"fn": lambda x: x} if name == "jaxfilter" else {}
         jp = [(p.name, p.type, _default(p), p.min, p.max, p.controllable,
-               p.static) for p in gt.make(name).PROPERTIES]
+               p.static) for p in gt.make(name, **kw).PROPERTIES]
         tp = [(p.name, p.type, _default(p), p.min, p.max, p.controllable,
-               p.static) for p in gtt.make(name).PROPERTIES]
+               p.static) for p in gtt.make(name, **kw).PROPERTIES]
         assert tp == jp, name
 
 

@@ -36,7 +36,9 @@ def test_import_leaves_jax_out():
             "for m in ('core.harness', 'io.y4m', 'elements.bridges', "
             "'elements.files', 'elements.misc', 'elements.observability', "
             "'elements.video.videosignal', 'utils.trace', 'utils.validate', "
-            "'session.transcoder', 'cli', '__main__'):\n"
+            "'session.transcoder', 'cli', '__main__', 'ops.netsim', "
+            "'io.gdp', 'io.aiff', 'io.aes', 'elements.ioelements', "
+            "'elements.jaxfilter'):\n"
             "    assert 'gstbad_tpu_torch.' + m in sys.modules, m\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'gstbad_tpu.')) "
@@ -119,7 +121,7 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
 
 def test_unported_parts_refuse_cleanly():
     with pytest.raises(KeyError):
-        gtt.parse_launch("videotestsrc ! netsim ! fakesink",
+        gtt.parse_launch("videotestsrc ! x265enc ! fakesink",
                          device="cpu")
     # formats and patterns that neither package knows
     p = gtt.parse_launch("videotestsrc ! videoconvert format=NV16 "
