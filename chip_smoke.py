@@ -227,13 +227,42 @@ line):
    aifffilesink, accurip, uvch264mjpgdemux (on a seeded frame, uvc_mjpeg),
    switchbin, watchdog, clockselect and jaxfilter fn=255 - x, card against
    CPU port; then H5 on the launch its main path made, timed there.
-   Each phase logs its seconds on a line of its own ("phase 4i: ... s").
+   Then the sessions (session_slice, phase 4j), each path with the counts
+   set to 0 just before its counted run and read just after, with its
+   peak device memory: play_headline_1080p (Play of the headline on ball
+   at 1920x1080 BGRx, window 64, with a colour balance at hue 0.6,
+   saturation 0.7 and brightness 0.55: K1 once a window, every other
+   count 0; frames/s by the host clock from play() to end-of-stream over
+   10 windows, median of 3, and its active pipeline's device step by CUDA
+   events), play_vis_48k (Play of a 440 Hz sine in blocks of 4800 at
+   volume 0.5 with a wavescope, its style set to color-lines on the
+   element Play made: scope_filter once a window (the default style,
+   dots, takes no filter); blocks/s by the host clock; scope_filter on
+   the input of its second window at window 64, recorded on an
+   uncounted run, against its plain version, exact, and timed there)
+   and camera_1080p (Camera recording ball AYUV 1920x1080
+   at zoom 2 with EV +1, ISO 400, daylight and sepia, previews posted: no
+   kernel; viewfinder frames/s by CUDA events around 10 steps); each held
+   against the CPU port at a window of 16 over 2 windows: the headline
+   seek-accurate to frame 320 and then at rate -1 from frame 31 down to 0
+   (frames, pts, flags, valid, the native snapshots and every message
+   equal, position-updated, seek-done, video-dimensions-changed and
+   state-changed among them), the sine at volume 0.5 and then muted
+   (zero samples; volume-changed and mute-changed posted), the camera's
+   2-window recording, one MODE_IMAGE capture and a 1-window recording
+   in tone normal under the cloudy gains (the written bytes and the image-done,
+   video-done and preview-image messages equal); then hlsdemux,
+   dashdemux and mssdemux on in-memory manifests with an injected clock
+   (host only, untimed: switches, byte ranges, seeks and needs-manifest
+   as they should be).
+   Each phase logs its seconds on a line of its own ("phase 4j: ... s").
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
    around 10 steps of a 64-frame window, 16 at 4K, data kept on the card;
    4 steps where a step takes 50 ms or more),
    a torch.profiler breakdown of each graph's step, the fourteen and
-   phase 4i's four device graphs (the earlier slices' paths are timed,
-   their traces taken in their own PRs) (device busy
+   phase 4j's three device graphs (the active pipelines of
+   play_headline_1080p and play_vis_48k, and camera_1080p's; the earlier slices' paths are timed, their traces
+   taken in their own PRs) (device busy
    time, device ops per step, idle share),
    traced in a second process that runs nothing else (chip_smoke.py
    --profile, which the run starts and waits for), and each kernel
@@ -545,13 +574,13 @@ def profile_graphs(step_ms: dict) -> None:
 def profile_main(spec: str) -> int:
     """`chip_smoke.py --profile SPEC`, SPEC a JSON {key: [untraced step
     ms, window]}: profile_step of each graph named there, one of the
-    fourteen or one of phase 4i's (source graphs: no host feed)."""
+    fourteen or one of phase 4j's (source graphs: no host feed)."""
     sys.path.insert(0, ROOT)
     import gstbad_tpu_torch as gtt
     from gstbad_tpu_torch.models import benchmarks
 
     builds = dict(main_graphs(gtt, benchmarks)[0])
-    builds.update((k, v[0]) for k, v in deferred_paths(gtt).items())
+    builds.update(session_graphs())
     for key, (ms, window) in json.loads(spec).items():
         profile_step(builds[key]("cuda"), ms, key, window)
     return 0
@@ -2875,10 +2904,6 @@ def overlay_slice(gtt, counters, launches, err, card) -> dict:
 
 WINDOW_4I = 64                  # phase 4i's window
 CHECK_4I = 16                   # its card-against-CPU checks' (CPU time)
-# phase 4i's graphs the profile traces (the others hash or transcode on
-# the host)
-TRACED_4I = ("netsim_1080p", "speed_48k", "timecode_1080p_2997df",
-             "autovideoconvert_1080p")
 NETSIM_1080P = (f"videotestsrc pattern=ball width={W} height={H} "
                 "format=BGRx framerate=30/1 ! netsim max-kbps=1500000 "
                 "max-bucket-size=200000 drop-packets=3 drop-probability={} "
@@ -3421,6 +3446,591 @@ def deferred_slice(gtt, counters, launches, err, card) -> dict:
     log(f"deferred_slice: {time.perf_counter() - t_phase:.1f} s")
     return {"step_ms": step_ms, "times": times, "bounds": bounds,
             "chains": chains}
+
+
+WINDOW_4J = 64                  # phase 4j's window
+CHECK_4J = 16                   # its card-against-CPU checks: 2 windows
+RATE_WINDOWS_4J = 10            # the Play paths' host-clock rate
+SESSION_HEADLINE = launch_line("ball", HEAD + " ! zebrastripe")
+SESSION_AUDIO = ("audiotestsrc wave=sine freq=440 "
+                 f"samplesperbuffer={AUDIO_BLOCK} ! fakeaudiosink")
+SESSION_CAMERA = (f"videotestsrc pattern=ball width={W} height={H} "
+                  "format=AYUV")
+# play_headline_1080p's colour balance (channel, value in [0, 1])
+SESSION_BALANCE = (("hue", 0.6), ("saturation", 0.7), ("brightness", 0.55))
+# phase 4j's device graphs the profile traces
+TRACED_4J = ("play_headline_1080p", "play_vis_48k", "camera_1080p")
+
+
+def session_play(key, device, window, n_frames, on_frame=None):
+    """The Play of play_headline_1080p (the headline on ball with a colour
+    balance) or play_vis_48k (a 440 Hz sine at half volume with a
+    wavescope in the color-lines style, whose taps come from
+    scope_filter), paced by nothing."""
+    from gstbad_tpu_torch.session import Play
+    if key == "play_headline_1080p":
+        p = Play(SESSION_HEADLINE, window=window, realtime=False,
+                 n_frames=n_frames, on_frame=on_frame, device=device)
+        for channel, value in SESSION_BALANCE:
+            p.set_color_balance(channel, value)
+        return p
+    p = Play(SESSION_AUDIO, window=window, realtime=False,
+             n_frames=n_frames, on_frame=on_frame, device=device)
+    p.set_volume(0.5)
+    if not p.set_visualization("wavescope"):
+        fail("play_vis_48k: no wavescope")
+    p.set_visualization_enabled(True)
+    # the style on the element Play made, as playbin's vis-plugin takes a
+    # configured element (the default style, dots, takes no filter)
+    if not p._prepare():
+        fail(f"play_vis_48k: {p.message_bus.pop(name='error')}")
+    p._vis_node.element.set_property("style", "color-lines")
+    return p
+
+
+def session_camera(device, mode, window, location, tone="sepia",
+                   wb="daylight"):
+    """camera_1080p's Camera: ball AYUV 1920x1080, digital zoom 2, EV +1,
+    ISO 400, white balance `wb` (daylight), colour tone `tone` (sepia,
+    which replaces the chroma), previews posted."""
+    from gstbad_tpu_torch.session import camera
+    cam = camera.Camera(source=SESSION_CAMERA, mode=mode, zoom=2.0,
+                        window=window, post_previews=True,
+                        location=location, device=device)
+    if not (cam.set_ev_compensation(1.0) and cam.set_iso_speed(400)
+            and cam.set_white_balance_mode(wb)
+            and cam.set_color_tone_mode(tone)):
+        fail("camera_1080p: a photography setting was refused")
+    return cam
+
+
+def session_graphs():
+    """{key: build(device) -> Pipeline}: the device graphs of phase 4j,
+    for the frames/s of their steps and the profile (the Play's active
+    pipeline, the Camera's pipeline)."""
+    from gstbad_tpu_torch.session import camera
+
+    def play_graph(key):
+        def build(device):
+            play = session_play(key, device, WINDOW_4J, WINDOW_4J)
+            if not play._prepare():
+                fail(f"{key}: {play.message_bus.pop(name='error')}")
+            return play._run_p
+        return build
+
+    return {"play_headline_1080p": play_graph("play_headline_1080p"),
+            "play_vis_48k": play_graph("play_vis_48k"),
+            "camera_1080p": lambda device: session_camera(
+                device, camera.MODE_VIDEO, WINDOW_4J, "unused_%d").pipeline}
+
+
+class FrameLog:
+    """A Play on_frame callback keeping every dispatched frame: (pts,
+    flags, valid, data), the data a host copy ({plane: array} if
+    planar)."""
+
+    def __init__(self):
+        self.frames = []
+
+    def __call__(self, b, i):
+        import numpy as np
+        d = b.data
+        data = ({k: np.array(v[i]) for k, v in d.items()}
+                if isinstance(d, dict) else np.array(d[i]))
+        self.frames.append((int(b.pts[i]), int(b.flags[i]),
+                            bool(b.valid[i]), data))
+
+
+def session_fields(v):
+    """A message field in a form that compares across devices: media info
+    and specs as dicts, states by value, arrays as (dtype, shape, bytes),
+    file names without their directory."""
+    import dataclasses
+    import enum
+    import numpy as np
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return {f.name: session_fields(getattr(v, f.name))
+                for f in dataclasses.fields(v)}
+    if isinstance(v, enum.Enum):
+        return v.value
+    if isinstance(v, (list, tuple)):
+        return [session_fields(x) for x in v]
+    if isinstance(v, dict):
+        return {k: os.path.basename(x) if k in ("filename", "location")
+                else session_fields(x) for k, x in v.items()}
+    if isinstance(v, np.ndarray):
+        return (str(v.dtype), v.shape, v.tobytes())
+    return v
+
+
+def session_messages(bus):
+    return [(m.element, m.name, m.pts, session_fields(m.fields))
+            for m in bus.messages]
+
+
+def frames_equal(key, got, cpu) -> int:
+    """Dispatched frames of a card run against the CPU port's: the same
+    pts, flags, valid and bytes, in order.  Returns the frame count."""
+    import numpy as np
+    if len(got) != len(cpu):
+        fail(f"{key}: {len(got)} frames dispatched on the card, {len(cpu)} "
+             "on the CPU port")
+    for n, (a, c) in enumerate(zip(got, cpu)):
+        if a[:3] != c[:3]:
+            fail(f"{key}: frame {n}: pts, flags, valid {a[:3]} on the card, "
+                 f"{c[:3]} on the CPU port")
+        ad = a[3] if isinstance(a[3], dict) else {"": a[3]}
+        cd = c[3] if isinstance(c[3], dict) else {"": c[3]}
+        if sorted(ad) != sorted(cd) or any(
+                ad[k].dtype != cd[k].dtype or not np.array_equal(ad[k], cd[k])
+                for k in ad):
+            fail(f"{key}: frame {n} (pts {a[0]}) differs from the CPU "
+                 "port's")
+    return len(got)
+
+
+def play_to_eos(key, play, timeout=600.0) -> float:
+    """play() and wait for the worker to stop at the end of the stream;
+    an `error` message fails the run.  Returns the host seconds."""
+    t0 = time.perf_counter()
+    play.play()
+    while play.state.value != "stopped":
+        if time.perf_counter() - t0 > timeout:
+            fail(f"{key}: no end of stream in {timeout} s")
+        time.sleep(0.0005)
+    dt = time.perf_counter() - t0
+    errors = play.message_bus.pop(name="error")
+    if errors:
+        fail(f"{key}: {errors[0].fields}")
+    return dt
+
+
+def adaptive_checks(gtt) -> dict:
+    """hlsdemux, dashdemux and mssdemux on in-memory manifests (the shapes
+    of tests/test_adaptive.py) with an injected fetch and clock: host
+    code (the elements never touch a tensor; tests/test_torch_adaptive.py
+    holds them against the JAX package), checked for what each fragment
+    list should cover (URIs, byte ranges, caps changes, bitrate
+    switches, seeks, needs-manifest).  -> {name: what was checked}."""
+    master = ("#EXTM3U\n#EXT-X-STREAM-INF:PROGRAM-ID=1,BANDWIDTH=100000\n"
+              "low.m3u8\n#EXT-X-STREAM-INF:PROGRAM-ID=1,BANDWIDTH=1000000\n"
+              "high.m3u8\n")
+
+    def media(prefix, n=6, ranges=False):
+        out = "#EXTM3U\n#EXT-X-TARGETDURATION:2\n#EXT-X-VERSION:4\n"
+        for i in range(n):
+            out += (f"#EXTINF:2,\n#EXT-X-BYTERANGE:25000@{i * 25000}\n"
+                    f"{prefix}.ts\n" if ranges
+                    else f"#EXTINF:2,\n{prefix}{i}.ts\n")
+        return out + "#EXT-X-ENDLIST\n"
+
+    mpd = ('<?xml version="1.0"?><MPD xmlns="urn:mpeg:dash:schema:mpd:2011"'
+           ' type="static" mediaPresentationDuration="PT12S"><Period>'
+           '<AdaptationSet contentType="video" mimeType="video/mp4">'
+           '<SegmentTemplate media="$RepresentationID$/seg-$Number$.m4s" '
+           'initialization="$RepresentationID$/init.mp4" duration="2" '
+           'timescale="1" startNumber="1"/><Representation id="low" '
+           'bandwidth="100000" width="320" height="180" codecs="avc1.42c00d"'
+           '/><Representation id="high" bandwidth="1000000" width="1280" '
+           'height="720" codecs="avc1.640028"/></AdaptationSet></Period>'
+           '</MPD>')
+    mss = ('<SmoothStreamingMedia TimeScale="10000000" Duration="80000000">'
+           '<StreamIndex Type="video" Url="QualityLevels({bitrate})/'
+           'Fragments(video={start time})"><QualityLevel Bitrate="300000" '
+           'FourCC="H264" MaxWidth="320" MaxHeight="180"/><QualityLevel '
+           'Bitrate="2000000" FourCC="H264" MaxWidth="1280" MaxHeight="720"'
+           '/><c t="0" d="20000000" r="4"/></StreamIndex>'
+           '</SmoothStreamingMedia>')
+
+    class Net:
+        def __init__(self, files, rate_bps):
+            self.files, self.rate, self.t, self.log = dict(files), rate_bps, \
+                0.0, []
+
+        def clock(self):
+            return self.t
+
+        def fetch(self, uri, byte_range=None):
+            data = self.files[uri]
+            if byte_range is not None:
+                data = data[byte_range[0]:byte_range[0] + byte_range[1]]
+            self.t += len(data) * 8 / self.rate
+            self.log.append((uri, byte_range))
+            return data
+
+    def hls():
+        files = {"http://x/low.m3u8": media("http://x/low").encode(),
+                 "http://x/high.m3u8": media("http://x/high", ranges=True)
+                 .encode(), "http://x/high.ts": b"H" * 150000}
+        files.update((f"http://x/low{i}.ts", b"L" * 25000)
+                     for i in range(6))
+        net = Net(files, 10_000_000)
+        el = gtt.make("hlsdemux")
+        el.load(master, net.fetch, uri="http://x/master.m3u8",
+                clock=net.clock)
+        frags = list(el.fragments(max_fragments=3))
+        el.demux.seek(5_000_000_000)
+        frags += list(el.fragments())
+        live = ("#EXTM3U\n#EXT-X-TARGETDURATION:2\n#EXT-X-MEDIA-SEQUENCE:0\n"
+                "#EXTINF:2,\nhttp://x/s0.ts\n")
+        lnet = Net({"http://x/live.m3u8": live.encode(),
+                    "http://x/s0.ts": b"a" * 100,
+                    "http://x/s1.ts": b"b" * 100}, 1_000_000)
+        it = gtt.make("hlsdemux").load(live, lnet.fetch,
+                                       uri="http://x/live.m3u8",
+                                       clock=lnet.clock).fragments()
+        frags += [next(it), next(it)]
+        lnet.files["http://x/live.m3u8"] = (
+            live + "#EXTINF:2,\nhttp://x/s1.ts\n").encode()
+        frags.append(next(it))
+        return frags, net.log + lnet.log
+
+    def dash():
+        files = {}
+        for rep, size in (("low", 25000), ("high", 250000)):
+            files[f"http://d/{rep}/init.mp4"] = b"I" * 500
+            files.update((f"http://d/{rep}/seg-{n}.m4s", b"x" * size)
+                         for n in range(1, 7))
+        net = Net(files, 10_000_000)
+        el = gtt.make("dashdemux", **{"bitrate-limit": 0.8})
+        el.load(mpd, net.fetch, base_uri="http://d/", clock=net.clock)
+        frags = list(el.fragments(max_fragments=4))
+        el.demux.seek(7_000_000_000)
+        return frags + list(el.fragments()), net.log
+
+    def smooth():
+        files = {f"http://m/QualityLevels({q})/Fragments(video={t})":
+                 b"f" * n for q, n in (("300000", 20000),
+                                       ("2000000", 200000))
+                 for t in range(0, 80000000, 20000000)}
+        net = Net(files, 50_000_000)
+        el = gtt.make("mssdemux")
+        el.load(mss, net.fetch, base_uri="http://m/", clock=net.clock)
+        frags = list(el.fragments())
+        el.demux.seek(4_500_000_000)
+        return frags + list(el.fragments()), net.log
+
+    out = {}
+    for name, run in (("hlsdemux", hls), ("dashdemux", dash),
+                      ("mssdemux", smooth)):
+        frags, fetched = run()
+        uris = [f.get("uri") for f in frags]
+        if name == "hlsdemux":
+            # the switch up after the first fragment (byte ranges of
+            # high.ts), the seek, then the live playlist's update
+            ok = (uris[0] == "http://x/low0.ts"
+                  and uris[1] == "http://x/high.ts"
+                  and ("http://x/high.ts", (25000, 25000)) in fetched
+                  and frags[1].get("caps", {}).get("bandwidth") == 1000000
+                  and frags[-2].get("needs-manifest")
+                  and uris[-1] == "http://x/s1.ts")
+        elif name == "dashdemux":
+            # init and segment 1 on low, the switch's init and segment 2
+            # on high, the seek's init again and segments 4-6
+            ok = ([f["is-init"] for f in frags]
+                  == [True, False, True, False, True, False, False, False]
+                  and uris[2] == "http://d/high/init.mp4"
+                  and frags[3]["caps"]["width"] == 1280
+                  and uris[5] == "http://d/high/seg-4.m4s"
+                  and frags[5]["pts"] == 6_000_000_000)
+        else:
+            # the switch up after the first fragment, the seek to 4 s
+            ok = (frags[0]["caps"]["width"] == 320
+                  and "QualityLevels(2000000)" in uris[1]
+                  and len(frags) == 6 and frags[4]["pts"] == 4_000_000_000
+                  and frags[4]["caps"]["width"] == 1280)
+        if not ok:
+            fail(f"{name}: fragments "
+                 f"{[(u, f.get('pts')) for u, f in zip(uris, frags)]}")
+        out[name] = f"{len(frags)} fragments, {len(fetched)} fetches"
+    return out
+
+
+def scope_on_play(key, err) -> dict:
+    """scope_filter on the input play_vis_48k's path gives it at a window
+    of WINDOW_4J: the second window of a two-window Play (the carries
+    from the first), recorded on an uncounted run, against its plain
+    version (exact).  -> {"inputs": (state, x), "plain_s": the plain
+    walk's host seconds}."""
+    import torch
+    from gstbad_tpu_torch.ops import audio
+    store = {}
+    p = session_play(key, "cuda", WINDOW_4J, 2 * WINDOW_4J)
+    undo = capture(audio, "scope_filter", store)
+    try:
+        play_to_eos(key, p)
+    finally:
+        undo()
+    p.stop()
+    calls = store.get("scope_filter", [])
+    if len(calls) != 2:
+        fail(f"{key} gave scope_filter {len(calls)} inputs in 2 windows")
+    args = tuple(a.clone() for a in calls[-1][0])
+    got = audio.scope_filter(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = audio.scope_filter_plain(*(a.cpu() for a in args))
+    plain_s = time.perf_counter() - t0
+    e = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    err["scope_filter"] = max(err["scope_filter"], e)
+    log(f"scope_filter on {key}'s input {[tuple(a.shape) for a in args]} "
+        f"(window {WINDOW_4J}): max_abs_err {e} against its plain version "
+        f"(host {plain_s:.3f} s)")
+    if e:
+        fail(f"{key}: scope_filter differs from its plain version by {e}")
+    return {"inputs": args, "plain_s": plain_s}
+
+
+def session_slice(gtt, counters, launches, err, card) -> dict:
+    """Phase 4j: the sessions — Play driving the headline with a colour
+    balance (play_headline_1080p: K1 once a window), Play of a sine with
+    a color-lines wavescope (play_vis_48k: scope_filter once a window),
+    Camera
+    recording ball at 1080p (camera_1080p: no kernel), each with the
+    counts set to 0 just before its counted run and read just after, its
+    peak device memory, its rate (the Play paths by the host clock from
+    play() to end-of-stream over 10 windows, the Camera's viewfinder by
+    CUDA events around 10 steps), and the card against the CPU port at a
+    window of 16 over 2 windows: frames, pts, flags, valid, messages,
+    snapshots and written bytes equal; scope_filter held against its
+    plain version on play_vis_48k's input (scope_on_play); then the
+    adaptive demuxers (host only, untimed).  Returns {"step_ms",
+    "scope"}."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gstbad_tpu_torch.session import camera
+
+    t_phase = time.perf_counter()
+    dur = 10**9 // 30
+    step_ms, scope = {}, None
+    graphs = session_graphs()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_session_")
+    try:
+        for key, kname in (("play_headline_1080p", "dilate_zebra_fused"),
+                           ("play_vis_48k", "scope_filter")):
+            n_frames = RATE_WINDOWS_4J * WINDOW_4J
+            warm = session_play(key, "cuda", WINDOW_4J, WINDOW_4J)
+            play_to_eos(key, warm)
+            warm.stop()
+            runs, peaks = [], []
+            for _ in range(3):
+                play = session_play(key, "cuda", WINDOW_4J, n_frames)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                for c in counters.values():
+                    c.launches = 0
+                runs.append(n_frames / play_to_eos(key, play))
+                play.stop()
+                torch.cuda.synchronize()
+                peaks.append((torch.cuda.max_memory_allocated(), held))
+                delta = {k: c.launches for k, c in counters.items()}
+                for k, c in delta.items():
+                    want = RATE_WINDOWS_4J if k == kname else 0
+                    if c != want:
+                        fail(f"{key}: {k} launched {c} times in "
+                             f"{RATE_WINDOWS_4J} windows ({want} expected)")
+                for k in launches:
+                    launches[k] += delta[k]
+            med = statistics.median(runs)
+            peak, held = peaks[-1]
+            unit = "frames" if key == "play_headline_1080p" else "blocks"
+            log(f"{key}: launches {kname} {RATE_WINDOWS_4J} in "
+                f"{RATE_WINDOWS_4J} windows of {WINDOW_4J}, every other "
+                f"count 0; peak device memory {peak / 2**20:.1f} MiB "
+                f"({(peak - held) / 2**20:.1f} MiB above the "
+                f"{held / 2**20:.1f} MiB held before the run)")
+            log(f"rate {key}: median {med:.2f} source {unit}/s of "
+                f"{[round(x, 2) for x in runs]} (host clock from play() to "
+                f"end-of-stream, {RATE_WINDOWS_4J} windows of {WINDOW_4J}; "
+                f"{card})")
+            # the active pipeline's device step alone (CUDA events), and,
+            # for the video path, the download of one output window to
+            # the host as Pipeline.run takes it (a new pageable array)
+            dmed, druns = fps_runs(graphs[key], WINDOW_4J)
+            step_ms[key] = (WINDOW_4J * 1000.0 / dmed, WINDOW_4J)
+            log(f"fps {key} (its active pipeline's device step) window "
+                f"{WINDOW_4J}: median {dmed:.2f} source {unit}/s of "
+                f"{[round(x, 2) for x in druns]}, step "
+                f"{step_ms[key][0]:.3f} ms of the "
+                f"{WINDOW_4J * 1000.0 / med:.3f} ms a window end to end "
+                f"({card})")
+            if key == "play_headline_1080p":
+                win = torch.zeros((WINDOW_4J, H, W, 4), dtype=torch.uint8,
+                                  device="cuda")
+                down = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    win.cpu().numpy()
+                    down.append((time.perf_counter() - t0) * 1e3)
+                del win
+                log(f"{key}: the download of one {WINDOW_4J}-frame AYUV "
+                    f"window to the host (a new pageable array, as "
+                    f"Pipeline.run takes it): median "
+                    f"{statistics.median(down):.3f} ms of "
+                    f"{[round(x, 3) for x in down]} (host clock; {card})")
+            else:
+                scope = scope_on_play(key, err)
+
+            # the card against the CPU port, windows of CHECK_4J
+            t0 = time.perf_counter()
+            got = {}
+            for d in ("cuda", "cpu"):
+                rec = FrameLog()
+                if key == "play_headline_1080p":
+                    # seek-accurate to frame 320, 2 windows forward; then
+                    # rate -1 from frame 31 down to 0, 2 windows reversed
+                    p = session_play(key, d, CHECK_4J, 320 + 2 * CHECK_4J,
+                                     rec)
+                    p.set_config(seek_accurate=True)
+                    p.seek(320 * dur)
+                    play_to_eos(key, p)
+                    snaps = [p.get_video_snapshot("native")]
+                    p.stop()
+                    p.seek((2 * CHECK_4J - 1) * dur)
+                    p.set_rate(-1.0)
+                    play_to_eos(key, p)
+                    snaps.append(p.get_video_snapshot("native"))
+                    want = ([(320 + i) * dur for i in range(2 * CHECK_4J)]
+                            + [(2 * CHECK_4J - 1 - i) * dur
+                               for i in range(2 * CHECK_4J)])
+                else:
+                    # 2 windows at half volume, then muted from the start
+                    p = session_play(key, d, CHECK_4J, 2 * CHECK_4J, rec)
+                    play_to_eos(key, p)
+                    p.set_mute(True)
+                    n_loud = len(rec.frames)
+                    play_to_eos(key, p)
+                    snaps = []
+                    muted = [f for f in rec.frames[n_loud:]
+                             if f[3].ndim == 2]
+                    if not muted or any(f[3].any() for f in muted):
+                        fail(f"{key}: muted samples are not all zero")
+                    want = None
+                p.stop()
+                msgs = session_messages(p.message_bus)
+                got[d] = (rec.frames, msgs, snaps)
+                if want is not None and [f[0] for f in rec.frames] != want:
+                    fail(f"{key}: dispatched pts {[f[0] for f in rec.frames]}"
+                         f" on {d}, {want} expected")
+            n = frames_equal(key, got["cuda"][0], got["cpu"][0])
+            if got["cuda"][1] != got["cpu"][1]:
+                fail(f"{key}: the messages differ from the CPU port's")
+            for (s1, f1), (s2, f2) in zip(got["cuda"][2], got["cpu"][2]):
+                if s1 != s2 or not np.array_equal(f1, f2):
+                    fail(f"{key}: the snapshot differs from the CPU port's")
+            names = [m[1] for m in got["cuda"][1]]
+            need = (("position-updated", "seek-done",
+                     "video-dimensions-changed", "state-changed")
+                    if key == "play_headline_1080p"
+                    else ("volume-changed", "mute-changed", "state-changed"))
+            if key == "play_headline_1080p":
+                order = [names.index(x) for x in need if x in names]
+                if len(order) != len(need):
+                    fail(f"{key}: messages {sorted(set(names))}, missing "
+                         f"some of {need}")
+            elif not all(x in names for x in need):
+                fail(f"{key}: messages {sorted(set(names))}, missing some "
+                     f"of {need}")
+            log(f"{key}: the card equals the CPU port at a window of "
+                f"{CHECK_4J}: {n} frames, {len(names)} messages "
+                f"({', '.join(sorted(set(names)))}), "
+                f"{len(got['cuda'][2])} snapshots "
+                f"({time.perf_counter() - t0:.2f} s)")
+
+        # camera_1080p: the counted run is the viewfinder over 2 windows
+        key = "camera_1080p"
+        cam = session_camera("cuda", camera.MODE_VIDEO, WINDOW_4J,
+                             os.path.join(tmp, "unused_%d"))
+        cam.run_viewfinder(1)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        for c in counters.values():
+            c.launches = 0
+        seen = []
+        cam.set_viewfinder(lambda b, spec: seen.append(int(b.valid.sum())))
+        cam.run_viewfinder(2)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        delta = {k: c.launches for k, c in counters.items() if c.launches}
+        if delta:
+            fail(f"{key}: kernels launched {delta} (none expected)")
+        if seen != [WINDOW_4J, WINDOW_4J]:
+            fail(f"{key}: viewfinder windows of {seen} frames")
+        med, all_runs = fps_runs(graphs[key], WINDOW_4J)
+        step_ms[key] = (WINDOW_4J * 1000.0 / med, WINDOW_4J)
+        log(f"{key}: launches 0 in 2 viewfinder windows of {WINDOW_4J}; "
+            f"peak device memory {peak / 2**20:.1f} MiB "
+            f"({(peak - held) / 2**20:.1f} MiB above the "
+            f"{held / 2**20:.1f} MiB held before the run)")
+        log(f"fps {key} window {WINDOW_4J}: median {med:.2f} viewfinder "
+            f"frames/s of {[round(x, 2) for x in all_runs]}, step "
+            f"{step_ms[key][0]:.3f} ms (device step, CUDA events around 10 "
+            f"steps; {card})")
+        del cam
+        # the card against the CPU port: a recording over 2 windows of
+        # CHECK_4J and, in MODE_IMAGE, one capture (PNM: the luma only);
+        # and a recording over 1 window in tone normal under the cloudy
+        # gains, whose chroma goes through the float64 arithmetic that
+        # sepia replaces
+        t0 = time.perf_counter()
+        got = {}
+        for d in ("cuda", "cpu"):
+            os.makedirs(os.path.join(tmp, d))
+            vid = session_camera(d, camera.MODE_VIDEO, CHECK_4J,
+                                 os.path.join(tmp, d, "vid_%d.raw"))
+            vid.start_capture()
+            vid.step()
+            paths = [vid.stop_capture()]
+            img = session_camera(d, camera.MODE_IMAGE, CHECK_4J,
+                                 os.path.join(tmp, d, "img_%d.pnm"))
+            paths.append(img.start_capture())
+            wb = session_camera(d, camera.MODE_VIDEO, CHECK_4J,
+                                os.path.join(tmp, d, "wb_%d.raw"),
+                                tone="normal", wb="cloudy")
+            wb.start_capture()
+            paths.append(wb.stop_capture())
+            data = []
+            for path in paths:
+                with open(path, "rb") as f:
+                    data.append(f.read())
+                os.remove(path)
+            got[d] = (data, session_messages(vid.bus)
+                      + session_messages(img.bus) + session_messages(wb.bus))
+        if got["cuda"][0] != got["cpu"][0]:
+            fail(f"{key}: the written bytes differ from the CPU port's")
+        if got["cuda"][1] != got["cpu"][1]:
+            fail(f"{key}: the messages differ from the CPU port's")
+        sepia, _, cloudy = got["cuda"][0]
+        if len(cloudy) != CHECK_4J * W * H * 4 \
+                or cloudy == sepia[:len(cloudy)]:
+            fail(f"{key}: the cloudy recording ({len(cloudy)} bytes) is "
+                 "not one window or equals the sepia one")
+        names = [m[1] for m in got["cuda"][1]]
+        if names != ["preview-image", "video-done", "preview-image",
+                     "image-done", "preview-image", "video-done"]:
+            fail(f"{key}: messages {names}")
+        rec_bytes = len(sepia)
+        if rec_bytes != 2 * CHECK_4J * W * H * 4:
+            fail(f"{key}: a {rec_bytes}-byte recording")
+        log(f"{key}: the card equals the CPU port at a window of "
+            f"{CHECK_4J}: a {rec_bytes}-byte recording over 2 windows (raw "
+            f"AYUV), a {len(got['cuda'][0][1])}-byte PNM capture, a "
+            f"{len(cloudy)}-byte recording in tone normal under the cloudy "
+            f"gains, messages {names} ({time.perf_counter() - t0:.2f} s)")
+
+        demux = adaptive_checks(gtt)
+        log("phase 4j adaptive demuxers (host only, untimed): "
+            + "; ".join(f"{k} {v}" for k, v in demux.items()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"session_slice: {time.perf_counter() - t_phase:.1f} s")
+    return {"step_ms": step_ms, "scope": scope}
 
 
 def main() -> int:
@@ -4216,6 +4826,10 @@ def main() -> int:
     deferred = deferred_slice(gtt, counters, launches, err, card)
     phase_done("4i")
 
+    # 4j. the sessions (session_slice)
+    sessions = session_slice(gtt, counters, launches, err, card)
+    phase_done("4j")
+
     # 5. timing
     fps = {}
     for key, build in runs.items():
@@ -4239,11 +4853,10 @@ def main() -> int:
         "x that")
     step_ms = {key: (windows[key] * 1000.0 / fps[key], windows[key])
                for key in runs}
-    # the traces: the fourteen and phase 4i's graphs whose step is device
-    # work; the earlier slices' traces stand in PERF.md section 5 from
-    # their own runs (tracing them took most of the profile process)
-    step_ms.update((k, v) for k, v in deferred["step_ms"].items()
-                   if k in TRACED_4I)
+    # the traces: the fourteen and phase 4j's device graphs; the earlier
+    # slices' traces stand in PERF.md section 5 from their own runs
+    # (tracing them took most of the profile process)
+    step_ms.update((k, sessions["step_ms"][k]) for k in TRACED_4J)
     phase_done("5 (frames/s)")
     profile_graphs(step_ms)
     phase_done("5 (profiles)")
@@ -4498,6 +5111,11 @@ def main() -> int:
         args = wi[k]
         times[k] = (cuda_ms(lambda: getattr(audio, k)(*args)),
                     walk["plain_s"][k] * 1e3, None)
+    # scope_filter on play_vis_48k's window (phase 4j)
+    pv_state, pv_x = sessions["scope"]["inputs"]
+    times["scope_filter_play_vis"] = (
+        cuda_ms(lambda: audio.scope_filter(pv_state, pv_x)),
+        sessions["scope"]["plain_s"] * 1e3, None)
     cycles = {}
     for kind, k in enumerate(("adpcm_ima_decode", "adpcm_ms_decode",
                               "adpcm_ima_encode")):
@@ -4507,6 +5125,7 @@ def main() -> int:
     _cuda.launch("gst_scope_step_cycles", probe, 1 << 16)
     torch.cuda.synchronize()
     cycles["scope_filter"] = probe[0].item() / (1 << 16)
+    cycles["scope_filter_play_vis"] = cycles["scope_filter"]
     blocks_ima, ch_ima = wi["adpcm_ima_decode"]
     blocks_ms, ch_ms = wi["adpcm_ms_decode"]
     enc_x, _ = wi["adpcm_ima_encode"]
@@ -4533,6 +5152,9 @@ def main() -> int:
         "scope_filter": (
             4 * sf_x.numel() + 8 * 3 * sf_x.numel() + 16 * sf_state.numel(),
             fp32_per_s / 2, 12 * sf_x.numel(), sf_x.shape[0]),
+        "scope_filter_play_vis": (
+            4 * pv_x.numel() + 8 * 3 * pv_x.numel() + 16 * pv_state.numel(),
+            fp32_per_s / 2, 12 * pv_x.numel(), pv_x.shape[0]),
     }
     for k, (nbytes, rate, ops, steps) in walk_shapes.items():
         chains[k] = steps * cycles[k] / sm_hz * 1e3
@@ -4573,7 +5195,7 @@ def main() -> int:
              "replaces": replaces, "launches": launches[kname],
              "max_abs_err": err[kname], "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        if mode:   # the source a kernel of two modes was timed on
+        if mode:   # the mode or the path a kernel of two rows was timed on
             e["mode"] = mode
         return e
 
@@ -4611,7 +5233,11 @@ def main() -> int:
         entry("adpcm_ima_encode", "adpcm_ima_encode", "adpcm_kernels.cu",
               "gstbad_tpu/ops/audio.py:1532"),
         entry("scope_filter", "scope_filter", "scope_kernels.cu",
-              "gstbad_tpu/elements/audio/visualizers.py:228"),
+              "gstbad_tpu/elements/audio/visualizers.py:228",
+              "scopes_720p_wavescope"),
+        entry("scope_filter", "scope_filter_play_vis", "scope_kernels.cu",
+              "gstbad_tpu/elements/audio/visualizers.py:228",
+              "play_vis_48k"),
         # not TPU kernels: the Haar cascade's tree scan and its unrolled
         # form, the rotated table's row scan, SGM's path scans
         entry("haar_cascade", "haar_cascade", "haar_kernels.cu",

@@ -1,7 +1,8 @@
 """Element families; importing this package registers every factory."""
 
 from gstbad_tpu_torch.elements import (  # noqa: F401
-    bridges, debugutils, files, ioelements, jaxfilter, misc, observability)
+    adaptivedemux, bridges, debugutils, files, ioelements, jaxfilter, misc,
+    observability)
 from gstbad_tpu_torch.elements.analysis import compare  # noqa: F401
 from gstbad_tpu_torch.elements.audio import (  # noqa: F401
     adpcm, bpmdetect, bs2b, buffersplit, convert as audio_convert, freeverb,

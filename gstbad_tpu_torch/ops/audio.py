@@ -24,7 +24,7 @@ The ADPCM walks (csrc/adpcm_kernels.cu) and the scopes' filter
 (csrc/scope_kernels.cu) are hand-written CUDA kernels beside plain walks,
 as freeverb_scan is: each replaces an XLA scan, not a TPU kernel.  Where
 the JAX package's compiled window contracts `a*b + c` into an FMA, the
-port rounds once too (fma32, _fma), so those paths stay bit exact.
+port rounds once too (fma32, fma64), so those paths stay bit exact.
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ import torch
 
 from gstbad_tpu_torch.core.frame import to_device
 from gstbad_tpu_torch.ops import fft
-from gstbad_tpu_torch.ops.numerics import f32, fma32, full_fp32, true_div
+from gstbad_tpu_torch.ops.numerics import f32, fma32, fma64, full_fp32, \
+    true_div
 from gstbad_tpu_torch.ops.scan import associative_scan
 
 # ---------------------------------------------------------------------------
@@ -1395,22 +1396,10 @@ adpcm_ima_encode.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _fma(a: float, b: float, c: float) -> float:
-    """a * b + c with one rounding, for Python floats: the exact value as
-    a ratio of integers (every float is one, with a power-of-two
-    denominator), divided once (int / int rounds correctly)."""
-    na, da = a.as_integer_ratio()
-    nb, db = b.as_integer_ratio()
-    nc, dc = c.as_integer_ratio()
-    dab = da * db
-    den = max(dab, dc)
-    return (na * nb * (den // dab) + nc * (den // dc)) / den
-
-
 def scope_filter_plain(state, x):
     """The plain form of scope_filter: the per-sample float64 filter as a
     loop over the samples on the host, one walk per channel.  The four
-    updates `carry + value * constant` take one rounding (_fma), as the
+    updates `carry + value * constant` take one rounding (fma64), as the
     JAX package's compiled scan contracts them into FMAs; every other
     product and sum rounds on its own (Python floats contract nothing)."""
     n, c = x.shape
@@ -1423,11 +1412,11 @@ def scope_filter_plain(state, x):
         t0, t1, t2 = [0.0] * n, [0.0] * n, [0.0] * n
         for i, inp in enumerate(col):
             f2 = inp - f1 * 2.0 - f0
-            f1 = _fma(f2, 0.15, f1)
-            f0 = _fma(f1, 0.15, f0)
+            f1 = fma64(f2, 0.15, f1)
+            f0 = fma64(f1, 0.15, f0)
             f5 = (f1 + f2) - f4 * 2.0 - f3
-            f4 = _fma(f5, 0.45, f4)
-            f3 = _fma(f4, 0.45, f3)
+            f4 = fma64(f5, 0.45, f4)
+            f3 = fma64(f4, 0.45, f3)
             t0[i], t1[i], t2[i] = f0, f3, f4 + f5
         taps[:, 0, ch], taps[:, 1, ch], taps[:, 2, ch] = t0, t1, t2
         st[ch] = (f0, f1, f2, f3, f4, f5)

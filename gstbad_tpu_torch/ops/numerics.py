@@ -10,7 +10,7 @@ and on the CPU:
 - division by a Python number is one IEEE division by a device scalar
   (true_div);
 - where XLA's CPU code contracts `a*b + c` into one FMA, the port rounds
-  once too (fma32).
+  once too (fma32 on float32 tensors, fma64 on Python floats).
 """
 
 from __future__ import annotations
@@ -58,3 +58,15 @@ def fma32(a, b, c):
     The same separate float64 ops on the card and the CPU."""
     return (a.to(torch.float64) * b.to(torch.float64)
             + c.to(torch.float64)).to(torch.float32)
+
+
+def fma64(a: float, b: float, c: float) -> float:
+    """a * b + c with one rounding, for Python floats: the exact value as
+    a ratio of integers (every float is one, with a power-of-two
+    denominator), divided once (int / int rounds correctly)."""
+    na, da = a.as_integer_ratio()
+    nb, db = b.as_integer_ratio()
+    nc, dc = c.as_integer_ratio()
+    dab = da * db
+    den = max(dab, dc)
+    return (na * nb * (den // dab) + nc * (den // dc)) / den

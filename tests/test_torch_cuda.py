@@ -13,7 +13,9 @@ kernels (H1 haar_cascade, H2 tilted_integral, H3 sgm_aggregate) against
 their plain versions, with the face, hand and stereo elements on the card
 against the CPU port; and H5 (netsim_bucket, netsim's token-bucket walk)
 against its plain walk, with netsim, speed, timecodestamper,
-autovideoconvert and checksumsink graphs on the card against the CPU port.
+autovideoconvert and checksumsink graphs on the card against the CPU port;
+and the sessions (Play with a colour balance and with a visualisation, a
+Camera recording) on the card against the CPU port.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  They
 import neither jax nor gstbad_tpu, so they run on a machine that has only
@@ -1309,3 +1311,93 @@ def test_deferred_graph_on_card_equals_cpu_port(dev, desc, n, window):
         db = b.data if isinstance(b.data, dict) else {"": b.data}
         for k in db:
             np.testing.assert_array_equal(da[k], db[k])
+
+
+def _session_run(case, device, tmp_path):
+    """One session scenario on `device`: what it dispatched or wrote and
+    its messages (states by value, file names without directories)."""
+    import time
+    from gstbad_tpu_torch.session import Play, camera
+
+    def fields(f):
+        return {k: (os.path.basename(v) if k in ("filename", "location")
+                    else getattr(v, "value", v)) for k, v in f.items()
+                if k not in ("media_info", "buffer")}
+
+    frames = []
+
+    def keep(b, i):
+        d = b.data
+        frames.append((int(b.pts[i]),
+                       {k: np.array(v[i]) for k, v in d.items()}
+                       if isinstance(d, dict) else np.array(d[i])))
+
+    if case.startswith("camera"):
+        out = tmp_path / device
+        out.mkdir()
+        cam = camera.Camera(source="videotestsrc pattern=ball width=64 "
+                            "height=48 format=AYUV", mode=camera.MODE_VIDEO,
+                            zoom=2.0, window=4, post_previews=True,
+                            location=str(out / "vid_%d.raw"), device=device)
+        cam.set_ev_compensation(1.0)
+        if case == "camera":
+            cam.set_color_tone_mode("sepia")
+        else:
+            # tone normal: the chroma goes through the float64 gains
+            cam.set_iso_speed(400)
+            assert cam.set_white_balance_mode("cloudy")
+        cam.start_capture()
+        cam.step()
+        with open(cam.stop_capture(), "rb") as f:
+            data = f.read()
+        return data, [(m.name, fields(m.fields)) for m in cam.bus.messages]
+    if case == "headline":
+        p = Play(f"videotestsrc pattern=ball width=64 height=48 format=BGRx "
+                 f"! {HEAD} ! zebrastripe ! fakesink", window=4,
+                 realtime=False, n_frames=12, on_frame=keep, device=device)
+        p.set_color_balance("hue", 0.6)
+        p.set_color_balance("saturation", 0.7)
+        p.set_config(seek_accurate=True)
+        p.seek(4 * (10**9 // 30))
+    else:
+        p = Play("audiotestsrc wave=sine freq=440 samplesperbuffer=480 "
+                 "! fakeaudiosink", window=4, realtime=False, n_frames=8,
+                 on_frame=keep, device=device)
+        p.set_volume(0.5)
+        assert p.set_visualization("wavescope")
+        p.set_visualization_enabled(True)
+        # the style on the element Play made (dots takes no filter)
+        assert p._prepare()
+        p._vis_node.element.set_property("style", "color-lines")
+    p.play()
+    deadline = time.time() + 120
+    while p.state.value != "stopped" and time.time() < deadline:
+        time.sleep(0.01)
+    p.stop()
+    return frames, [(m.name, fields(m.fields)) for m in p.message_bus.messages]
+
+
+@pytest.mark.parametrize("case", ["headline", "vis", "camera",
+                                  "camera_cloudy"])
+def test_sessions_on_card_equal_cpu_port(dev, case, tmp_path):
+    """Play of the headline with a colour balance (K1 once a window), of
+    a sine with a color-lines wavescope (scope_filter once a window) and
+    a Camera recording in sepia and in tone normal under the cloudy
+    gains: the card's frames, messages and bytes equal the CPU port's."""
+    kernel = {"headline": chainfuse.dilate_zebra_fused,
+              "vis": audio.scope_filter}.get(case)
+    before = kernel.launches if kernel is not None else 0
+    got, msgs = _session_run(case, "cuda", tmp_path)
+    if kernel is not None:
+        assert kernel.launches - before == 2
+    want, cpu_msgs = _session_run(case, "cpu", tmp_path)
+    assert msgs == cpu_msgs
+    if case.startswith("camera"):
+        assert got == want and len(got) == 8 * 48 * 64 * 4
+        return
+    assert [f[0] for f in got] == [f[0] for f in want]
+    for (_, a), (_, b) in zip(got, want):
+        a = a if isinstance(a, dict) else {"": a}
+        b = b if isinstance(b, dict) else {"": b}
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k])
