@@ -255,7 +255,22 @@ line):
    dashdemux and mssdemux on in-memory manifests with an injected clock
    (host only, untimed: switches, byte ranges, seeks and needs-manifest
    as they should be).
-   Each phase logs its seconds on a line of its own ("phase 4j: ... s").
+   Then the mesh (mesh_slice, phase 4k), on [cuda:i for i in
+   range(count)] repeated up to four logical shards, dp 2 x sp 2: the
+   1080p headline (bars, window 64), warp_1080p, config 5 at 1280x720, a
+   1080p gaussianblur graph on ball and bs2b at 48 kHz, 2 windows each
+   through the sharded step with the counts set to 0 just before and read
+   just after (K1 and K3 once a shard a window, with their halo rows; K7,
+   K4 and K5 once a window by the gather rule; nothing else), each equal
+   field for field (frames, pts, flags, valid, messages) to the unsharded
+   card step, the nodes the gather rule ran and the halo exchanges
+   printed; K1 and K3 held against their plain versions on the shard
+   inputs the mesh gave them ([1, 541, 1920] and [32, 544, 1920]); the
+   headline's sharded and unsharded frames/s; then 16 of its 1080p
+   frames, downloaded from the card, through appsrc ! shmsink, shmsrc !
+   fakesink and ipcpipelinesink, ipcpipelinesrc, both ends in this process
+   (the reader on a thread), bytes equal, MB/s by the host clock.
+   Each phase logs its seconds on a line of its own ("phase 4k: ... s").
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
    around 10 steps of a 64-frame window, 16 at 4K, data kept on the card;
    4 steps where a step takes 50 ms or more),
@@ -4033,6 +4048,263 @@ def session_slice(gtt, counters, launches, err, card) -> dict:
     return {"step_ms": step_ms, "scope": scope}
 
 
+WINDOW_4K = 64                  # phase 4k's window
+MESH_SHARDS = 4                 # its mesh: dp 2 x sp 2
+TRANSPORT_FRAMES = 16           # 1080p AYUV frames through each transport
+
+
+def mesh_paths(benchmarks):
+    """The paths of phase 4k: {key: (build(device) -> Pipeline,
+    {kernel: launches a window under the dp 2 x sp 2 mesh})}.  K1 and K3
+    run once a shard (with their halo rows), K7, K4 and K5 by the gather
+    rule once a window."""
+    from gstbad_tpu_torch.core.pipeline import parse_launch
+    shards = MESH_SHARDS
+    return {
+        "mesh_headline_1080p": (
+            lambda d: benchmarks.ten_element_graph(W, H, device=d),
+            {"dilate_zebra_fused": shards}),
+        "mesh_warp_1080p": (
+            lambda d: benchmarks.warp_1080p(W, H, device=d),
+            {"warp_words": 1}),
+        "mesh_config5_ivtc": (
+            lambda d: benchmarks.config5_ivtc(W5, H5, device=d),
+            {"metrics_default": 1, "comb_score_pairs": 1}),
+        "mesh_blur_ball_1080p": (
+            lambda d: parse_launch(
+                f"videotestsrc pattern=ball width={W} height={H} "
+                "format=AYUV ! gaussianblur sigma=1.2 ! fakesink",
+                device=d),
+            {"gaussian_blur_words": shards}),
+        "mesh_bs2b_48k": (
+            lambda d: parse_launch(
+                "audiotestsrc wave=sine freq=440 format=F32 rate=48000 "
+                f"channels=2 samplesperbuffer={AUDIO_BLOCK} ! bs2b "
+                "preset=cmoy ! fakesink", device=d),
+            {}),
+    }
+
+
+def transport_round_trip(gtt, kind: str, frames, per_packet: int,
+                         slots: int) -> float:
+    """Push host frames (AYUV, [N, H, W, 4]) through `kind` ("shm":
+    appsrc ! shmsink, shmsrc ! fakesink; "ipc": ipcpipelinesink,
+    ipcpipelinesrc), both ends in this process (the reader on a thread,
+    the ring holding `slots` packets of `per_packet` frames), on the card;
+    fail unless the bytes read equal the bytes written.  Returns MB/s by
+    the host clock from the first push to the last frame read."""
+    import threading
+    import uuid
+
+    import numpy as np
+    n, h, w = frames.shape[:3]
+    name = f"gstbad-4k-{kind}-{uuid.uuid4().hex[:8]}"
+    slot = per_packet * h * w * 4 + (1 << 16)
+    if kind == "shm":
+        sink_desc = (f"shmsink socket-path={name} shm-size={slot * slots} "
+                     f"num-slots={slots}")
+        src_desc = f"shmsrc socket-path={name} timeout-ms=60000"
+    else:
+        sink_desc = (f"ipcpipelinesink name-prefix={name} "
+                     f"shm-size={slot * slots} num-slots={slots}")
+        src_desc = f"ipcpipelinesrc name-prefix={name} timeout-ms=60000"
+    writer = gtt.parse_launch(
+        f"appsrc format=AYUV width={w} height={h} ! {sink_desc}",
+        device="cuda")
+    writer.negotiate()             # the sink makes its ring(s) here
+    sink = writer.elements[-1]
+    got, errors = [], []
+
+    def read():
+        try:
+            reader = gtt.parse_launch(f"{src_desc} ! fakesink",
+                                      device="cuda")
+            got.extend(reader.run(window=per_packet))
+            src = reader.elements[0]
+            if kind == "shm":
+                src._ring.close()
+            else:
+                src.slave.close()
+        except Exception as e:     # noqa: BLE001 - reported below
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=read)
+    thread.start()
+    writer.elements[0].push_frames(frames)
+    writer.run(window=per_packet)
+    sink.eos()
+    thread.join(timeout=300)
+    seconds = time.perf_counter() - t0
+    if kind == "shm":
+        sink._ring.close()
+    else:
+        sink.master.close()
+    if thread.is_alive() or errors:
+        fail(f"phase 4k {kind}: the reader failed: {errors}")
+    back = np.concatenate([np.asarray(b.data) for b in got]) if got \
+        else np.zeros((0,), np.uint8)
+    if back.dtype == np.int32:
+        back = back.view(np.uint8).reshape(back.shape + (4,))
+    if back.shape != frames.shape or not np.array_equal(back, frames):
+        fail(f"phase 4k {kind}: {back.shape} frames read back differ from "
+             f"the {frames.shape} written")
+    return frames.nbytes / 1e6 / seconds
+
+
+def mesh_slice(gtt, counters, launches, err, card) -> None:
+    """Phase 4k: the mesh.  On [cuda:i for i in range(count)], repeated
+    up to four logical shards (dp 2 x sp 2): each path of mesh_paths at
+    full width, 2 windows of 64 through the sharded step with the counts
+    set to 0 just before and read just after (K1 and K3 once a shard a
+    window, K7, K4 and K5 once a window, nothing else), equal field for
+    field to the unsharded card step's, and the nodes the gather rule ran
+    printed; K1 and K3 held against their plain versions on the shard
+    inputs the mesh gave them; the headline's sharded and unsharded
+    frames/s; then a window of the headline's 1080p frames, downloaded
+    from the card, through shmsink ! shmsrc and ipcpipelinesink !
+    ipcpipelinesrc in this process, bytes equal, MB/s."""
+    import numpy as np
+    import torch
+    from gstbad_tpu_torch.models import benchmarks
+    from gstbad_tpu_torch.ops import blur, chainfuse
+    from gstbad_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    devices = [torch.device("cuda", i % count) for i in range(MESH_SHARDS)]
+    mesh = make_mesh(dp=2, sp=2, devices=devices)
+    log(f"phase 4k mesh: dp 2 x sp 2 on {[str(d) for d in devices]}")
+
+    def windows(p, mesh_, n=2):
+        """n windows through p's step: per window, the leaf's host
+        (data, pts, flags, valid) and the messages."""
+        step = p.compile(WINDOW_4K, mesh=mesh_)
+        params, states = p.params(), p.init_states(WINDOW_4K)
+        outs = []
+        for _ in range(n):
+            states, leaves, msgs = step(params, states, None)
+            leaf = leaves[-1].gather() if mesh_ is not None else leaves[-1]
+            fb = leaf.to_numpy()
+            outs.append(((fb.data, fb.pts, fb.flags, fb.valid),
+                         {k: {f: v.cpu().numpy() for f, v in m.items()}
+                          for k, m in msgs.items()}))
+        return outs, step, params, states
+
+    head_frames = None
+    for key, (build, plan) in mesh_paths(benchmarks).items():
+        p0 = build("cuda")
+        p0.negotiate()
+        want, step0, prm0, st0 = windows(p0, None)
+        p1 = build("cuda")
+        p1.negotiate()
+        p1.compile(WINDOW_4K, mesh=mesh)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        got, step1, prm1, st1 = windows(p1, mesh)
+        torch.cuda.synchronize()
+        delta = {k: c.launches for k, c in counters.items()}
+        for k, c in delta.items():
+            if c != 2 * plan.get(k, 0):
+                fail(f"{key}: {k} launched {c} times in 2 windows on the "
+                     f"mesh ({2 * plan.get(k, 0)} expected)")
+        for k in launches:
+            launches[k] += delta[k]
+        for i, ((wd, wm), (gd, gm)) in enumerate(zip(want, got)):
+            for name, a, b in zip(("data", "pts", "flags", "valid"), wd, gd):
+                if a.shape != b.shape or not np.array_equal(a, b):
+                    fail(f"{key}: window {i} {name} sharded differs from "
+                         "the unsharded card step")
+            if sorted(wm) != sorted(gm) or any(
+                    not np.array_equal(wm[k][f], gm[k][f])
+                    for k in wm for f in wm[k]):
+                fail(f"{key}: window {i} messages differ on the mesh")
+        gathered = {k: c["gather"] for k, c in p1.shard_counts.items()
+                    if c["gather"]}
+        halos = {k: c["halo"] for k, c in p1.shard_counts.items()
+                 if c["halo"]}
+        if key == "mesh_headline_1080p":
+            if gathered:
+                fail(f"{key}: the gather rule ran on {gathered}")
+            head_frames = got[0][0][0][:TRANSPORT_FRAMES]
+            # frames/s, sharded and unsharded, in one call
+            rates = {}
+            for label, step, prm, st in (("unsharded", step0, prm0, st0),
+                                         ("sharded", step1, prm1, st1)):
+                holder = {"st": st}
+
+                def one(step=step, prm=prm, holder=holder):
+                    holder["st"], _, _ = step(prm, holder["st"], None)
+
+                one()
+                rates[label] = statistics.median(
+                    WINDOW_4K * 1000.0 / cuda_ms(one, iters=5, warmup=1)
+                    for _ in range(3))
+            log(f"mesh fps {key} window {WINDOW_4K}: sharded dp 2 x sp 2 "
+                f"{rates['sharded']:.1f}, unsharded "
+                f"{rates['unsharded']:.1f} source frames/s ({card})")
+        log(f"{key}: sharded == unsharded over 2 windows; launches "
+            f"{ {k: v for k, v in delta.items() if v} }; gather rule on "
+            f"{gathered or 'no node'}; halo exchanges {halos or 'none'}")
+
+    # K1 and K3 on the shard inputs the mesh gives them
+    for module, name, build in (
+            (chainfuse, "dilate_zebra_fused",
+             mesh_paths(benchmarks)["mesh_headline_1080p"][0]),
+            (blur, "gaussian_blur_words",
+             mesh_paths(benchmarks)["mesh_blur_ball_1080p"][0])):
+        store = {}
+        restore = capture(module, name, store)
+        try:
+            p = build("cuda")
+            p.negotiate()
+            step = p.compile(WINDOW_4K, mesh=mesh)
+            step(p.params(), p.init_states(WINDOW_4K), None)
+        finally:
+            restore()
+        shapes = []
+        for args, kw in store[name]:
+            got = getattr(module, name)(*args, **kw)
+            if name == "dilate_zebra_fused":
+                src, rank_t, word_t, index, erode, thr, phase = args
+                b = kw["batch"]
+                scal = torch.stack([chainfuse._per_frame_i32(v, b, src.device)
+                                    for v in (erode, thr, phase)])
+                want = chainfuse.dilate_zebra_plain(src, rank_t, word_t,
+                                                    index, scal)
+            else:
+                want = blur.gaussian_blur_words_plain(*args, **kw)
+            e = byte_err(got, want)
+            err[name] = max(err[name], e)
+            shapes.append((tuple(args[0].shape), kw.get("batch")))
+            if e:
+                fail(f"{name} on the mesh's shard inputs {shapes[-1]}: "
+                     f"{e} from its plain version")
+        log(f"{name} on the mesh's shard inputs (source shape, batch) "
+            f"{shapes}: equal to its plain version")
+
+    # the transports, both ends in this process
+    import os
+    free = os.statvfs("/dev/shm")
+    free = free.f_bavail * free.f_frsize
+    fb = H * W * 4
+    per_packet, slots = next(
+        ((k, s) for k, s in ((4, 4), (2, 4), (1, 2))
+         if s * (k * fb + (1 << 16)) * 2 <= free), (None, None))
+    if per_packet is None:
+        fail(f"/dev/shm holds {free} bytes: too few for 1080p packets")
+    frames = np.ascontiguousarray(head_frames).view(np.uint8).reshape(
+        head_frames.shape + (4,))
+    for kind in ("shm", "ipc"):
+        rate = transport_round_trip(gtt, kind, frames, per_packet, slots)
+        log(f"transport {kind}: {frames.shape[0]} 1080p AYUV frames from "
+            f"the card in packets of {per_packet} through a ring of "
+            f"{slots} slots, bytes equal, {rate:.1f} MB/s (host clock; "
+            f"/dev/shm {free / 2**20:.0f} MiB free; {card})")
+    log(f"mesh_slice: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4829,6 +5101,10 @@ def main() -> int:
     # 4j. the sessions (session_slice)
     sessions = session_slice(gtt, counters, launches, err, card)
     phase_done("4j")
+
+    # 4k. the mesh and the inter-process transports (mesh_slice)
+    mesh_slice(gtt, counters, launches, err, card)
+    phase_done("4k")
 
     # 5. timing
     fps = {}

@@ -24,8 +24,8 @@ import numpy as np
 import torch
 
 from gstbad_tpu_torch.core.frame import FrameBatch, same_layout
-from gstbad_tpu_torch.core.spec import MediaSpec, SpecError, fixate_format, \
-    require
+from gstbad_tpu_torch.core.spec import MediaSpec, SpecError, VideoFormat, \
+    fixate_format, require
 
 _DTYPES = {float: torch.float32, int: torch.int32, bool: torch.bool}
 
@@ -242,6 +242,45 @@ class Element:
         final selects like zebrastripe), return (new_state, out_data);
         else None and the chain is materialized for process()."""
         return None
+
+    # -- mesh shard rules (core/pipeline.py, parallel/mesh.py) --------------
+    # True when process() maps each frame's pixels (or samples) on their
+    # own and keeps its state: a sink that passes its batch on, a host
+    # source that hands on the window it was given
+    ELEMENTWISE: bool = False
+
+    def packs_words(self) -> bool:
+        """True when this element fuses and takes packed 4-byte video
+        words, the table-fusion kinds' input."""
+        spec = self.in_spec
+        return (self.FUSES and spec is not None and spec.kind == "video"
+                and spec.format in VideoFormat.PACKED_RGB4
+                + (VideoFormat.AYUV,))
+
+    def shard_rule(self, params):
+        """How a mesh-sharded step runs this element: ("shard", 0) on each
+        shard alone, ("halo", r) on each shard with r rows of its sp
+        neighbours on each side and the result cropped to the shard's own
+        rows, or ("gather", 0) on the whole window gathered onto the mesh's
+        first device (exact, and counted).
+
+        Per-shard elements read the shard's position from
+        FrameBatch.shard (or a chain's src_batch.shard) where their output
+        depends on it, and return the window's new state from every shard.
+        The default: ELEMENTWISE elements and the table-fusion kinds on
+        packed 4-byte words run per shard, everything else gathers.  A
+        stencil's reach is its own: an element with an index_stencil
+        declares its halo in its own shard_rule (dilate), else it
+        gathers."""
+        if self.ELEMENTWISE:
+            return "shard", 0
+        if not self.packs_words() or self.index_stencil(params) is not None:
+            return "gather", 0
+        if (self.byte_map(params) is not None
+                or self.table_head(params) is not None
+                or self.word_map(params) is not None):
+            return "shard", 0
+        return "gather", 0
 
     # -- live rebuild (runtime graph edits / static-property changes) -------
     def carry_state(self, old_state, window: int):

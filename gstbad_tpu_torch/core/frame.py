@@ -32,6 +32,27 @@ FLAG_BOTTOM_FIELD = FLAG_ONEFIELD
 Array = Any
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardPos:
+    """Where a mesh shard's batch lies in its window (parallel/mesh.py):
+    frames [frame0, frame0 + its batch) of the window's `window` frames,
+    and band `part` of `parts` equal row bands of each frame leaf (the
+    tensors of 3 or more dims), with `above` and `below` rows of the
+    neighbouring bands attached (a halo, packed video only)."""
+
+    frame0: int
+    window: int
+    part: int = 0
+    parts: int = 1
+    above: int = 0
+    below: int = 0
+
+    def row0(self, rows: int) -> int:
+        """The frame row of row 0 of a leaf that holds `rows` rows, halo
+        included."""
+        return self.part * (rows - self.above - self.below) - self.above
+
+
 @dataclasses.dataclass
 class FrameBatch:
     """A batch/window of frames.
@@ -67,6 +88,9 @@ class FrameBatch:
     # with_data() keeps it only while the sample axis is unchanged;
     # elements that re-chunk must translate or drop it themselves.
     trim: Optional[Array] = None
+    # the position of a mesh shard in its window (ShardPos), None for a
+    # whole window; with_data() and replace() keep it
+    shard: Optional[ShardPos] = None
 
     @staticmethod
     def make(data, pts=None, flags=None, valid=None) -> "FrameBatch":
@@ -116,7 +140,7 @@ class FrameBatch:
                           flags=conv(self.flags), valid=conv(self.valid),
                           word=conv(self.word),
                           word_base=conv(self.word_base),
-                          trim=conv(self.trim))
+                          trim=conv(self.trim), shard=self.shard)
 
 
 def pts_ramp(batch: int, spec, start_ns: int = 0,

@@ -90,6 +90,132 @@ def _split_trimmed(nb: FrameBatch) -> List[FrameBatch]:
     return out
 
 
+def _try_absorb(chain, el: Element, p) -> bool:
+    """Fold element `el` with params `p` into table chain `chain`
+    (core/tablefuse.py): a byte map, a head, a word map or an index
+    stencil."""
+    bm = el.byte_map(p)
+    if bm is not None:
+        chain.absorb_byte_map(bm, el.byte_map_kinds())
+        return True
+    head = el.table_head(p)
+    if head is not None and chain.absorb_head(*head):
+        return True
+    wm = el.word_map(p)
+    if wm is not None and chain.absorb_word_map(wm):
+        return True
+    st = el.index_stencil(p)
+    if st is not None and chain.absorb_index_stencil(
+            st[0], st[1], p, st[2] if len(st) > 2 else None):
+        return True
+    return False
+
+
+def _unpack_out(n: "Node", out, messages: Dict[str, Any]) -> tuple:
+    """(state, value) of node n's process() or generate() output (state,
+    value[, messages]); its messages go into `messages`, keyed
+    "element:message"."""
+    if len(out) == 3:
+        st, val, msgs = out
+        for name, fields in msgs.items():
+            messages[f"{n.element.NAME}:{name}"] = fields
+        return st, val
+    st, val = out
+    return st, val
+
+
+class _Walk:
+    """One walk of a window step over the graph: the nodes' values, the
+    open table chains (id(node) -> TableChain whose symbolic value is the
+    node's output), the carried states the walk set and its messages.
+    The step walks the window once; a mesh-sharded step walks each shard
+    (parallel/step.py), whose walks keep their values in their own band
+    (keep) and start chains with a halo of rows (start)."""
+
+    def __init__(self, params, states, consumers, protected):
+        self.params = params
+        self.states = states
+        self.new_states = list(states)
+        self.messages: Dict[str, Dict[str, Any]] = {}
+        self.values: Dict[int, FrameBatch] = {}
+        self.chains: Dict[int, Any] = {}
+        self.consumers = consumers
+        self.protected = protected
+
+    def keep(self, val, src):
+        """The value to store for a node computed from batch `src`."""
+        return val
+
+    def start(self, n: "Node", batch: FrameBatch) -> FrameBatch:
+        """The batch a new table chain at node n starts from."""
+        return batch
+
+    def flush(self, nid: int) -> None:
+        chain = self.chains.pop(nid)
+        if len(chain.members) == 1 and not chain._time_invariant():
+            # a lone fused node keeps its own (cheaper) process — EXCEPT
+            # when the chain is time-invariant: the one-frame-then-broadcast
+            # materialization beats any per-frame process (static source +
+            # static tables)
+            si, el = chain.members[0]
+            self.new_states[si], val = el.process(
+                self.params[si], self.states[si], chain.src_batch)
+        else:
+            val = chain.materialize()
+        self.values[nid] = self.keep(val, chain.src_batch)
+
+    def value_of(self, node: "Node") -> FrameBatch:
+        if id(node) in self.chains:
+            self.flush(id(node))
+        return self.values[id(node)]
+
+    def live(self, n: "Node") -> bool:
+        """True when node n continues its input's open chain."""
+        inp = n.inputs[0]
+        return (id(inp) in self.chains and id(inp) not in self.protected
+                and self.consumers.get(id(inp)) == [n])
+
+    def fuse(self, si: int, n: "Node", el: Element) -> bool:
+        """Table-state fusion (core/tablefuse.py) for node n with one
+        input: True when a tail or an absorption set its value."""
+        from gstbad_tpu_torch.core import tablefuse
+
+        inp = n.inputs[0]
+        chain = None
+        popped_live = False
+        if self.live(n):
+            chain = self.chains.pop(id(inp))
+            popped_live = True
+        elif el.FUSES:
+            chain = tablefuse.start_chain(self.start(n, self.value_of(inp)))
+        if chain is None:
+            return False
+        tail = el.table_tail(self.params[si], self.states[si], chain,
+                             chain.src_batch)
+        if tail is not None:
+            self.new_states[si], data = tail
+            # a tail may return a full FrameBatch (to keep a word attached
+            # for the sink)
+            val = (data if isinstance(data, FrameBatch)
+                   else chain.src_batch.with_data(data))
+            self.values[id(n)] = self.keep(val, chain.src_batch)
+            return True
+        if _try_absorb(chain, el, self.params[si]):
+            chain.members.append((si, el))
+            self.new_states[si] = self.states[si]
+            self.chains[id(n)] = chain
+            return True
+        if popped_live:
+            self.chains[id(inp)] = chain
+            self.flush(id(inp))
+        return False
+
+    def set_out(self, si: int, n: "Node", out, src=None) -> None:
+        """Store process()'s or generate()'s (state, value[, messages])."""
+        self.new_states[si], val = _unpack_out(n, out, self.messages)
+        self.values[id(n)] = self.keep(val, src)
+
+
 class Pipeline:
     """An element DAG bound to one device.  `device` is "cuda" (the
     default) or "cpu"; a CUDA request without a card raises."""
@@ -119,6 +245,11 @@ class Pipeline:
         self._order: Optional[List[Node]] = None
         self._tap_route: Dict[str, int] = {}
         self._host_route: List[Tuple[Element, int]] = []
+        self._mesh = None
+        # per node, under a mesh: {"shard": runs on one shard, "halo":
+        # shards given their neighbours' rows, "gather": windows gathered
+        # for the node, "split": windows it produced whole and split}
+        self.shard_counts: Dict[str, Dict[str, int]] = {}
 
     # -- convenience views --------------------------------------------------
     @property
@@ -187,7 +318,8 @@ class Pipeline:
 
     # -- the window step -----------------------------------------------------
     def compile(self, window: int, in_spec: Optional[MediaSpec] = None,
-                taps: Sequence[str] = (), fuse_luts: bool = True):
+                taps: Sequence[str] = (), fuse_luts: bool = True,
+                mesh=None):
         """Build the window function over the whole DAG.
 
         step(params, states, in_batch_or_None)
@@ -195,6 +327,13 @@ class Pipeline:
 
         The step runs eagerly on the pipeline's device (there is no trace
         or compile); the name and signature match the JAX package.
+
+        mesh: a parallel.mesh.Mesh whose first device is the pipeline's.
+        The step then takes a ShardedBatch (a FrameBatch is placed on the
+        mesh, and a source graph takes None: its sources generate the
+        window, which is split), runs each node by its shard rule
+        (Element.shard_rule; counted in `shard_counts`) and returns each
+        leaf as a ShardedBatch; the states stay on the first device.
 
         taps: element/node names whose intermediate output batches should be
         materialized (SURVEY.md §7 hard-part 5 — fusion vs verifiability);
@@ -255,82 +394,13 @@ class Pipeline:
 
         def step(params: List[Dict[str, Any]], states: List[Any],
                  in_batch: Optional[FrameBatch]):
-            from gstbad_tpu_torch.core import tablefuse
-
-            new_states = list(states)
-            messages: Dict[str, Dict[str, Any]] = {}
-            values: Dict[int, FrameBatch] = {}
-            # id(node) -> TableChain whose symbolic value is node's output
-            chains: Dict[int, tablefuse.TableChain] = {}
-
-            def flush(nid: int) -> None:
-                chain = chains.pop(nid)
-                if len(chain.members) == 1 and not chain._time_invariant():
-                    # a lone fused node keeps its own (cheaper) process —
-                    # EXCEPT when the chain is time-invariant: the
-                    # one-frame-then-broadcast materialization beats any
-                    # per-frame process (static source + static tables)
-                    si, el = chain.members[0]
-                    new_states[si], val = el.process(params[si], states[si],
-                                                     chain.src_batch)
-                else:
-                    val = chain.materialize()
-                values[nid] = val
-
-            def value_of(node: Node) -> FrameBatch:
-                if id(node) in chains:
-                    flush(id(node))
-                return values[id(node)]
-
-            def try_absorb(chain, el, p) -> bool:
-                bm = el.byte_map(p)
-                if bm is not None:
-                    chain.absorb_byte_map(bm, el.byte_map_kinds())
-                    return True
-                head = el.table_head(p)
-                if head is not None and chain.absorb_head(*head):
-                    return True
-                wm = el.word_map(p)
-                if wm is not None and chain.absorb_word_map(wm):
-                    return True
-                st = el.index_stencil(p)
-                if st is not None and chain.absorb_index_stencil(
-                        st[0], st[1], p, st[2] if len(st) > 2 else None):
-                    return True
-                return False
-
+            walk = _Walk(params, states, consumers, protected)
             feed_idx = 0
             for si, n in enumerate(order):
                 el = n.element
-                if fuse_luts and len(n.inputs) == 1 and el.KIND != "source":
-                    inp = n.inputs[0]
-                    chain = None
-                    popped_live = False
-                    if (id(inp) in chains and id(inp) not in protected
-                            and consumers.get(id(inp)) == [n]):
-                        chain = chains.pop(id(inp))
-                        popped_live = True
-                    elif el.FUSES:
-                        chain = tablefuse.start_chain(value_of(inp))
-                    if chain is not None:
-                        tail = el.table_tail(params[si], states[si], chain,
-                                             chain.src_batch)
-                        if tail is not None:
-                            new_states[si], data = tail
-                            # a tail may return a full FrameBatch (to keep
-                            # a word attached for the sink)
-                            values[id(n)] = (
-                                data if isinstance(data, FrameBatch)
-                                else chain.src_batch.with_data(data))
-                            continue
-                        if try_absorb(chain, el, params[si]):
-                            chain.members.append((si, el))
-                            new_states[si] = states[si]
-                            chains[id(n)] = chain
-                            continue
-                        if popped_live:
-                            chains[id(inp)] = chain
-                            flush(id(inp))
+                if (fuse_luts and len(n.inputs) == 1 and el.KIND != "source"
+                        and walk.fuse(si, n, el)):
+                    continue
                 if el.KIND == "source":
                     out = el.generate(params[si], states[si], window)
                 else:
@@ -344,23 +414,22 @@ class Pipeline:
                         else:
                             batch = in_batch
                     elif len(n.inputs) == 1:
-                        batch = value_of(n.inputs[0])
+                        batch = walk.value_of(n.inputs[0])
                     else:
-                        batch = [value_of(i) for i in n.inputs]
+                        batch = [walk.value_of(i) for i in n.inputs]
                     out = el.process(params[si], states[si], batch)
-                if len(out) == 3:
-                    st, val, msgs = out
-                    for name, fields in msgs.items():
-                        messages[f"{el.NAME}:{name}"] = fields
-                else:
-                    st, val = out
-                new_states[si] = st
-                values[id(n)] = val
-            leaf_out = ([value_of(n) for n in leaves]
-                        + [value_of(n) for n in extra_nodes]
-                        + [value_of(n) for n in tap_extra])
-            return new_states, leaf_out, messages
+                walk.set_out(si, n, out)
+            leaf_out = ([walk.value_of(n) for n in leaves]
+                        + [walk.value_of(n) for n in extra_nodes]
+                        + [walk.value_of(n) for n in tap_extra])
+            return walk.new_states, leaf_out, walk.messages
 
+        if mesh is not None:
+            from gstbad_tpu_torch.parallel.step import sharded_step
+            step = sharded_step(self, mesh, window, order, consumers,
+                                protected, fuse_luts,
+                                leaves + extra_nodes + tap_extra)
+        self._mesh = mesh
         self._step = step
         if self._states is None:
             self._states = [n.element.init_state(window) for n in order]
@@ -415,7 +484,7 @@ class Pipeline:
         if not window:
             raise ValueError("run() needs a window size (or inputs/n_frames)")
         if self._step is None or window != self._window:
-            self.compile(window)
+            self.compile(window, mesh=self._mesh)
         order = self._order
         states = self._states
         params = self.params()

@@ -9,6 +9,8 @@ from gstbad_tpu_torch.elements.audio import (  # noqa: F401
     meters, mixmatrix, pitch, removesilence, spandsp, visualizers,
     webrtcdsp)
 from gstbad_tpu_torch.elements import cv  # noqa: F401
+from gstbad_tpu_torch.io import ipcpipeline as _ipc_elements  # noqa: F401
+from gstbad_tpu_torch.io import shm as _shm_elements  # noqa: F401
 from gstbad_tpu_torch.elements.geometry import geometrictransform  # noqa: F401
 from gstbad_tpu_torch.elements.sources import testsrc  # noqa: F401
 from gstbad_tpu_torch.elements.video import (  # noqa: F401

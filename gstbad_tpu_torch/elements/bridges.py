@@ -64,6 +64,7 @@ class AppSrc(Element):
 
     NAME = "appsrc"
     KIND = "host-source"
+    ELEMENTWISE = True
     PROPERTIES = (
         Property("format", str, "BGRx", static=True),
         Property("width", int, 320, static=True),

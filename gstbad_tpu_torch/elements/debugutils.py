@@ -34,6 +34,7 @@ class FakeSink(Element):
 
     NAME = "fakesink"
     KIND = "sink"
+    ELEMENTWISE = True
 
     def process(self, params, state, batch: FrameBatch):
         if batch.word is not None and not isinstance(batch.data, dict):

@@ -124,6 +124,13 @@ class Dilate(_GuintWordFilter):
         # down/right/left best-key walk parameterized by `erode`
         return key_fn, move_fn, "dilate3"
 
+    def shard_rule(self, params):
+        """The walk's shift_down reads the row below each pixel: a mesh
+        shard takes 1 row of its sp neighbours' (core/element.py)."""
+        if not self.packs_words():
+            return "gather", 0
+        return "halo", 1
+
 
 @register
 class Dodge(_GuintWordFilter):
@@ -207,10 +214,24 @@ class GaussianBlur(VideoFilter):
             self._tables = [torch.as_tensor(t, device=self.device)
                             for t in tables]
 
+    def shard_rule(self, params):
+        """A mesh shard blurs its rows with the window's radius of rows of
+        its neighbours above and below (core/element.py)."""
+        if self._tables is None:
+            return "shard", 0
+        return "halo", self._tables[0].shape[0] // 2
+
     def process(self, params, state, batch: FrameBatch):
         if self._tables is None:
             return state, batch
-        out = blur.gaussian_blur_words(pointops.word_source(batch),
-                                       *self._tables, batch=batch.batch)
+        kern, row_sums, col_sums = self._tables
+        src = pointops.word_source(batch)
+        if batch.shard is not None:
+            # a mesh shard's rows (its halo included) take their frame
+            # rows' border sums
+            r0 = batch.shard.row0(src.shape[1])
+            row_sums = row_sums[r0:r0 + src.shape[1]]
+        out = blur.gaussian_blur_words(src, kern, row_sums, col_sums,
+                                       batch=batch.batch)
         return state, batch.with_data(pointops.unpack32(out)).replace(
             word=out)

@@ -60,13 +60,32 @@ class ZebraStripe(_LumaFilter):
         # t, the per-frame stripe phase
         return torch.zeros((), dtype=torch.int32, device=self.device)
 
+    def shard_rule(self, params):
+        """Positional but per pixel: a mesh shard offsets the stripe phase
+        by its first frame and its first row (the stripe is
+        (col + row + phase) & 4), and every shard returns the window's
+        new state."""
+        return "shard", 0
+
+    @staticmethod
+    def _offsets(batch: FrameBatch, rows: int):
+        """(first frame, first row, window) of a mesh shard's batch whose
+        luma holds `rows` rows; (0, 0, its batch) for a whole window."""
+        pos = batch.shard
+        if pos is None:
+            return 0, 0, batch.batch
+        return pos.frame0, pos.row0(rows), pos.window
+
     def process(self, params, state, batch: FrameBatch):
         y = self._get_luma(batch.data)
         b = y.shape[0]
+        f0, r0, window = self._offsets(batch, y.shape[1])
         thr = pointops._per_frame(_luma_threshold(params["threshold"]), 3)
-        t = state + torch.arange(b, dtype=torch.int32, device=y.device)
-        out = pointops.zebrastripe(y, thr, t[:, None, None])
-        return state + b, batch.with_data(self._set_luma(batch.data, out))
+        t = state + torch.arange(f0, f0 + b, dtype=torch.int32,
+                                 device=y.device)
+        out = pointops.zebrastripe(y, thr, t[:, None, None] + r0)
+        return state + window, batch.with_data(
+            self._set_luma(batch.data, out))
 
     def table_tail(self, params, state, chain, batch):
         """Table-fusion tail: y' = 16 where stripe & y >= thr
@@ -80,7 +99,9 @@ class ZebraStripe(_LumaFilter):
         thr = _luma_threshold(params["threshold"])
         b = chain.src_batch.batch
         h, w = chain.src_word.shape[-2:]
-        tph = state + torch.arange(b, dtype=torch.int32, device=thr.device)
+        f0, r0, window = self._offsets(chain.src_batch, h)
+        tph = state + torch.arange(f0, f0 + b, dtype=torch.int32,
+                                   device=thr.device) + r0
 
         # the kernel recomputes idx from the source words, so an idx plane
         # that an earlier stencil already moved (stencil_applied) rules it out
@@ -102,7 +123,7 @@ class ZebraStripe(_LumaFilter):
                 sparams["erode"], thr, tph, batch=b)
             # keep the output word attached: the word-keeping sink
             # (fakesink) hands it to the runner as is
-            return state + b, chain.src_batch.with_data(
+            return state + window, chain.src_batch.with_data(
                 pointops.unpack32(out)).replace(word=out)
 
         thr = pointops._per_frame(thr, 3)
@@ -111,7 +132,7 @@ class ZebraStripe(_LumaFilter):
         y = pointops.byte_of(word, 1)
         zebra = (word & pointops.i32(0xFFFF00FF)) | (16 << 8)
         out = torch.where(stripe & (y >= thr), zebra, word)
-        return state + b, pointops.unpack32(out)
+        return state + window, pointops.unpack32(out)
 
 
 def _previous_valid(y, valid, prev):

@@ -278,5 +278,7 @@ def test_registry_has_the_cv_names():
     # 93 after the cv slice, 17 more with audio breadth, 9 with the rest
     # of CV, 19 with overlay and the text renderers, 27 with what the
     # runtime slice deferred and the small elements of begun modules, 3
-    # with the sessions (dashdemux, hlsdemux, mssdemux)
-    assert len(set(t_names())) == 168
+    # with the sessions (dashdemux, hlsdemux, mssdemux), 4 with the
+    # inter-process transports (shmsink, shmsrc, ipcpipelinesink,
+    # ipcpipelinesrc)
+    assert len(set(t_names())) == 172
