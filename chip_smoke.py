@@ -270,7 +270,27 @@ line):
    frames, downloaded from the card, through appsrc ! shmsink, shmsrc !
    fakesink and ipcpipelinesink, ipcpipelinesrc, both ends in this process
    (the reader on a thread), bytes equal, MB/s by the host clock.
-   Each phase logs its seconds on a line of its own ("phase 4k: ... s").
+   Then the transport plane (transport_slice, phase 4l):
+   rtp_headline_1080p, 32 seeded moving 1920x1080 BGRA frames in 2
+   windows of 16 sent over localhost UDP as RFC 4175 datagrams (MTU 1400)
+   by a feeder thread, paced while rtpsrc pulls each window, through
+   rtpsrc ! videoconvert format=BGRx ! the headline's chain ! zebrastripe
+   ! videoconvert format=BGRA ! rtpsink into a receiver process, with the
+   counts set to 0 just before the run and read just after (K1 once a
+   window, nothing else): every frame back in order with its pts within
+   one 90 kHz tick, equal byte for byte to the same graph run by the port
+   on the CPU (chip_smoke.py --rtp-reference, a process of its own started
+   with the phase), K1 against its plain version on the path's own window
+   and timed there, frames/s end to end, the device step, the idle share,
+   the datagrams and the host clock inside rtpsrc and rtpsink;
+   ts_over_rtp, 10 s of seeded 8 Mb/s H.264 1080p25 and an audio PID
+   through mpegtsmux, 7 TS packets a datagram into rtpsrc (MP2T), then
+   tsparse, tsdemux, h264parse and mpegtsmux again: every access unit and
+   pts back, no continuity error, MB/s; and sdpdemux, the ONVIF pair,
+   pcapparse, irtspparse, the PS mux and demux and each of the eleven
+   parsers once on the host, each against its round-trip or stream-table
+   invariant.
+   Each phase logs its seconds on a line of its own ("phase 4l: ... s").
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
    around 10 steps of a 64-frame window, 16 at 4K, data kept on the card;
    4 steps where a step takes 50 ms or more),
@@ -306,8 +326,9 @@ line):
    measures it on registers).  They print their ns per row, and K5/K6 are
    also timed on random 720-row frames 2560, 3840 and 8192 wide.
 6. Print the kernel table as one JSON line (K1 and K3 once on a
-   broadcast base and once on a materialized window, each with its
-   "mode"), then the result line {"ok": true, "device": {...}} last.
+   broadcast base and once on a materialized window, K1 also on
+   rtp_headline_1080p's window, each with its "mode"), then the result
+   line {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -4305,6 +4326,903 @@ def mesh_slice(gtt, counters, launches, err, card) -> None:
     log(f"mesh_slice: {time.perf_counter() - t_phase:.1f} s")
 
 
+WINDOW_4L = 16                  # phase 4l's window
+RTP_WINDOWS = 2                 # rtp_headline_1080p's windows
+# rtp_headline_1080p: raw BGRA 1080p60 in over RTP (RFC 4175), the
+# headline's filter chain, raw BGRA out over RTP
+RTP_HEADLINE = (
+    "rtpsrc uri=rtp://127.0.0.1:{pin}?latency=50&timeout=30 "
+    'caps="application/x-rtp,media=video,encoding-name=RAW,sampling=BGRA,'
+    'width={w},height={h},framerate=60/1" ! videoconvert format=BGRx ! '
+    + HEAD + " ! zebrastripe ! videoconvert format=BGRA "
+    "! rtpsink uri=rtp://127.0.0.1:{pout}")
+# ts_over_rtp: an 8 Mb/s H.264 1080p25 elementary stream of 10 s, muxed
+# with a seeded audio PID, 7 TS packets per RTP datagram (IPTV's layout)
+TS_SECONDS, TS_FPS, TS_AU_BYTES = 10, 25, 40000
+
+
+# the receiver of rtp_headline_1080p's output, run as `python -c`: binds
+# the port with the largest receive buffer it is granted (printed), takes
+# datagrams until an empty one, then writes the monotonic time of the last,
+# the count, the lengths and the datagrams to stdout
+UDP_COLLECTOR = r"""
+import socket, struct, sys, time
+s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+for opt in (getattr(socket, "SO_RCVBUFFORCE", None), socket.SO_RCVBUF):
+    try:
+        s.setsockopt(socket.SOL_SOCKET, opt, 1 << 28)
+        break
+    except (OSError, TypeError):
+        pass
+s.bind(("127.0.0.1", int(sys.argv[1])))
+sys.stdout.write(f"{s.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)}\n")
+sys.stdout.flush()
+buf = bytearray(1 << 30)
+view, pos, lens, last = memoryview(buf), 0, [], 0.0
+while True:
+    n = s.recv_into(view[pos:pos + 65536])
+    if n == 0:
+        break
+    last = time.monotonic()
+    lens.append(n)
+    pos += n
+out = sys.stdout.buffer
+out.write(struct.pack("<dQ", last, len(lens)))
+out.write(struct.pack(f"<{len(lens)}I", *lens))
+out.write(view[:pos])
+out.flush()
+"""
+
+
+def free_udp_port_pair() -> int:
+    """An even localhost UDP port whose odd neighbour is free too (RTP on
+    the port, RTCP on the next)."""
+    import socket
+    for _ in range(64):
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        if port % 2 or port >= 65534:
+            continue
+        socks = []
+        try:
+            for p in (port, port + 1):
+                t = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+                socks.append(t)
+                t.bind(("127.0.0.1", p))
+        except OSError:
+            continue
+        finally:
+            for t in socks:
+                t.close()
+        return port
+    fail("no free even localhost UDP port pair")
+
+
+def udp_rcvbuf() -> int:
+    """The receive buffer a UDP socket gets by default here (rtpsrc sets
+    none): getsockopt on a fresh socket."""
+    import socket
+    s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    n = s.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+    s.close()
+    return n
+
+
+def moving_bgra(n, w, h, seed=71):
+    """n seeded BGRA frames of noise that moves 4 pixels right and 2 down
+    a frame (a window onto one larger seeded image)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (h + 2 * n, w + 4 * n, 4), dtype=np.uint8)
+    return np.stack([base[2 * i:2 * i + h, 4 * i:4 * i + w]
+                     for i in range(n)])
+
+
+def element_named(p, name):
+    return next(n.element for n in p.nodes if n.element.NAME == name)
+
+
+def rtp_datagrams(frames, window):
+    """The sender's RFC 4175 datagrams of `frames` (BGRA, the port's
+    RawVideoPayloader at an MTU of 1400), window by window, with 90 kHz
+    timestamps of a 60 fps stream; and the payloader."""
+    from gstbad_tpu_torch.io import rtpnet
+    n, h, w = frames.shape[:3]
+    pay = rtpnet.RawVideoPayloader("BGRA", w, h)
+    return [[pk.serialize() for i in range(k, min(k + window, n))
+             for pk in pay.pay_frame(frames[i], 1500 * i)]
+            for k in range(0, n, window)], pay
+
+
+def rtp_headline_path(gtt, device, frames, window, dgrams=None):
+    """rtp_headline_1080p through gtt.parse_launch(..., device=device).
+    Without `dgrams`: a feeder thread pays the frames (rtp_datagrams)
+    before the clock starts, then sends each window's datagrams while
+    rtpsrc pulls that window, paced (a burst never larger than half of
+    what the receiving socket's default buffer holds, the next burst only
+    once rtpsrc has taken the one before off its socket), and ends the
+    stream with an RTCP BYE; a collector thread receives what rtpsink
+    sends and depays it with the port's RawVideoDepayloader.  With
+    `dgrams` (the CPU reference) rtpsrc takes them by push_packet.
+    Returns a dict of what came out and the counts."""
+    import gc
+    import socket
+    import struct
+    import threading
+    import torch
+    from gstbad_tpu_torch.io import rtpnet
+
+    n, h, w = frames.shape[:3]
+    p_in, p_out = free_udp_port_pair(), free_udp_port_pair()
+    p = gtt.parse_launch(RTP_HEADLINE.format(pin=p_in, pout=p_out, w=w,
+                                             h=h), device=device)
+    p.negotiate()
+    src, sink = element_named(p, "rtpsrc"), element_named(p, "rtpsink")
+    out = {"p": p, "inputs": []}
+    orig_pull = src.pull_window
+
+    if dgrams is not None:
+        # rtpsink's datagrams go to a socket of this process's own that
+        # nothing reads: no other process can bind the port meanwhile
+        sink_rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        sink_rx.bind(("127.0.0.1", p_out))
+        for win in dgrams:
+            for d in win:
+                src.push_packet(rtpnet.RtpPacket.parse(d))
+
+        def pull_pushed(k):
+            if len(out["inputs"]) == len(dgrams):
+                src.event_eos()      # the stream's end, as a BYE would
+            b = orig_pull(k)
+            out["inputs"].append(b)
+            return b
+        src.pull_window = pull_pushed
+        out["outs"] = p.run(window=window)
+        p.close()
+        sink_rx.close()
+        return out
+
+    src.open()
+    taken = [0]
+    orig_insert = src._jb.insert
+
+    def insert(pkt, now=None):
+        taken[0] += 1
+        return orig_insert(pkt, now)
+    src._jb.insert = insert
+    burst = max(8, udp_rcvbuf() // 2 // 4096)
+    requests, paid, errors = [], {}, []
+    wake, ready, done = (threading.Event(), threading.Event(),
+                         threading.Event())
+
+    def feeder():
+        tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        try:
+            paid["dgrams"], paid["pay"] = rtp_datagrams(frames, window)
+            ready.set()
+            k = 0
+            while not done.is_set():
+                wake.wait()
+                wake.clear()
+                while k < len(requests):
+                    if k < len(paid["dgrams"]):
+                        base = taken[0]
+                        for i, d in enumerate(paid["dgrams"][k]):
+                            while i - (taken[0] - base) >= burst:
+                                time.sleep(0.0001)
+                            tx.sendto(d, ("127.0.0.1", p_in))
+                    else:
+                        # end of stream: a BYE, then one datagram of
+                        # another source, which wakes rtpsrc's drain to
+                        # read the BYE (the jitter buffer drops it)
+                        tx.sendto(rtpnet.rtcp_bye(paid["pay"].ssrc),
+                                  ("127.0.0.1", p_in + 1))
+                        tx.sendto(rtpnet.RtpPacket(
+                            payload_type=96, ssrc=paid["pay"].ssrc ^ 1
+                        ).serialize(), ("127.0.0.1", p_in))
+                        return
+                    k += 1
+        except Exception as e:    # reported by the phase
+            errors.append(repr(e))
+            ready.set()
+        finally:
+            tx.close()
+
+    # the receiver of rtpsink's datagrams runs in a process of its own, so
+    # that it drains its socket while this interpreter pays and sends
+    rx = subprocess.Popen([sys.executable, "-c", UDP_COLLECTOR,
+                           str(p_out)], stdout=subprocess.PIPE)
+    rcvbuf = int(rx.stdout.readline())
+    got, last = [], [0.0]
+
+    def collector():
+        """Take the receiver's datagrams when the stream has ended and
+        depay them (below)."""
+        blob = rx.stdout.read()
+        pos, lens = 0, []
+        last[0], count = struct.unpack_from("<dQ", blob, 0)
+        lens = struct.unpack_from(f"<{count}I", blob, 16)
+        pos = 16 + 4 * count
+        for n_ in lens:
+            got.append(blob[pos:pos + n_])
+            pos += n_
+
+    # the host clock inside rtpsrc's pulls and rtpsink's host_process
+    spent = {"pull": 0.0, "sink": 0.0}
+    orig_host = sink.host_process
+
+    def pull(k):
+        requests.append(k)
+        wake.set()
+        t_ = time.monotonic()
+        b = orig_pull(k)
+        spent["pull"] += time.monotonic() - t_
+        out["inputs"].append(b)
+        return b
+
+    def host_process(np_batch, bus):
+        t_ = time.monotonic()
+        orig_host(np_batch, bus)
+        spent["sink"] += time.monotonic() - t_
+    src.pull_window = pull
+    sink.host_process = host_process
+    threads = [threading.Thread(target=feeder, daemon=True),
+               threading.Thread(target=collector, daemon=True)]
+    for t in threads:
+        t.start()
+    ready.wait()
+    try:
+        t0 = time.monotonic()
+        out["outs"] = p.run(window=window)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t_run = time.monotonic()
+        p.close()
+    finally:
+        done.set()
+        wake.set()
+        # an empty datagram ends the receiver
+        s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        s.sendto(b"", ("127.0.0.1", p_out))
+        s.close()
+        for t in threads:
+            t.join(timeout=60)
+        if rx.wait(timeout=60) != 0:
+            fail(f"rtp_headline_1080p: the receiver exited {rx.returncode}")
+        src.close()
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"rtp_headline_1080p: the feeder failed: {errors}")
+    depay = rtpnet.RawVideoDepayloader("BGRA", w, h)
+    back = []
+    gc.disable()         # the receiver's own lists, not the system's
+    try:
+        for d in got:
+            back += depay.depay(rtpnet.RtpPacket.parse(d))
+    finally:
+        gc.enable()
+    out.update(back=back, dgrams=paid["dgrams"], spent=spent,
+               t_wall=max(last[0], t_run) - t0, rcvbuf=rcvbuf,
+               sent=sum(len(x) for x in paid["dgrams"]),
+               received=taken[0], sink_sent=sink._pay.packet_count,
+               collected=len(got), depay_dropped=depay.num_dropped,
+               src_dropped=src._depay.num_dropped,
+               jb_lost=src._jb.num_lost, burst=burst)
+    return out
+
+
+def h264_bits():
+    """An MSB-first bit writer with Exp-Golomb codes (ITU-T H.264 7.2,
+    9.1) and the RBSP trailing bits."""
+    class Bits:
+        def __init__(self):
+            self.v, self.n = 0, 0
+
+        def u(self, x, k):
+            self.v = (self.v << k) | (x & ((1 << k) - 1))
+            self.n += k
+            return self
+
+        def ue(self, x):
+            x += 1
+            k = x.bit_length()
+            return self.u(0, k - 1).u(x, k)
+
+        def rbsp(self) -> bytes:
+            self.u(1, 1)
+            self.u(0, -self.n % 8)
+            return self.v.to_bytes(self.n // 8, "big")
+    return Bits()
+
+
+def h264_epb(raw: bytes) -> bytes:
+    """Emulation prevention (7.4.1): 00 00 followed by a byte <= 3 takes
+    an 03 between; the non-overlapping matches are the sequential rule's."""
+    import re
+    return re.sub(b"\x00\x00(?=[\x00-\x03])", b"\x00\x00\x03", raw)
+
+
+def h264_stream(seconds, fps, au_bytes, seed=81):
+    """A seeded H.264 Annex-B stream, Main profile level 4.0, 1920x1080
+    (1088 coded rows cropped by 8) at `fps` (VUI timing): an IDR access
+    unit (SPS, PPS and an IDR slice) each second, non-IDR slices between,
+    each slice a valid slice-header start (first_mb_in_slice 0,
+    slice_type, pps 0, frame_num) and a random emulation-prevented payload
+    of about au_bytes.  Returns [(access unit bytes, pts ns)]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    sps = h264_bits().u(77, 8).u(0, 8).u(40, 8).ue(0).ue(0).ue(2).ue(1) \
+        .u(0, 1).ue(119).ue(67).u(1, 1).u(1, 1).u(1, 1).ue(0).ue(0).ue(0) \
+        .ue(4).u(1, 1).u(0, 4).u(1, 1).u(1, 32).u(2 * fps, 32).u(1, 1) \
+        .u(0, 5).rbsp()
+    pps = h264_bits().ue(0).ue(0).u(0, 1).u(0, 1).ue(0).ue(0).ue(0) \
+        .u(0, 1).u(0, 2).ue(1).ue(1).ue(0).u(1, 1).u(0, 1).u(0, 1).rbsp()
+    start = b"\x00\x00\x00\x01"
+    out = []
+    for i in range(seconds * fps):
+        idr = i % fps == 0
+        hdr = h264_bits().ue(0).ue(7 if idr else 5).ue(0).u(i % 16, 4)
+        if idr:
+            hdr.ue(i // fps % 65536)
+        head = hdr.v << (-hdr.n % 8)
+        body = (head.to_bytes(-(-hdr.n // 8), "big")
+                + rng.integers(0, 256, int(au_bytes * rng.uniform(0.8, 1.2)),
+                               np.uint8).tobytes() + b"\x80")
+        slice_nal = bytes([0x65 if idr else 0x41]) + h264_epb(body)
+        au = (start + b"\x67" + h264_epb(sps) + start + b"\x68"
+              + h264_epb(pps) if idr else b"") + start + slice_nal
+        out.append((au, i * 1_000_000_000 // fps))
+    return out
+
+
+def ts_over_rtp(gtt, card) -> dict:
+    """ts_over_rtp on the card's host: the seeded H.264 stream and a
+    seeded audio PID through mpegtsmux, 7 TS packets per RTP datagram
+    (Mp2tPayloader) over localhost UDP into rtpsrc (encoding-name=MP2T),
+    each pull_bytes as it comes through tsparse, tsdemux and h264parse,
+    then mpegtsmux again and tsdemux: the elementary streams and their pts
+    come back exactly, with no continuity error.  Returns the figures."""
+    import socket
+    import numpy as np
+    from gstbad_tpu_torch.io import rtpnet
+
+    rng = np.random.default_rng(82)
+    aus = h264_stream(TS_SECONDS, TS_FPS, TS_AU_BYTES)
+    audio = [(rng.integers(0, 256, 480, np.uint8).tobytes(),
+              i * 1_000_000_000 // 50) for i in range(TS_SECONDS * 50)]
+    es_bytes = sum(len(a) for a, _ in aus) + sum(len(a) for a, _ in audio)
+
+    def mux(video, sound):
+        m = gtt.make("mpegtsmux")
+        v, a = m.connect("video/x-h264"), m.connect("audio/aac")
+        blob, j = [], 0
+        for au, pts in video:
+            while j < len(sound) and sound[j][1] <= pts:
+                blob.append(m.chain(a, sound[j][0], pts_ns=sound[j][1]))
+                j += 1
+            blob.append(m.chain(v, au, pts_ns=pts, dts_ns=pts,
+                                random_access=au[4] == 0x67))
+        blob += [m.chain(a, d, pts_ns=t_) for d, t_ in sound[j:]]
+        return b"".join(blob)
+
+    class Receiver:
+        """tsdemux, then h264parse on each video PES (an access unit a
+        PES: pushed, then drained with its pts)."""
+
+        def __init__(self):
+            self.dmx, self.h264 = gtt.make("tsdemux"), gtt.make("h264parse")
+            self.video, self.sound = [], []
+
+        def push(self, chunk, eos=False):
+            pes = self.dmx.push_bytes(chunk)
+            if eos:
+                pes += self.dmx.event_eos()
+            for o in pes:
+                if o["pid"] == 0x40:
+                    self.video += [
+                        (x["data"], x["pts"]) for x in
+                        self.h264.push(o["data"], pts_ns=o["pts"])
+                        + self.h264.finish(pts_ns=o["pts"])]
+                else:
+                    self.sound.append((o["data"], o["pts"]))
+
+        def check(self, what):
+            if self.dmx.continuity_errors:
+                fail(f"ts_over_rtp {what}: {self.dmx.continuity_errors} "
+                     "continuity errors")
+            if self.video != aus or self.sound != audio:
+                fail(f"ts_over_rtp {what}: {len(self.video)} access units "
+                     f"and {len(self.sound)} audio buffers out of "
+                     f"{len(aus)} and {len(audio)}, or their bytes or pts "
+                     "differ")
+
+    t0 = time.perf_counter()
+    ts = mux(aus, audio)
+    port = free_udp_port_pair()
+    src = gtt.make("rtpsrc", address="127.0.0.1", port=port,
+                   caps="application/x-rtp,media=video,encoding-name=MP2T")
+    src.negotiate(None)
+    src.open()
+    dgrams = [pk.serialize() for pk in rtpnet.Mp2tPayloader().pay(ts)]
+    # bursts of at most half what the socket's default buffer holds, each
+    # taken off by pull_bytes before the next is sent
+    burst = max(8, udp_rcvbuf() // 2 // 4096)
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    parse, rx = gtt.make("tsparse"), Receiver()
+    got, passed = [], []
+    for i in range(0, len(dgrams), burst):
+        for d in dgrams[i:i + burst]:
+            tx.sendto(d, ("127.0.0.1", port))
+        got.append(src.pull_bytes())
+        passed.append(parse.chain(got[-1]))
+        rx.push(passed[-1], eos=i + burst >= len(dgrams))
+    tx.close()
+    src.close()
+    if b"".join(got) != ts or b"".join(passed) != ts:
+        fail(f"ts_over_rtp: {sum(map(len, got))} TS bytes came out of "
+             f"rtpsrc and {sum(map(len, passed))} out of tsparse, "
+             f"{len(ts)} went in, or they differ")
+    if parse.programs != {1: 0x20} or sorted(parse.streams) != [0x40,
+                                                                0x41]:
+        fail(f"ts_over_rtp: tsparse programs {parse.programs}, streams "
+             f"{parse.streams}")
+    rx.check("rtpsrc ! tsparse ! tsdemux ! h264parse")
+    caps = rx.h264.src_caps
+    if (caps["width"], caps["height"], caps["framerate"][0]
+            / caps["framerate"][1]) != (1920, 1080, TS_FPS):
+        fail(f"ts_over_rtp: h264parse caps {caps}")
+    remux = mux(rx.video, rx.sound)
+    again = Receiver()
+    for i in range(0, len(remux), 65536):
+        again.push(remux[i:i + 65536], eos=i + 65536 >= len(remux))
+    again.check("mpegtsmux ! tsdemux")
+    if remux != ts:
+        fail("ts_over_rtp: the second mux differs from the first")
+    secs = time.perf_counter() - t0
+    mbps = es_bytes / secs / 1e6
+    log(f"ts_over_rtp: {len(aus)} access units of H.264 1920x1080 "
+        f"({sum(len(a) for a, _ in aus) * 8 / TS_SECONDS / 1e6:.2f} Mb/s) "
+        f"and {len(audio)} audio buffers, {len(ts)} TS bytes in "
+        f"{len(dgrams)} datagrams of 7 packets (bursts of {burst}): "
+        f"rtpsrc, tsparse, tsdemux, h264parse and mpegtsmux give back "
+        f"every access unit and pts exactly, continuity errors 0; "
+        f"{mbps:.2f} MB/s of elementary stream through the whole chain, "
+        f"both muxes included ({secs:.1f} s, host clock; {card})")
+    return {"aus": aus, "mbps": mbps}
+
+
+# the upstream unit-test vectors of four parsers
+# (tests/check/elements/{h265parse,mpeg4videoparse,mpegvideoparse,
+# h263parse}.c): 128x128 HEVC, 32x24 MPEG-4 part 2 and MPEG-2, CIF H.263
+H265_128 = bytes.fromhex(
+    "0000000140010c01ffff01600000030090000003000003003f95980900000001"
+    "42010101600000030090000003000003003fa0102020596566924cafff000100"
+    "01010000030001000003001e08000000014401c172b42240"
+)
+H265_128_IDR = bytes.fromhex(
+    "000000012801af0ee034821584f4704fffed413fffe4cdc47c030cc2bbb074e5"
+    "ef4fe1a3d40002c2"
+)
+MPEG4_CONFIG = bytes.fromhex(
+    "000001b001000001b58913000001000000012000c48d8800f501040314630000"
+    "01b3001007"
+)
+MPEG4_VOP = bytes.fromhex(
+    "000001b6106091823db7f1b6dfc6db7f1b6dfb"
+)
+MPEG2_SEQ = bytes.fromhex(
+    "000001b302001815ffffe028000001b5148a00010000000001b800080000"
+)
+MPEG2_PIC = bytes.fromhex(
+    "00000100000ffff8000001b58ffff341800000010123f87d29488b94a5222000"
+    "00010223f87d29488b94a52220"
+)
+H263_PIC = bytes.fromhex(
+    "000080020c042620202021ffff310101010ffff9880808087fffcc40404043ff"
+    "fe620202021ffff310101010ffff9880808087fffcc40404043fffe620202021"
+    "ffff310101010ffff9880808087fffcc40404043fffe620202021ffff3101010"
+    "10ffff9880808087fffcc40404043fffe620202021ffff310101010ffff98808"
+)
+
+
+def transport_host_checks(gtt, card, frame, dgrams, aus) -> None:
+    """The transport plane's other names once each on the card's host,
+    on seeded inputs, each against its own round-trip or stream-table
+    invariant: sdpdemux on an SDP of rtp_headline_1080p's session with
+    one frame's datagrams, the ONVIF pair on them, pcapparse on a pcap and
+    irtspparse on RTSP-interleaved framing of them, the PS mux and demux
+    on ts_over_rtp's access units, and each of the eleven parsers on a
+    stream of its format."""
+    import json
+    import struct
+    import zlib
+    import numpy as np
+    from gstbad_tpu_torch.io import dirac, rtpnet, vc1
+
+    t0 = time.perf_counter()
+    h, w = frame.shape[:2]
+    rows = frame.reshape(h, -1)
+
+    def depays_to_frame(datagrams, what):
+        depay = rtpnet.RawVideoDepayloader("BGRA", w, h)
+        done = []
+        for d in datagrams:
+            done += depay.depay(rtpnet.RtpPacket.parse(d))
+        if len(done) != 1 or not np.array_equal(done[0][1], rows):
+            fail(f"{what}: the datagrams do not depay to the frame")
+
+    # sdpdemux: the session of rtp_headline_1080p, then its RTP by port
+    sdp = ("v=0\no=- 1 1 IN IP4 127.0.0.1\ns=rtp_headline_1080p\n"
+           "c=IN IP4 127.0.0.1\nt=0 0\nm=video 5004 RTP/AVP 96\n"
+           "a=rtpmap:96 raw/90000\na=fmtp:96 sampling=BGRA; width=1920; "
+           "height=1080; depth=8; colorimetry=BT709-2; exactframerate=60\n")
+    el = gtt.make("sdpdemux")
+    streams = el.push_sdp(sdp)
+    caps = streams[0].caps
+    if (len(streams), streams[0].pt, streams[0].rtp_port,
+            caps["encoding-name"], caps["sampling"], caps["width"]) != (
+            1, 96, 5004, "RAW", "BGRA", "1920"):
+        fail(f"sdpdemux: streams {streams}")
+    for d in dgrams:
+        if el.push_rtp(d, port=5004) is not streams[0]:
+            fail("sdpdemux: a datagram went to no stream")
+    pulled = el.pull(0)
+    if [o["payload"] for o in pulled] != [
+            rtpnet.RtpPacket.parse(d).payload for d in dgrams]:
+        fail("sdpdemux: the stream's packets differ from those pushed")
+    depays_to_frame([rtpnet.RtpPacket(
+        payload_type=96, seq=o["seq"], timestamp=o["timestamp"],
+        marker=o["marker"], payload=o["payload"]).serialize()
+        for o in pulled], "sdpdemux")
+
+    # rtponviftimestamp ! rtponvifparse: the extension on, then read
+    ntp_offset = 3600 * 1_000_000_000
+    stamp = gtt.make("rtponviftimestamp", **{"ntp-offset": ntp_offset,
+                                             "set-e-bit": True})
+    stamped = []
+    for i, d in enumerate(dgrams):
+        stamped += stamp.chain(d, pts_ns=0, keyframe=i == 0)
+    stamped += stamp.event_eos()
+    parse = gtt.make("rtponvifparse")
+    parsed = [parse.chain(d) for d in stamped]
+    if (len(parsed) != len(dgrams) or parsed[0]["pts"] != ntp_offset
+            or not parsed[0]["keyframe"] or not parsed[0]["discont"]
+            or [rtpnet.RtpPacket.parse(o["data"]).payload for o in parsed]
+            != [rtpnet.RtpPacket.parse(d).payload for d in dgrams]):
+        fail("rtponviftimestamp/rtponvifparse: the round trip differs")
+    depays_to_frame([o["data"] for o in parsed], "rtponvifparse")
+
+    # pcapparse on Ethernet/IPv4/UDP records of the datagrams
+    blob = struct.pack("<IHHiIII", 0xA1B2C3D4, 2, 4, 0, 0, 65535, 1)
+    for i, d in enumerate(dgrams):
+        udp = struct.pack(">HHHH", 5004, 5004, 8 + len(d), 0) + d
+        ip = struct.pack(">BBHHHBBH4s4s", 0x45, 0, 20 + len(udp), 0, 0, 64,
+                         17, 0, bytes([10, 0, 0, 1]), bytes([10, 0, 0, 2]))
+        eth = bytes(12) + b"\x08\x00" + ip + udp
+        blob += struct.pack("<IIII", 1, i, len(eth), len(eth)) + eth
+    pcap = gtt.make("pcapparse", **{"dst-port": 5004})
+    recs = []
+    for i in range(0, len(blob), 65536):
+        recs += pcap.chain(blob[i:i + 65536])
+    if [r["data"] for r in recs] != dgrams or recs[-1]["pts"] != (
+            10 ** 9 + (len(dgrams) - 1) * 1000):
+        fail("pcapparse: the records differ from the datagrams")
+
+    # irtspparse: RTP on channel 0 interleaved with RTCP on channel 1
+    sr = rtpnet.RtcpSR(ssrc=1, ntp=0, rtp_ts=0, packet_count=len(dgrams),
+                       octet_count=0).serialize()
+    stream = b"".join(bytes([0x24, 0]) + struct.pack(">H", len(d)) + d
+                      + (bytes([0x24, 1]) + struct.pack(">H", len(sr)) + sr
+                         if i % 100 == 0 else b"")
+                      for i, d in enumerate(dgrams))
+    rtsp = gtt.make("irtspparse", **{"channel-id": 0})
+    frames_out = []
+    for i in range(0, len(stream), 4096):
+        frames_out += rtsp.chain(stream[i:i + 4096])
+    if [f["data"] for f in frames_out] != dgrams:
+        fail("irtspparse: the channel's frames differ from the datagrams")
+
+    # mpegpsmux ! mpegpsdemux on the first 2 s of ts_over_rtp's stream
+    mux = gtt.make("mpegpsmux")
+    v = mux.connect("video/x-h264")
+    a = mux.connect("audio/mpeg")
+    ps = b""
+    for i, (au, pts) in enumerate(aus[:2 * TS_FPS]):
+        ps += mux.chain(v, au, pts_ns=pts)
+        ps += mux.chain(a, bytes([i]) * 384, pts_ns=pts)
+    ps += mux.event_eos()
+    dmx = gtt.make("mpegpsdemux")
+    pes = dmx.push_bytes(ps)
+    if ([(o["data"], o["pts"]) for o in pes if o["stream_id"] == 0xE0]
+            != aus[:2 * TS_FPS] or not dmx.saw_end
+            or sorted(dmx.stream_types) != [0xC0, 0xE0]):
+        fail("mpegpsmux/mpegpsdemux: the round trip differs")
+    log(f"transport host checks: sdpdemux, rtponviftimestamp, "
+        f"rtponvifparse, pcapparse and irtspparse on one 1080p frame's "
+        f"{len(dgrams)} datagrams, mpegpsmux/mpegpsdemux on "
+        f"{2 * TS_FPS} access units: every round trip exact")
+
+    # the eleven parsers, each on a stream of its format
+    data = os.path.join(ROOT, "tests", "data")
+
+    def vectors(name):
+        blob = open(os.path.join(data, name + ".bin"), "rb").read()
+        return blob, json.load(open(os.path.join(data, name + ".json")))
+
+    def run(name, stream, step=4096, finish=True, **setup):
+        el = gtt.make(name)
+        for method, args in setup.items():
+            getattr(el, method)(*args)
+        feed = el.chain if name == "vc1parse" else el.push
+        out = []
+        for i in range(0, len(stream), step):
+            out += feed(stream[i:i + step])
+        if finish:
+            out += el.finish()
+        return [o["data"] for o in out], el.src_caps
+
+    def check(name, got, want, caps, keys):
+        if got != want or any(caps.get(k) != v for k, v in keys.items()):
+            fail(f"{name}: {len(got)} buffers out of {len(want)}, or they "
+                 f"differ, or caps {caps} are not {keys}")
+
+    stream = b"".join(a for a, _ in aus[:TS_FPS])
+    got, caps = run("h264parse", stream, step=65536)
+    check("h264parse", got, [a for a, _ in aus[:TS_FPS]], caps,
+          {"width": 1920, "height": 1080, "framerate": (2 * TS_FPS, 2)})
+    got, caps = run("h265parse", H265_128 + H265_128_IDR * 3, step=7)
+    check("h265parse", got, [H265_128 + H265_128_IDR] + [H265_128_IDR] * 2,
+          caps, {"width": 128, "height": 128, "profile": "main"})
+    got, caps = run("mpegvideoparse", MPEG2_SEQ + MPEG2_PIC * 3, step=7)
+    check("mpegvideoparse", got, [MPEG2_SEQ + MPEG2_PIC] + [MPEG2_PIC] * 2,
+          caps, {"width": 32, "height": 24, "mpegversion": 2})
+    got, caps = run("mpeg4videoparse", MPEG4_CONFIG + MPEG4_VOP * 3, step=7)
+    check("mpeg4videoparse", got, [MPEG4_CONFIG + MPEG4_VOP]
+          + [MPEG4_VOP] * 2, caps, {"width": 32, "height": 24})
+    got, caps = run("h263parse", H263_PIC * 5, step=13)
+    check("h263parse", got, [H263_PIC] * 5, caps,
+          {"width": 352, "height": 288})
+    blob, idx = vectors("av1_streams")
+    off, ln = idx["arrays"]["stream_no_annexb_av1"]
+    av1 = blob[off:off + ln]
+    got, caps = run("av1parse", av1, step=1000,
+                    set_output=("obu-stream", "frame"))
+    check("av1parse", [len(g) for g in got],
+          idx["nums"]["stream_av1_frame_size"], caps,
+          {"width": 400, "height": 300})
+    if b"".join(got) != av1:
+        fail("av1parse: the frames do not make up the stream")
+    blob, idx = vectors("vp9_frames")
+    vp9 = [blob[f["offset"]:f["offset"] + f["len"]] for f in idx["frames"]]
+    el = gtt.make("vp9parse")
+    sizes = [[len(o["data"]) for o in el.push(f)] for f in vp9[:3]]
+    check("vp9parse", sizes, [[len(vp9[0])], [idx["first_len"],
+                                               idx["last_len"]],
+                              [len(vp9[2])]], el.src_caps,
+          {"width": 256, "height": 144})
+    blob, idx = vectors("jpeg2000_frames")
+    j2k = blob[idx["rgb_32_32_j2k"][0]:sum(idx["rgb_32_32_j2k"])]
+    got, caps = run("jpeg2000parse", j2k * 3, step=17)
+    check("jpeg2000parse", got, [j2k] * 3, caps, {"width": 32, "height": 32})
+    layer = vc1.make_sequence_layer(vc1.PROFILE_MAIN,
+                                    vc1.StructC(profile=vc1.PROFILE_MAIN),
+                                    320, 240, 2, 25, 1)
+    fl = [vc1.make_frame_layer_header(4, i == 0, 40 * i) + bytes([i]) * 4
+          for i in range(3)]
+    el = gtt.make("vc1parse")
+    el.set_caps(header_format="sequence-layer")
+    got = [o["data"] for o in el.chain(layer + b"".join(fl))]
+    check("vc1parse", got, [layer] + fl, {"stream-format":
+                                          el.in_stream_format},
+          {"stream-format": "sequence-layer-frame-layer"})
+
+    def png(wd, ht):
+        def chunk(code, payload):
+            return (struct.pack(">I", len(payload)) + code + payload
+                    + struct.pack(">I", zlib.crc32(code + payload)))
+        raw = b"".join(b"\x00" + bytes(range(wd)) for _ in range(ht))
+        return (b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", wd, ht, 8, 0, 0, 0,
+                                             0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    got, caps = run("pngparse", png(64, 48) * 3, step=100)
+    check("pngparse", got, [png(64, 48)] * 3, caps,
+          {"width": 64, "height": 48})
+    hdr = dirac.SequenceHeader(
+        major_version=2, minor_version=2, profile=8, level=0, index=0,
+        width=352, height=288, chroma_format=2, interlaced=0,
+        frame_rate_numerator=25, frame_rate_denominator=1,
+        aspect_ratio_numerator=1, aspect_ratio_denominator=1,
+        clean_width=352, clean_height=288, luma_offset=0,
+        luma_excursion=255, chroma_offset=128, chroma_excursion=255)
+    seq = dirac.build_parse_unit(dirac.PARSE_CODE_SEQUENCE_HEADER,
+                                 dirac.build_sequence_header_payload(hdr))
+    pics = [dirac.build_parse_unit(0x0C if i == 0 else 0x08,
+                                   bytes([i]) * 9) for i in range(3)]
+    got, caps = run("diracparse", seq + b"".join(pics), step=11)
+    check("diracparse", got, [seq + pics[0]] + pics[1:], caps,
+          {"width": 352, "height": 288, "framerate": (25, 1)})
+    log(f"the eleven parsers: h264parse, h265parse, mpegvideoparse, "
+        f"mpeg4videoparse, h263parse, av1parse, vp9parse, jpeg2000parse, "
+        f"vc1parse, pngparse and diracparse each give back the buffers "
+        f"of a stream of its format, with its caps "
+        f"({time.perf_counter() - t0:.1f} s with the checks above)")
+
+
+def rtp_reference_main(path: str) -> int:
+    """chip_smoke.py --rtp-reference PATH: rtp_headline_1080p's frames
+    through the same graph by the port on the CPU (rtpsrc fed by
+    push_packet), its output frames and pts saved to PATH (.npz)."""
+    import gc
+    import numpy as np
+    import torch
+    import gstbad_tpu_torch as gtt
+    # it runs beside the card's timed run: behind it, on half the cores;
+    # its collections would change no byte of its output
+    os.nice(10)
+    torch.set_num_threads(4)
+    gc.disable()
+    frames = moving_bgra(WINDOW_4L * RTP_WINDOWS, W, H)
+    dgrams, _ = rtp_datagrams(frames, WINDOW_4L)
+    out = rtp_headline_path(gtt, "cpu", frames, WINDOW_4L, dgrams=dgrams)
+    np.savez(path, data=np.concatenate([b.data for b in out["outs"]]),
+             pts=np.concatenate([b.pts for b in out["outs"]]))
+    return 0
+
+
+def transport_slice(gtt, counters, launches, err, card) -> dict:
+    """Phase 4l: the transport plane.  rtp_headline_1080p on the card
+    (rtp_headline_path) with the counts set to 0 just before its run and
+    read just after (K1 once a window, nothing else): every frame back,
+    in order, its pts within one 90 kHz tick, and equal byte for byte to
+    the CPU port's output of the same graph (run meanwhile in a process of
+    its own, rtp_reference_main); K1 held against its plain version on
+    this path's own window and timed there; frames/s end to end, the
+    device step, the idle share and the datagrams.  Then ts_over_rtp and
+    the other names on the host (transport_host_checks).  Returns K1's
+    time and bound on this path."""
+    import gc
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from gstbad_tpu_torch.ops import chainfuse
+
+    t_phase = time.perf_counter()
+    n = WINDOW_4L * RTP_WINDOWS
+    # the CPU port's run of the same frames, in a process of its own
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rtp_")
+    ref_path = os.path.join(tmp, "reference.npz")
+    ref = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                            "--rtp-reference", ref_path])
+    try:
+        frames = moving_bgra(n, W, H)
+        for c in counters.values():
+            c.launches = 0
+        run = rtp_headline_path(gtt, "cuda", frames, WINDOW_4L)
+        torch.cuda.synchronize()
+        delta = {k: c.launches for k, c in counters.items()}
+        for k, c in delta.items():
+            want = RTP_WINDOWS if k == "dilate_zebra_fused" else 0
+            if c != want:
+                fail(f"rtp_headline_1080p: {k} launched {c} times in "
+                     f"{RTP_WINDOWS} windows ({want} expected)")
+        for k in launches:
+            launches[k] += delta[k]
+        back, ts90 = run["back"], [1500 * i for i in range(n)]
+        if len(back) != n:
+            fail(f"rtp_headline_1080p: {n - len(back)} of {n} frames lost "
+                 f"(rtpsink sent {run['sink_sent']} datagrams, the "
+                 f"receiver got {run['collected']}; rtpsrc took "
+                 f"{run['received']} of {run['sent']}, dropped "
+                 f"{run['src_dropped']} frames)")
+        if any(abs(ts - want) > 1 for (ts, _), want in zip(back, ts90)):
+            fail(f"rtp_headline_1080p: pts {[ts for ts, _ in back]} are "
+                 f"not within one 90 kHz tick of {ts90}")
+        card_out = np.concatenate([b.data for b in run["outs"]])
+        card_pts = np.concatenate([b.pts for b in run["outs"]])
+        gc.disable()     # the check's own lists, not the system's
+        try:
+            got = np.stack([f for _, f in back]).reshape(card_out.shape)
+        finally:
+            gc.enable()
+        if not np.array_equal(got, card_out):
+            fail("rtp_headline_1080p: what the receiver depaid differs from "
+                 "what the pipeline gave rtpsink")
+
+        # K1 on this path's own window (an uncounted replay of the step on
+        # the first window rtpsrc uploaded), against its plain version
+        p, batch = run["p"], run["inputs"][0]
+        step = p.compile(WINDOW_4L)
+        params, states = p.params(), p.init_states(WINDOW_4L)
+        store = {}
+        restore = capture(chainfuse, "dilate_zebra_fused", store)
+        try:
+            step(params, states, batch)
+        finally:
+            restore()
+        (args, kw), = store["dilate_zebra_fused"]
+        src, rank_t, word_t, index, erode, thr, phase = args
+        if tuple(src.shape) != (WINDOW_4L, H, W) or kw.get("batch") not in (
+                None, WINDOW_4L):
+            fail(f"rtp_headline_1080p: K1 took {tuple(src.shape)} "
+                 f"(batch {kw.get('batch')}), not a materialized window")
+        b = WINDOW_4L
+        scal = torch.stack([chainfuse._per_frame_i32(v, b, src.device)
+                            for v in (erode, thr, phase)])
+        k1 = chainfuse.dilate_zebra_fused(*args, **kw)
+        e = byte_err(k1, chainfuse.dilate_zebra_plain(src, rank_t, word_t,
+                                                      index, scal))
+        err["dilate_zebra_fused"] = max(err["dilate_zebra_fused"], e)
+        if e:
+            fail(f"rtp_headline_1080p: K1 is {e} from its plain version on "
+                 "the path's window")
+        times = {"K1_rtp": (
+            cuda_ms(lambda: chainfuse.dilate_zebra_fused(*args, **kw)),
+            cuda_ms(lambda: chainfuse.dilate_zebra_plain(
+                src, rank_t, word_t, index, scal), iters=5), None)}
+        sm_hz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True).stdout.split()[0]) * 1e6
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        int32_per_s = n_sm * INT32_LANES * sm_hz
+        # as K1_materialized: B words read and written, 8 operations a
+        # pixel
+        bounds = {"K1_rtp": bound(2 * b * H * W * 4, 8 * b * H * W,
+                                  int32_per_s)}
+        step_ms = cuda_ms(lambda: step(params, states, batch), iters=5,
+                          warmup=1)
+        fps = n / run["t_wall"]
+        idle = 1.0 - RTP_WINDOWS * step_ms / (run["t_wall"] * 1e3)
+        log(f"rtp_headline_1080p: {n} seeded moving 1920x1080 BGRA frames "
+            f"in {RTP_WINDOWS} windows of {WINDOW_4L} over RTP (RFC 4175, "
+            f"MTU 1400): every frame back in order, pts within one 90 kHz "
+            f"tick; launches {({k: v for k, v in delta.items() if v})}; K1 "
+            f"equal to its plain version on the path's window "
+            f"[{WINDOW_4L}, {H}, {W}], {times['K1_rtp'][0]:.4f} ms "
+            f"(plain {times['K1_rtp'][1]:.4f} ms)")
+        log(f"rtp_headline_1080p: {fps:.2f} frames/s end to end (host "
+            f"clock, {run['t_wall']:.3f} s from run() to the last datagram "
+            f"received; the CPU reference ran meanwhile at nice 10 in a "
+            f"process of its own), device step {step_ms:.3f} ms a window (CUDA "
+            f"events), idle share {idle:.4f}; datagrams: the feeder sent "
+            f"{run['sent']}, rtpsrc took {run['received'] - 1} (and the "
+            f"end-of-stream wake), rtpsink sent {run['sink_sent']}, the "
+            f"receiver got {run['collected']} (receive buffer "
+            f"{run['rcvbuf']} bytes; feeder bursts of {run['burst']}) "
+            f"({card})")
+        sp = run["spent"]
+        log(f"rtp_headline_1080p host clock: rtpsrc's pulls (receive, "
+            f"parse, jitter buffer, depayload, the upload) "
+            f"{sp['pull']:.3f} s, rtpsink's host_process (payload, send) "
+            f"{sp['sink']:.3f} s, the rest (steps, downloads, the runner) "
+            f"{run['t_wall'] - sp['pull'] - sp['sink']:.3f} s of "
+            f"{run['t_wall']:.3f} s")
+        ts_res = ts_over_rtp(gtt, card)
+        transport_host_checks(gtt, card, frames[0],
+                              rtp_datagrams(frames[:1], 1)[0][0],
+                              ts_res["aus"])
+        if ref.wait(timeout=600) != 0:
+            fail(f"rtp_headline_1080p: the CPU reference exited "
+                 f"{ref.returncode}")
+        with np.load(ref_path) as z:
+            if not (np.array_equal(z["data"], card_out)
+                    and np.array_equal(z["pts"], card_pts)):
+                fail("rtp_headline_1080p: the card's output differs from the "
+                     "CPU port's")
+        log("rtp_headline_1080p: the card's output equals the CPU port's "
+            "byte for byte (frames and pts)")
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"transport_slice: {time.perf_counter() - t_phase:.1f} s")
+    return {"times": times, "bounds": bounds}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5106,6 +6024,10 @@ def main() -> int:
     mesh_slice(gtt, counters, launches, err, card)
     phase_done("4k")
 
+    # 4l. the transport plane (transport_slice)
+    transport = transport_slice(gtt, counters, launches, err, card)
+    phase_done("4l")
+
     # 5. timing
     fps = {}
     for key, build in runs.items():
@@ -5449,6 +6371,9 @@ def main() -> int:
     times.update(deferred["times"])
     bounds.update(deferred["bounds"])
     chains.update(deferred["chains"])
+    # K1 on rtp_headline_1080p's own window (phase 4l)
+    times.update(transport["times"])
+    bounds.update(transport["bounds"])
     for label, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bounds[label]
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
@@ -5481,6 +6406,8 @@ def main() -> int:
         entry("dilate_zebra_fused", "K1_materialized",
               "tablefuse_kernels.cu", "gstbad_tpu/ops/chainfuse.py:78",
               "materialized"),
+        entry("dilate_zebra_fused", "K1_rtp", "tablefuse_kernels.cu",
+              "gstbad_tpu/ops/chainfuse.py:78", "rtp_headline_1080p"),
         entry("apply_word_table", "K2", "tablefuse_kernels.cu",
               "gstbad_tpu/ops/lut.py:91"),
         entry("metrics_default", "K4", "deinterlace_kernels.cu",
@@ -5547,4 +6474,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--profile"]:
         sys.exit(profile_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--rtp-reference"]:
+        sys.exit(rtp_reference_main(sys.argv[2]))
     sys.exit(main())

@@ -2,7 +2,7 @@
 
 from gstbad_tpu_torch.elements import (  # noqa: F401
     adaptivedemux, bridges, debugutils, files, ioelements, jaxfilter, misc,
-    observability)
+    mpegts, observability, onvif, pcap, rtp, sdpdemux, videoparsers)
 from gstbad_tpu_torch.elements.analysis import compare  # noqa: F401
 from gstbad_tpu_torch.elements.audio import (  # noqa: F401
     adpcm, bpmdetect, bs2b, buffersplit, convert as audio_convert, freeverb,

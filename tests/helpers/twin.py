@@ -11,10 +11,13 @@ JAX one goes on."""
 
 import dataclasses
 import enum
+import inspect
 import itertools
 import numbers
 import types
 import xml.etree.ElementTree as ET
+
+import pytest
 
 PLAIN = (type(None), bool, numbers.Number, str, bytes, bytearray)
 
@@ -43,8 +46,10 @@ def tree(x, seen=None):
     if isinstance(x, (set, frozenset)):
         return ("set", tuple(sorted(repr(tree(v, seen)) for v in x)))
     if dataclasses.is_dataclass(x) or hasattr(x, "__dict__"):
+        # the port's elements also hold their pipeline's torch device
         return (type(x).__name__, tuple(
-            (k, tree(v, seen)) for k, v in sorted(vars(x).items())))
+            (k, tree(v, seen)) for k, v in sorted(vars(x).items())
+            if not (k == "device" and type(v).__module__ == "torch")))
     if hasattr(x, "__slots__"):
         return (type(x).__name__, tuple(
             (k, tree(getattr(x, k, None), seen)) for k in x.__slots__))
@@ -61,15 +66,18 @@ def _plain(x):
     return False
 
 
-def wrap(j, t, known):
+def wrap(j, t, known, owned=False):
     """The JAX side's value to hand on: plain as it is, else the Twin of
-    the pair (`known`: the pairs wrapped so far from one root Twin)."""
+    the pair (`known`: the pairs wrapped so far from one root Twin;
+    `owned`: an attribute of an object, not a call's result)."""
     if isinstance(j, type) and issubclass(j, BaseException):
         assert isinstance(t, type) and t.__name__ == j.__name__
         return j                       # pytest.raises takes the JAX class
     if not callable(j) or isinstance(j, type):
         assert tree(j) == tree(t), (j, t)
-    if _plain(j):
+    # a list or dict of plain values goes on as it is, but an attribute's
+    # own list or dict (which a test may fill) as the Twin of the pair
+    if _plain(j) and not (owned and isinstance(j, (list, dict))):
         return j
     key = (id(j), id(t))
     if key not in known:
@@ -77,10 +85,20 @@ def wrap(j, t, known):
     return known[key]
 
 
+def _side(a, i):
+    """Argument `a` for side i (0 JAX, 1 the port): each Twin in it, at any
+    depth of its lists, tuples and dicts, replaced by that side's object."""
+    if isinstance(a, Twin):
+        return (a._j, a._t)[i]
+    if isinstance(a, (list, tuple)):
+        return type(a)(_side(v, i) for v in a)
+    if isinstance(a, dict):
+        return {k: _side(v, i) for k, v in a.items()}
+    return a
+
+
 def _sides(args):
-    j = [a._j if isinstance(a, Twin) else a for a in args]
-    t = [a._t if isinstance(a, Twin) else a for a in args]
-    return j, t
+    return [_side(a, 0) for a in args], [_side(a, 1) for a in args]
 
 
 class Twin:
@@ -91,7 +109,8 @@ class Twin:
 
     def __getattr__(self, name):
         return wrap(getattr(self._j, name), getattr(self._t, name),
-                    self._known)
+                    self._known, owned=not isinstance(self._j,
+                                                      types.ModuleType))
 
     def __setattr__(self, name, value):
         jv, tv = _sides([value])
@@ -154,3 +173,27 @@ class Twin:
 
     def __repr__(self):
         return f"Twin({self._j!r})"
+
+
+def jax_test_cases(modules, skip=()):
+    """pytest params (module, test function, its arguments) for every test
+    of the JAX test modules but those named in `skip`, a parametrized one
+    once per value."""
+    out = []
+    for mod in modules:
+        for name, fn in sorted(vars(mod).items()):
+            if (not name.startswith("test_") or not callable(fn)
+                    or name in skip):
+                continue
+            marks = [m for m in getattr(fn, "pytestmark", ())
+                     if m.name == "parametrize"]
+            if marks:
+                argname, values = marks[0].args[:2]
+                out += [pytest.param(mod, fn, {argname: v},
+                                     id=f"{mod.__name__}.{name}[{i}]")
+                        for i, v in enumerate(values)]
+            else:
+                assert not inspect.signature(fn).parameters, name
+                out.append(pytest.param(mod, fn, {},
+                                        id=f"{mod.__name__}.{name}"))
+    return out

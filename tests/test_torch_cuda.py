@@ -15,7 +15,10 @@ against the CPU port; and H5 (netsim_bucket, netsim's token-bucket walk)
 against its plain walk, with netsim, speed, timecodestamper,
 autovideoconvert and checksumsink graphs on the card against the CPU port;
 and the sessions (Play with a colour balance and with a visualisation, a
-Camera recording) on the card against the CPU port.
+Camera recording) on the card against the CPU port; and the raw-video RTP
+headline graph (rtpsrc ! the headline's chain ! rtpsink over localhost
+UDP) on the card against the CPU port, with K1 against its plain version
+on that path's own window.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  They
 import neither jax nor gstbad_tpu, so they run on a machine that has only
@@ -1401,3 +1404,106 @@ def test_sessions_on_card_equal_cpu_port(dev, case, tmp_path):
         b = b if isinstance(b, dict) else {"": b}
         for k in b:
             np.testing.assert_array_equal(a[k], b[k])
+
+
+def _rtp_headline(device, frames, window):
+    """rtpsrc ! videoconvert format=BGRx ! the headline's chain !
+    zebrastripe ! videoconvert format=BGRA ! rtpsink over localhost UDP:
+    the frames' RFC 4175 datagrams sent before the run (they fit in the
+    socket's buffer), an RTCP BYE after them; the depaid output and the
+    pipeline's leaf batches."""
+    import socket
+    from gstbad_tpu_torch.io import rtpnet
+
+    def port_pair():
+        while True:
+            s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+            s.close()
+            if port % 2 == 0 and port < 65534:
+                return port
+
+    n, h, w = frames.shape[:3]
+    p_in, p_out = port_pair(), port_pair()
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.bind(("127.0.0.1", p_out))
+    rx.setblocking(False)
+    p = gtt.parse_launch(
+        f"rtpsrc uri=rtp://127.0.0.1:{p_in}?latency=50 "
+        'caps="application/x-rtp,media=video,encoding-name=RAW,'
+        f'sampling=BGRA,width={w},height={h},framerate=60/1" '
+        f"! videoconvert format=BGRx ! {HEAD} ! zebrastripe "
+        f"! videoconvert format=BGRA ! rtpsink uri=rtp://127.0.0.1:{p_out}",
+        device=device)
+    p.negotiate()
+    src = p.nodes[0].element
+    src.open()
+    pay = rtpnet.RawVideoPayloader("BGRA", w, h)
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    for i in range(n):
+        for pk in pay.pay_frame(frames[i], 1500 * i):
+            tx.sendto(pk.serialize(), ("127.0.0.1", p_in))
+    tx.sendto(rtpnet.rtcp_bye(pay.ssrc), ("127.0.0.1", p_in + 1))
+    tx.close()
+    outs = p.run(window=window)
+    p.close()
+    depay = rtpnet.RawVideoDepayloader("BGRA", w, h)
+    back = []
+    while True:
+        try:
+            back += depay.depay(rtpnet.RtpPacket.parse(rx.recv(65536)))
+        except BlockingIOError:
+            break
+    rx.close()
+    return p, outs, back
+
+
+@pytest.mark.parametrize("size", [(256, 16), (200, 18)])
+def test_rtp_headline_on_card_equals_cpu_port(dev, size):
+    """2 windows of 4 seeded BGRA frames in over RTP and out over RTP:
+    K1 once a window on the card (the frames are not time-invariant), and
+    every frame back equal to the CPU port's, pts within one 90 kHz
+    tick."""
+    w, h = size
+    frames = np.random.default_rng(5).integers(0, 256, (8, h, w, 4),
+                                               dtype=np.uint8)
+    before = chainfuse.dilate_zebra_fused.launches
+    _, outs, back = _rtp_headline("cuda", frames, 4)
+    assert chainfuse.dilate_zebra_fused.launches - before == 2
+    _, cpu_outs, cpu_back = _rtp_headline("cpu", frames, 4)
+    assert len(back) == len(cpu_back) == 8
+    for (ts, f), (cts, cf), i in zip(back, cpu_back, range(8)):
+        assert ts == cts and abs(ts - 1500 * i) <= 1
+        np.testing.assert_array_equal(f, cf)
+    for a, b in zip(outs, cpu_outs):
+        np.testing.assert_array_equal(a.data, b.data)
+        np.testing.assert_array_equal(a.pts, b.pts)
+
+
+def test_k1_on_the_rtp_window_matches_plain(dev):
+    """K1 on the window rtpsrc uploaded (a materialized [B, H, W] source,
+    not a broadcast base), against its plain version."""
+    frames = np.random.default_rng(6).integers(0, 256, (4, 24, 256, 4),
+                                               dtype=np.uint8)
+    calls = []
+    orig = chainfuse.dilate_zebra_fused
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+    spy.launches = 0      # the wrapper counts on the module's attribute
+    chainfuse.dilate_zebra_fused = spy
+    try:
+        _rtp_headline("cuda", frames, 4)
+    finally:
+        chainfuse.dilate_zebra_fused = orig
+    (args, kw), = calls
+    src, rank_t, word_t, index, erode, thr, phase = args
+    assert tuple(src.shape) == (4, 24, 256) and src.is_cuda
+    scal = torch.stack([chainfuse._per_frame_i32(v, 4, src.device)
+                        for v in (erode, thr, phase)])
+    torch.testing.assert_close(
+        orig(*args, **kw),
+        chainfuse.dilate_zebra_plain(src, rank_t, word_t, index, scal),
+        rtol=0, atol=0)

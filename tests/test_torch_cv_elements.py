@@ -280,5 +280,6 @@ def test_registry_has_the_cv_names():
     # runtime slice deferred and the small elements of begun modules, 3
     # with the sessions (dashdemux, hlsdemux, mssdemux), 4 with the
     # inter-process transports (shmsink, shmsrc, ipcpipelinesink,
-    # ipcpipelinesrc)
-    assert len(set(t_names())) == 172
+    # ipcpipelinesrc), 23 with the transport plane (rtp, sdp, onvif, pcap,
+    # MPEG-TS/PS and the eleven elementary-stream parsers)
+    assert len(set(t_names())) == 195

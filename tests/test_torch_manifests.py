@@ -5,7 +5,6 @@ of io/h264.py) and io/isoff.py run every JAX test of theirs
 modules (helpers/twin.py: each call's result, or exception, equal), and
 io/typefind.py and io/subtitles.py on the JAX tests' inputs."""
 
-import inspect
 import struct
 
 import numpy as np
@@ -24,7 +23,7 @@ from gstbad_tpu_torch.io import (dashmpd as t_dashmpd, isoff as t_isoff,
                                  m3u8 as t_m3u8, mss as t_mss,
                                  subtitles as t_subtitles,
                                  typefind as t_typefind)
-from helpers.twin import Twin, tree
+from helpers.twin import Twin, jax_test_cases, tree
 
 #: each JAX test module, and its module names bound to the twins
 TWINS = {test_m3u8: {"m3u8": (j_m3u8, t_m3u8)},
@@ -33,29 +32,7 @@ TWINS = {test_m3u8: {"m3u8": (j_m3u8, t_m3u8)},
          test_isoff: {"isoff": (j_isoff, t_isoff)}}
 
 
-def _cases():
-    """(module, test function, its arguments) for every JAX test of the
-    four modules, parametrized ones once per value."""
-    out = []
-    for mod in TWINS:
-        for name, fn in sorted(vars(mod).items()):
-            if not name.startswith("test_") or not callable(fn):
-                continue
-            marks = [m for m in getattr(fn, "pytestmark", ())
-                     if m.name == "parametrize"]
-            if marks:
-                argname, values = marks[0].args[:2]
-                out += [pytest.param(mod, fn, {argname: v},
-                                     id=f"{mod.__name__}.{name}[{i}]")
-                        for i, v in enumerate(values)]
-            else:
-                assert not inspect.signature(fn).parameters, name
-                out.append(pytest.param(mod, fn, {},
-                                        id=f"{mod.__name__}.{name}"))
-    return out
-
-
-@pytest.mark.parametrize("mod,fn,kwargs", _cases())
+@pytest.mark.parametrize("mod,fn,kwargs", jax_test_cases(TWINS))
 def test_jax_test_runs_on_both(monkeypatch, mod, fn, kwargs):
     for name, (j, t) in TWINS[mod].items():
         monkeypatch.setattr(mod, name, Twin(j, t))
