@@ -290,13 +290,34 @@ line):
    pcapparse, irtspparse, the PS mux and demux and each of the eleven
    parsers once on the host, each against its round-trip or stream-table
    invariant.
+   Then the file formats and the last in-repo device engines
+   (file_format_slice, phase 4m): vmnc_headline_1080p, a seeded 64-frame
+   1920x1080 VMnc recording (screen_updates: a RAW frame, then COPY,
+   HEXTILE and cursor updates) through vmncdec ! the headline's chain !
+   zebrastripe in 2 windows of 32, with the counts set to 0 just before
+   the run and read just after (K1 once a window, nothing else), every
+   frame equal to the CPU port's (a --file-format-reference process of
+   its own), K1 against its plain version on the path's window and timed
+   there, frames/s end to end, the decoder's host clock, the device step
+   and the idle share; onnx_detect_1080p, a seeded detector (onnx_model,
+   written by its own protobuf writer) in onnxobjectdetector behind 1080p
+   ball frames, 2 windows of 16, its messages against the CPU port's
+   (scores, boxes and classes within 1e-4, the keep masks equal but where
+   a score lies within 1e-4 of the threshold), no kernel launched,
+   frames/s by events; fingerprint_native_44k, chromaprint engine=native
+   and ofa on 120 s of seeded 44.1 kHz stereo S16 through appsrc, each
+   chroma image within 1e-5 of the CPU port's, the strings equal (or at
+   most 0.5% of their 2-bit codes apart); and jpegparse/jifmux, kate, MXF,
+   ASF and rfbsrc (against a scripted RFB 3.8 server in a process of its
+   own over localhost TCP) once each against their round trips.
    Each phase logs its seconds on a line of its own ("phase 4l: ... s").
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
    around 10 steps of a 64-frame window, 16 at 4K, data kept on the card;
    4 steps where a step takes 50 ms or more),
    a torch.profiler breakdown of each graph's step, the fourteen and
    phase 4j's three device graphs (the active pipelines of
-   play_headline_1080p and play_vis_48k, and camera_1080p's; the earlier slices' paths are timed, their traces
+   play_headline_1080p and play_vis_48k, and camera_1080p's) and phase
+   4m's onnx_detect_1080p (the earlier slices' paths are timed, their traces
    taken in their own PRs) (device busy
    time, device ops per step, idle share),
    traced in a second process that runs nothing else (chip_smoke.py
@@ -327,7 +348,8 @@ line):
    also timed on random 720-row frames 2560, 3840 and 8192 wide.
 6. Print the kernel table as one JSON line (K1 and K3 once on a
    broadcast base and once on a materialized window, K1 also on
-   rtp_headline_1080p's window, each with its "mode"), then the result
+   rtp_headline_1080p's and vmnc_headline_1080p's windows, each with its
+   "mode"), then the result
    line {"ok": true, "device": {...}} last.
 """
 
@@ -610,15 +632,23 @@ def profile_graphs(step_ms: dict) -> None:
 def profile_main(spec: str) -> int:
     """`chip_smoke.py --profile SPEC`, SPEC a JSON {key: [untraced step
     ms, window]}: profile_step of each graph named there, one of the
-    fourteen or one of phase 4j's (source graphs: no host feed)."""
+    fourteen, one of phase 4j's or onnx_detect_1080p (phase 4m; source
+    graphs: no host feed)."""
     sys.path.insert(0, ROOT)
     import gstbad_tpu_torch as gtt
     from gstbad_tpu_torch.models import benchmarks
 
+    import tempfile
     builds = dict(main_graphs(gtt, benchmarks)[0])
     builds.update(session_graphs())
-    for key, (ms, window) in json.loads(spec).items():
-        profile_step(builds[key]("cuda"), ms, key, window)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as tmp:
+        model = os.path.join(tmp, "model.onnx")
+        with open(model, "wb") as f:
+            f.write(onnx_model())
+        builds["onnx_detect_1080p"] = lambda d: gtt.parse_launch(
+            ONNX_DETECT.format(w=W, h=H, model=model), device=d)
+        for key, (ms, window) in json.loads(spec).items():
+            profile_step(builds[key]("cuda"), ms, key, window)
     return 0
 
 
@@ -5223,6 +5253,1013 @@ def transport_slice(gtt, counters, launches, err, card) -> dict:
     return {"times": times, "bounds": bounds}
 
 
+VMNC_WINDOW = 32                # vmnc_headline_1080p's window
+VMNC_WINDOWS = 2                # and its windows
+# vmnc_headline_1080p: a VMware screen recording through the headline
+VMNC_HEADLINE = "vmncdec framerate=60/1 ! " + HEAD + " ! zebrastripe ! fakesink"
+ONNX_WINDOW = 16                # onnx_detect_1080p's window
+ONNX_WINDOWS = 2                # and its windows
+ONNX_THRESHOLD = 0.5
+ONNX_DETECT = ("videotestsrc pattern=ball width={w} height={h} format=BGRx "
+               "! onnxobjectdetector model-file={model} "
+               "input-image-format=chw score-node-index=0 box-node-index=1 "
+               f"class-node-index=2 score-threshold={ONNX_THRESHOLD} "
+               "! fakesink")
+ONNX_TOL = 1e-4                 # scores and boxes, card against the CPU port
+FP_RATE, FP_SECONDS, FP_BLOCK = 44100, 120, 4410   # fingerprint_native_44k
+CHROMA_TOL = 1e-5               # the chroma rows (unit norm), card to CPU
+FP_CODE_SHARE = 0.005           # differing 2-bit codes allowed
+RFB_FRAMES = 16                 # rfbsrc's frames from the scripted server
+RFB_PASSWORD = "pr4m-vnc"
+MUX_PAYLOADS = 64               # mxf's and asf's seeded 1080p payloads
+# the EXIF/XMP taglist of the jifmux check (tests/check/elements/jifmux.c)
+JIF_TAGS = {
+    "artist": "some artist", "copyright": "My copyright notice",
+    "device-manufacturer": "MyFavoriteBrand", "device-model": "123v42.1",
+    "description": "some description", "application-name": "chip_smoke",
+    "capturing-shutter-speed": (1, 30), "capturing-focal-ratio": 2.0,
+    "capturing-iso-speed": 800, "datetime": "2000:10:05 08:45:13",
+    "geo-location-latitude": -32.375, "geo-location-longitude": 76.0125,
+    "geo-location-elevation": 300.85, "image-orientation": "rotate-90",
+}
+
+
+def screen_updates(n, w, h, seed=91, vmware=True):
+    """n seeded FramebufferUpdate messages of a w x h 32-bit truecolour
+    screen laid out as BGRx (little-endian, red at bit 16, green 8, blue
+    0): the first a RAW full-screen update (a desktop gradient with
+    noise); every later one a COPY of a (w/3 x 4h/9) window dragged a few
+    pixels, then HEXTILE rectangles of text-like tiles (a background, a
+    foreground and 6-12 subrects; some tiles with coloured subrects, some
+    raw) over about 3% of the screen.  vmware: VMnc packets (vmncdec's
+    input), the first with the WMVi descriptor and a 16x16 colour cursor
+    (WMVd, shown by WMVe), every later one moving it (WMVd, WMVf); else
+    plain RFB updates (an RFB server's, without the pseudo-rectangles)."""
+    import struct
+    import numpy as np
+    from gstbad_tpu_torch.io import vmnc
+    rng = np.random.default_rng(seed)
+
+    def rect(x, y, rw, rh, rtype, body=b""):
+        return struct.pack(">HHHHI", x, y, rw, rh, rtype) + body
+
+    def px(bgr):
+        return bytes((int(bgr[0]), int(bgr[1]), int(bgr[2]), 0))
+
+    yy, xx = np.mgrid[0:h, 0:w]
+    desk = np.zeros((h, w, 4), np.uint8)
+    desk[..., 0] = (xx * 255 // max(w - 1, 1)).astype(np.uint8)
+    desk[..., 1] = (yy * 255 // max(h - 1, 1)).astype(np.uint8)
+    desk[..., 2] = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    cw = ch = min(16, w, h)
+    cursor = rng.integers(0, 256, (2, ch, cw, 4), dtype=np.uint8)
+    cursor[..., 3] = 0
+    wmvd = rect(1, 1, cw, ch, vmnc.TYPE_WMVd,
+                bytes([vmnc.CURSOR_COLOUR, 0]) + cursor.tobytes())
+    first = [rect(0, 0, w, h, vmnc.TYPE_RAW, desk.tobytes())]
+    if vmware:
+        first = ([rect(0, 0, w, h, vmnc.TYPE_WMVi,
+                       bytes([32, 24, 0, 1])
+                       + struct.pack(">HHH", 255, 255, 255)
+                       + bytes([16, 8, 0, 0, 0, 0]))] + first
+                 + [wmvd, rect(0, 0, 0, 0, vmnc.TYPE_WMVe,
+                               struct.pack(">H", 1)),
+                    rect(w // 2, h // 2, 0, 0, vmnc.TYPE_WMVf)])
+    updates = [first]
+    step = max(1, w // 640)
+    ww, wh = w // 3, 4 * h // 9
+    wx, wy = w // 5, h // 5
+    tiles = max(1, round(0.03 * w * h / 256))
+    for k in range(1, n):
+        d = step if (k // 4) % 2 == 0 else -step
+        rects = [rect(wx + d, wy + d, ww, wh, vmnc.TYPE_COPY,
+                      struct.pack(">HH", wx, wy))]
+        wx, wy = wx + d, wy + d
+        left = tiles
+        while left > 0:
+            nt = min(4, left, w // 16)
+            left -= nt
+            rx = 16 * int(rng.integers(0, w // 16 - nt + 1))
+            ry = 16 * int(rng.integers(0, h // 16))
+            body = b""
+            for _ in range(nt):
+                kind = int(rng.integers(0, 10))
+                if kind == 0:                                 # raw tile
+                    body += b"\x01" + rng.integers(
+                        0, 256, 16 * 16 * 4, dtype=np.uint8).tobytes()
+                    continue
+                subs = int(rng.integers(6, 13))
+                body += bytes([0x0E | (0x10 if kind == 1 else 0)])
+                body += px(rng.integers(200, 256, 3))       # background
+                body += px(rng.integers(0, 60, 3))          # foreground
+                body += bytes([subs])
+                for _ in range(subs):
+                    sx, sy = int(rng.integers(0, 16)), int(rng.integers(0, 16))
+                    sw = int(rng.integers(1, 17 - sx))
+                    sh = int(rng.integers(1, 17 - sy))
+                    if kind == 1:
+                        body += px(rng.integers(0, 256, 3))
+                    body += bytes([(sx << 4) | sy, ((sw - 1) << 4) | (sh - 1)])
+            rects.append(rect(rx, ry, 16 * nt, 16, vmnc.TYPE_HEXTILE, body))
+        if vmware:
+            rects += [wmvd, rect((w // 2 + 7 * k) % w, (h // 2 + 3 * k) % h,
+                                 0, 0, vmnc.TYPE_WMVf)]
+        updates.append(rects)
+    return [struct.pack(">BBH", 0, 0, len(r)) + b"".join(r) for r in updates]
+
+
+def vmnc_headline_path(gtt, device, packets, window):
+    """vmnc_headline_1080p through gtt.parse_launch(..., device=device):
+    the recording's packets pushed before the run (push_packet), then
+    run() to its end.  Returns the pipeline, its output batches, the
+    input windows vmncdec uploaded, the host clock inside the decoder
+    (feed_packet and output_frame) and inside vmncdec's pulls (the
+    decode, the window's stack and its upload), and run()'s."""
+    import torch
+    p = gtt.parse_launch(VMNC_HEADLINE, device=device)
+    src = element_named(p, "vmncdec")
+    for pk in packets:
+        src.push_packet(pk)
+    p.negotiate()
+    out = {"p": p, "inputs": [], "decode_s": 0.0, "pull_s": 0.0}
+    dec, orig_pull = src._dec, src.pull_window
+
+    def timed(fn):
+        def wrapped(*a):
+            t = time.perf_counter()
+            r = fn(*a)
+            out["decode_s"] += time.perf_counter() - t
+            return r
+        return wrapped
+    dec.feed_packet = timed(dec.feed_packet)
+    dec.output_frame = timed(dec.output_frame)
+
+    def pull(k):
+        t = time.perf_counter()
+        b = orig_pull(k)
+        out["pull_s"] += time.perf_counter() - t
+        if b is not None:
+            out["inputs"].append(b)
+        return b
+    src.pull_window = pull
+    t0 = time.perf_counter()
+    out["outs"] = p.run(window=window)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out["t_wall"] = time.perf_counter() - t0
+    return out
+
+
+def onnx_model(seed=95):
+    """A seeded detector as ONNX ModelProto bytes, written here with a
+    small protobuf writer: a 3x320x320 input; Conv 3->16 (k3 s2 p1),
+    BatchNormalization, Relu; Conv 16->32 (k3 s2 p1), LeakyRelu; MaxPool
+    (k2, strides 2); a depthwise Conv (group 32, k3 s2 p1), a 1x1 Conv to
+    64 and Clip (0, 6); Conv 64->128 (k3 s2 p1); a 1x1 head to 6 values
+    at each cell of the 10x10 grid; Reshape and Transpose to 100
+    detections of 6; then three products (MatMul) pick the score logit
+    (Sigmoid: the scores output), the 4 box values (the boxes output) and
+    the class value (the classes output).  Weights are scaled so that
+    every layer's outputs stay of order 1 on 0..255 inputs."""
+    import struct
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def vint(v):
+        out = b""
+        while True:
+            b7, v = v & 0x7F, v >> 7
+            if not v:
+                return out + bytes([b7])
+            out += bytes([b7 | 0x80])
+
+    def ld(f, payload):
+        return vint((f << 3) | 2) + vint(len(payload)) + payload
+
+    def vi(f, v):
+        return vint(f << 3) + vint(v & ((1 << 64) - 1))
+
+    def tensor(name, arr):
+        arr = np.asarray(arr)
+        dt = {np.dtype("float32"): 1, np.dtype("int64"): 7}[arr.dtype]
+        return (b"".join(vi(1, d) for d in arr.shape) + vi(2, dt)
+                + ld(8, name.encode()) + ld(9, arr.tobytes()))
+
+    def ints(name, vals):
+        return ld(1, name.encode()) + b"".join(vi(8, v) for v in vals)
+
+    def one_int(name, v):
+        return ld(1, name.encode()) + vi(3, v)
+
+    def one_float(name, v):
+        return ld(1, name.encode()) + vint((2 << 3) | 5) \
+            + struct.pack("<f", v)
+
+    def node(op, ins, outs, attrs=()):
+        return (b"".join(ld(1, i.encode()) for i in ins)
+                + b"".join(ld(2, o.encode()) for o in outs)
+                + ld(4, op.encode()) + b"".join(ld(5, a) for a in attrs))
+
+    def vinfo(name, shape):
+        dims = b"".join(ld(1, vi(1, d)) for d in shape)
+        return ld(1, name.encode()) + ld(2, ld(1, vi(1, 1) + ld(2, dims)))
+
+    def conv_w(o, i, k, gain=1.0):
+        return (rng.standard_normal((o, i, k, k)) * gain
+                / np.sqrt(i * k * k)).astype(np.float32)
+
+    def conv(x, w, b, y, k, s, p, group=1):
+        a = [ints("kernel_shape", [k, k]), ints("strides", [s, s]),
+             ints("pads", [p] * 4)]
+        if group > 1:
+            a.append(one_int("group", group))
+        return node("Conv", [x, w, b], [y], a)
+
+    init = {
+        "w1": conv_w(16, 3, 3, 1 / 128.0), "b1": np.zeros(16, np.float32),
+        "bn_scale": (1 + 0.1 * rng.standard_normal(16)).astype(np.float32),
+        "bn_bias": (0.1 * rng.standard_normal(16)).astype(np.float32),
+        "bn_mean": (0.2 * rng.standard_normal(16)).astype(np.float32),
+        "bn_var": (1 + 0.2 * rng.random(16)).astype(np.float32),
+        "w2": conv_w(32, 16, 3), "b2": (0.1 * rng.standard_normal(32)
+                                       ).astype(np.float32),
+        "w3": conv_w(32, 1, 3), "b3": np.zeros(32, np.float32),
+        "w4": conv_w(64, 32, 1), "b4": (0.1 * rng.standard_normal(64)
+                                       ).astype(np.float32),
+        "w5": conv_w(128, 64, 3), "b5": np.zeros(128, np.float32),
+        "w6": conv_w(6, 128, 1, 2.0), "b6": (0.5 * rng.standard_normal(6)
+                                            ).astype(np.float32),
+        "shape": np.array([1, 6, 100], np.int64),
+        "pick_score": np.eye(6, dtype=np.float32)[:, :1],
+        "pick_box": np.eye(6, dtype=np.float32)[:, 1:5],
+        "pick_class": np.eye(6, dtype=np.float32)[:, 5:],
+    }
+    nodes = [
+        conv("x", "w1", "b1", "c1", 3, 2, 1),
+        node("BatchNormalization", ["c1", "bn_scale", "bn_bias", "bn_mean",
+                                    "bn_var"], ["n1"],
+             [one_float("epsilon", 1e-5)]),
+        node("Relu", ["n1"], ["r1"]),
+        conv("r1", "w2", "b2", "c2", 3, 2, 1),
+        node("LeakyRelu", ["c2"], ["l2"], [one_float("alpha", 0.1)]),
+        node("MaxPool", ["l2"], ["p2"], [ints("kernel_shape", [2, 2]),
+                                         ints("strides", [2, 2])]),
+        conv("p2", "w3", "b3", "c3", 3, 2, 1, group=32),
+        conv("c3", "w4", "b4", "c4", 1, 1, 0),
+        node("Clip", ["c4"], ["k4"], [one_float("min", 0.0),
+                                      one_float("max", 6.0)]),
+        conv("k4", "w5", "b5", "c5", 3, 2, 1),
+        conv("c5", "w6", "b6", "head", 1, 1, 0),
+        node("Reshape", ["head", "shape"], ["flat"]),
+        node("Transpose", ["flat"], ["det"], [ints("perm", [0, 2, 1])]),
+        node("MatMul", ["det", "pick_score"], ["logit"]),
+        node("Sigmoid", ["logit"], ["scores"]),
+        node("MatMul", ["det", "pick_box"], ["boxes"]),
+        node("MatMul", ["det", "pick_class"], ["classes"]),
+    ]
+    g = b"".join(ld(1, nd) for nd in nodes)
+    g += b"".join(ld(5, tensor(k, v)) for k, v in init.items())
+    g += ld(11, vinfo("x", [1, 3, 320, 320]))
+    for name, shape in (("scores", [1, 100, 1]), ("boxes", [1, 100, 4]),
+                        ("classes", [1, 100, 1])):
+        g += ld(12, vinfo(name, shape))
+    return ld(7, g)
+
+
+def onnx_detect_path(gtt, device, model_path, w, h):
+    """onnx_detect_1080p's ONNX_WINDOWS windows through
+    gtt.parse_launch(..., device=device): its bus messages."""
+    p = gtt.parse_launch(ONNX_DETECT.format(w=w, h=h, model=model_path),
+                         device=device)
+    p.run(n_frames=ONNX_WINDOW * ONNX_WINDOWS, window=ONNX_WINDOW)
+    return bus_messages(p)
+
+
+def detections_close(got, cpu, tol=ONNX_TOL, thr=ONNX_THRESHOLD) -> dict:
+    """onnxobjectdetector's messages of a card run against the CPU port's:
+    the same elements, names and pts; scores, boxes and classes within
+    `tol` where both keep a detection; where one keeps it and the other
+    not, the kept score within `tol` of the threshold (counted: `near`).
+    Returns the largest differences and the counts."""
+    import numpy as np
+    if len(got) != len(cpu) or not got:
+        fail(f"onnx_detect_1080p: {len(got)} messages on the card, "
+             f"{len(cpu)} on the CPU")
+    worst = {"scores": 0.0, "boxes": 0.0, "classes": 0.0}
+    near = kept = 0
+    for (ge, gn, gp, gf), (ce, cn, cp, cf) in zip(got, cpu):
+        if (ge, gn, gp) != (ce, cn, cp) or sorted(gf) != sorted(cf):
+            fail(f"onnx_detect_1080p: message {(ge, gn, gp)} != "
+                 f"{(ce, cn, cp)}")
+        gs, cs = np.asarray(gf["scores"]), np.asarray(cf["scores"])
+        gk, ck = gs > 0, cs > 0
+        both = gk & ck
+        flip = gk != ck
+        if flip.any():
+            s = np.where(gk, gs, cs)[flip]
+            if not (np.abs(s - thr) <= tol).all():
+                fail(f"onnx_detect_1080p: keep masks differ away from the "
+                     f"threshold (scores {s.tolist()})")
+            near += int(flip.sum())
+        if int(gf["count"]) - int(cf["count"]) != int(
+                gk.sum()) - int(ck.sum()):
+            fail("onnx_detect_1080p: count disagrees with the keep masks")
+        kept += int(both.sum())
+        for k in worst:
+            a, b = np.asarray(gf[k]), np.asarray(cf[k])
+            d = np.abs(a - b)[both]
+            worst[k] = max(worst[k], float(d.max()) if d.size else 0.0)
+    if not max(worst.values()) <= tol:
+        fail(f"onnx_detect_1080p: {worst} from the CPU port's ({tol} "
+             "allowed)")
+    return {"worst": worst, "near": near, "kept": kept}
+
+
+def chord_audio(seconds, rate, seed=97):
+    """Seeded stereo S16 music: a chord (three partials and their
+    harmonics) that changes every half second, over noise."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n = seconds * rate
+    t = np.arange(n) / rate
+    seg = rate // 2
+    roots = 110.0 * 2 ** (rng.integers(0, 24, -(-n // seg)) / 12.0)
+    f0 = np.repeat(roots, seg)[:n]
+    x = np.zeros(n)
+    for ratio in (1.0, 1.25, 1.5):
+        for harm, amp in ((1, 0.3), (2, 0.12), (3, 0.05)):
+            x += amp * np.sin(2 * np.pi * f0 * ratio * harm * t)
+    x = x / 3.0 + 0.02 * rng.standard_normal(n)
+    right = 0.8 * x + 0.02 * rng.standard_normal(n)
+    return (np.clip(np.stack([x, right], 1), -1, 1) * 32767
+            ).astype(np.int16)
+
+
+def fingerprint_path(gtt, device, samples):
+    """fingerprint_native_44k: `samples` ([n, 2] S16) through appsrc !
+    chromaprint engine=native ! ofa ! fakesink in FP_BLOCK blocks, then
+    each one's end of stream (chromaprint posts at its 120 s cap, ofa at
+    the end: 120 s is under its 135 s cap).  Returns the
+    fingerprints, the engine chromaprint took, the bus's tag messages, the
+    arguments of each chroma image the elements computed and the host
+    clock of each fingerprint's computation (resample, chroma image on the
+    device, quantizer, string)."""
+    from gstbad_tpu_torch.elements.audio import fingerprint
+    p = gtt.parse_launch(
+        f"appsrc name=src kind=audio format=S16 rate={FP_RATE} channels=2 "
+        "! chromaprint name=cp engine=native ! ofa name=ofa ! fakesink",
+        device=device)
+    p.get_by_name("src").push_frames(samples.reshape(-1, FP_BLOCK, 2))
+    cp, ofa = p.get_by_name("cp"), p.get_by_name("ofa")
+    store, spent = {}, {}
+    restore = capture(fingerprint, "_chroma_image", store)
+    for el in (cp, ofa):
+        orig = el._finalize
+
+        def finalize(bus, _el=el, _orig=orig):
+            if not _el._posted:
+                t = time.perf_counter()
+                _orig(bus)
+                spent[_el.NAME] = time.perf_counter() - t
+        el._finalize = finalize
+    try:
+        p.run(window=64)
+        for el in (cp, ofa):        # their end of stream: post if not yet
+            el.eos(p.bus)
+    finally:
+        restore()
+    return {"cp": cp.fingerprint, "ofa": ofa.fingerprint,
+            "engine": "library" if cp._use_library() else "native",
+            "tags": [(m.element, m.fields) for m in p.bus.messages
+                     if m.name == "tag"],
+            "chroma_args": store.get("_chroma_image", []), "ms": spent}
+
+
+def code_diff_share(a: str, b: str) -> float:
+    """The share of 2-bit codes that differ between two fingerprint
+    strings (base64 of little-endian uint32 sub-fingerprints)."""
+    import base64
+    import numpy as np
+    x = np.frombuffer(base64.urlsafe_b64decode(a), "<u4")
+    y = np.frombuffer(base64.urlsafe_b64decode(b), "<u4")
+    if x.shape != y.shape:
+        return 1.0
+    if not x.size:
+        return 0.0
+    d = x ^ y
+    codes = sum(int(((d >> (2 * i)) & 3).astype(bool).sum())
+                for i in range(16))
+    return codes / (16 * x.size)
+
+
+def mjpeg_frames(n, seed=41):
+    """n 1920x1080 MJPEG frames of a UVC camera: phase 4i's uvc_mjpeg
+    frames with a baseline SOF0 (4:2:0), a scan header and byte-stuffed
+    scan bytes, so that they frame as JPEG (SOI, APP0, the APP4
+    auxiliary payloads, SOF0, SOS, scan, EOI)."""
+    import struct
+    out = []
+    for k in range(n):
+        frame, _, _ = uvc_mjpeg(seed + k, 2, 1000)
+        sos = frame.index(b"\xff\xda")
+        scan = frame[sos + 2:-2].replace(b"\xff", b"\xff\x00")
+        sof = b"\xff\xc0" + struct.pack(">HBHHB", 17, 8, H, W, 3) + bytes(
+            [1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])
+        sos_hdr = b"\xff\xda" + struct.pack(">HB", 12, 3) + bytes(
+            [1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])
+        out.append(frame[:sos] + sof + sos_hdr + scan + b"\xff\xd9")
+    return out
+
+
+def asf_payloads(stream: bytes) -> list:
+    """The media objects of an ASF stream, read back from its data
+    packets (asfparse's alignment, then each packet's payload parsing
+    information and payloads, with or without the 0x82 ECC block), in the
+    order of their first payload: [(stream number, keyframe, media object
+    number, presentation time ms, bytes)]."""
+    import struct
+    from gstbad_tpu_torch.io import asf
+    parse, units = asf.AsfParse(), []
+    for i in range(0, len(stream), 1 << 16):    # one push copies its buffer
+        units += parse.push(stream[i:i + (1 << 16)])
+    sizes = {0: 0, 1: 1, 2: 2, 3: 4}
+    fmt = {1: "<B", 2: "<H", 4: "<I"}
+    objs, order = {}, []
+
+    def field(pkt, pos, kind):
+        n = sizes[kind]
+        return (struct.unpack_from(fmt[n], pkt, pos)[0] if n else 0), pos + n
+
+    for pkt in units[1:]:
+        pos = 1 + (pkt[0] & 0x0F) if pkt[0] & 0x80 else 0
+        flags, prop = pkt[pos], pkt[pos + 1]
+        pos += 2
+        _, pos = field(pkt, pos, (flags >> 5) & 3)          # packet length
+        _, pos = field(pkt, pos, (flags >> 1) & 3)          # sequence
+        _, pos = field(pkt, pos, (flags >> 3) & 3)          # padding
+        pos += 6                                    # send time, duration
+        count, len_kind = 1, 2
+        if flags & 1:
+            count, len_kind = pkt[pos] & 0x3F, pkt[pos] >> 6
+            pos += 1
+        for _ in range(count):
+            num = pkt[pos]
+            pos += 1
+            obj, pos = field(pkt, pos, (prop >> 4) & 3)
+            off, pos = field(pkt, pos, (prop >> 2) & 3)
+            rep, pos = field(pkt, pos, prop & 3)
+            size, pts = struct.unpack_from("<II", pkt, pos)
+            pos += rep
+            n, pos = field(pkt, pos, len_kind)
+            key = (num & 0x7F, obj)
+            if key not in objs:
+                objs[key] = [num >> 7, pts, bytearray(size), 0]
+                order.append(key)
+            o = objs[key]
+            o[2][off:off + n] = pkt[pos:pos + n]
+            o[3] += n
+            pos += n
+    return [(k[0], bool(objs[k][0]), k[1], objs[k][1], bytes(objs[k][2]))
+            for k in order if objs[k][3] == len(objs[k][2])]
+
+
+RFB_SERVER_STARTED = "rfb-server-port"
+
+
+def rfb_serve(srv, n, w, h, seed) -> list:
+    """A scripted RFB 3.8 server for one client on the listening socket
+    `srv`: VNC authentication with RFB_PASSWORD (the response checked
+    against the port's DES), a BGRx ServerInit, then one update of
+    screen_updates(..., vmware=False) for each update request the client
+    sends.  Returns the SHA-256 of its framebuffer after each update
+    (replayed by the port's VMnc decoder)."""
+    import hashlib
+    import struct
+    from gstbad_tpu_torch.io import rfb, vmnc
+    updates = screen_updates(n, w, h, seed, vmware=False)
+    wmvi = struct.pack(">BBH", 0, 0, 1) + struct.pack(
+        ">HHHHI", 0, 0, w, h, vmnc.TYPE_WMVi) + bytes(
+        [32, 24, 0, 1]) + struct.pack(">HHH", 255, 255, 255) + bytes(
+        [16, 8, 0, 0, 0, 0])
+    dec = vmnc.VMncDecoder()
+    dec.feed_packet(wmvi)
+    hashes = []
+    for u in updates:
+        if dec.feed_packet(u) != len(u):
+            raise RuntimeError("rfb server: an update the decoder refuses")
+        hashes.append(hashlib.sha256(dec.imagedata.tobytes()).hexdigest())
+    srv.settimeout(120)
+    conn, _ = srv.accept()
+    conn.settimeout(120)
+    rx = conn.makefile("rb")
+
+    def read(k):
+        data = rx.read(k)
+        if len(data) != k:
+            raise RuntimeError("rfb server: the client went away")
+        return data
+
+    try:
+        conn.sendall(b"RFB 003.008\n")
+        if read(12) != b"RFB 003.008\n":
+            raise RuntimeError("rfb server: the client did not answer 3.8")
+        conn.sendall(bytes([1, rfb.SECURITY_VNC]))
+        if read(1)[0] != rfb.SECURITY_VNC:
+            raise RuntimeError("rfb server: the client took another "
+                               "security type")
+        challenge = hashlib.sha256(b"%d" % seed).digest()[:16]
+        conn.sendall(challenge)
+        ok = read(16) == rfb.vnc_auth_response(RFB_PASSWORD, challenge)
+        conn.sendall(struct.pack(">I", 0 if ok else 1))
+        if not ok:
+            raise RuntimeError("rfb server: VNC authentication failed")
+        read(1)                                 # ClientInit: shared
+        name = b"chip_smoke rfb"
+        conn.sendall(struct.pack(">HH", w, h) + bytes([32, 24, 0, 1])
+                     + struct.pack(">HHH", 255, 255, 255)
+                     + bytes([16, 8, 0, 0, 0, 0])
+                     + struct.pack(">I", len(name)) + name)
+        head = read(4)                          # SetEncodings
+        read(4 * struct.unpack_from(">H", head, 2)[0])
+        for u in updates:
+            req = read(10)
+            if req[0] != 3:
+                raise RuntimeError(f"rfb server: message {req[0]}, not an "
+                                   "update request")
+            conn.sendall(u)
+    finally:
+        rx.close()
+        conn.close()
+    return hashes
+
+
+def rfb_server_main(args) -> int:
+    """chip_smoke.py --rfb-server N W H SEED: rfb_serve on a localhost TCP
+    port (printed first), then its framebuffer hashes as a JSON line."""
+    import socket
+    n, w, h, seed = (int(a) for a in args)
+    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(1)
+    print(RFB_SERVER_STARTED, srv.getsockname()[1], flush=True)
+    try:
+        hashes = rfb_serve(srv, n, w, h, seed)
+    finally:
+        srv.close()
+    print(json.dumps(hashes), flush=True)
+    return 0
+
+
+def rfb_server_process():
+    """rfb_server_main in a process of its own (RFB_FRAMES updates at W x
+    H, seed 7), started early: it makes its updates and their hashes
+    before it accepts the client."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--rfb-server", str(RFB_FRAMES), str(W), str(H),
+                             "7"], stdout=subprocess.PIPE, text=True)
+
+
+def file_format_host_checks(gtt, card, srv) -> dict:
+    """The host names of phase 4m, each once, each against its round
+    trip: jpegparse and jifmux on mjpeg_frames (the frames and caps back;
+    EXIF and XMP written and read back, libexif's reading compared where
+    the host has libexif); kate text and SPU through kateenc -> kateparse
+    -> katedec; mxfmux -> mxfdemux and asfmux -> asfparse on MUX_PAYLOADS
+    seeded 1080p payloads (every byte and timestamp back; MB/s by the host
+    clock); rfbsrc against rfb_server_main in a process of its own over
+    localhost TCP at W x H (srv, rfb_server_process), RFB 3.8 with VNC
+    authentication (every frame equal to the server's framebuffer;
+    frames/s of pull_frame).  -> {name: what was checked}."""
+    import hashlib
+    import numpy as np
+    from gstbad_tpu_torch.io import exif, kate as kate_io, xmp
+    out = {}
+    sec = 10 ** 9
+
+    # jpegparse and jifmux
+    frames = mjpeg_frames(4)
+    stream = b"".join(frames)
+    parse = gtt.make("jpegparse")
+    got = []
+    for i in range(0, len(stream), 4096):
+        got += parse.chain(stream[i:i + 4096])
+    if [g["data"] for g in got] != frames or any(
+            (g["caps"]["width"], g["caps"]["height"], g["caps"]["format"])
+            != (W, H, "I420") for g in got):
+        fail("jpegparse: the frames or their caps did not come back")
+    mux = gtt.make("jifmux")
+    mux.set_tags(**JIF_TAGS)
+    tagged = mux.chain(frames[0])
+    back = gtt.make("jpegparse").chain(tagged)
+    if len(back) != 1 or back[0]["data"] != tagged:
+        fail("jifmux: its output does not frame as one JPEG")
+    segs, pos = {}, 2
+    while tagged[pos + 1] != 0xDA:
+        n = int.from_bytes(tagged[pos + 2:pos + 4], "big")
+        segs.setdefault(tagged[pos + 1], []).append(
+            tagged[pos + 4:pos + 2 + n])
+        pos += 2 + n
+    ex_blob = next(s for s in segs[0xE1] if s[:6] == b"Exif\x00\x00")
+    xmp_blob = next(s for s in segs[0xE1] if s[:29] == xmp.XMP_HEADER)
+    if ex_blob != exif.build_exif(JIF_TAGS) or tagged[
+            tagged.index(b"\xff\xda"):] != frames[0][
+            frames[0].index(b"\xff\xda"):]:
+        fail("jifmux: the EXIF block or the scan differs")
+    read = xmp.parse_xmp(xmp_blob[29:])
+    for k in ("artist", "copyright", "description", "device-model",
+              "image-orientation"):
+        if read.get(k) != JIF_TAGS[k]:
+            fail(f"jifmux: XMP {k} read back as {read.get(k)!r}")
+    if exif.libexif_available():
+        raw = exif.read_exif_raw(ex_blob, [(exif.IFD0, 0x013B),
+                                           (exif.IFD0, 0x0112),
+                                           (exif.IFD_EXIF, 0x8827)])
+        if raw != {(exif.IFD0, 0x013B): "some artist",
+                   (exif.IFD0, 0x0112): 6, (exif.IFD_EXIF, 0x8827): 800}:
+            fail(f"jifmux: libexif reads {raw}")
+        lib = "libexif agrees"
+    else:
+        lib = "no libexif on this host"
+    out["jpegparse_jifmux"] = (f"{len(frames)} frames, EXIF "
+                               f"{len(ex_blob)} B, XMP {len(xmp_blob)} B, "
+                               f"{lib}")
+
+    # kate: text and SPU, kateenc -> kateparse -> katedec
+    def kate_round(props, caps, feed):
+        enc = gtt.make("kateenc", **props)
+        enc.set_caps(caps)
+        pkts = feed(enc) + enc.event_eos()
+        kp = gtt.make("kateparse")
+        parsed = []
+        for p_ in pkts:
+            parsed += kp.chain(p_["data"], granulepos=p_["granulepos"],
+                               pts_ns=p_["pts"], dur_ns=p_["duration"])
+        parsed += kp.event_eos()
+        kd = gtt.make("katedec")
+        return parsed, sum((kd.chain(p_["data"]) for p_ in parsed), [])
+    texts = [f"line {i}: café — {i * 7}".encode() for i in range(8)]
+    _, dec = kate_round({"category": "SUB", "language": "en"},
+                        "text/x-raw, format=utf8",
+                        lambda e: sum((e.push_text(t, 2 * i * sec, sec)
+                                       for i, t in enumerate(texts)), []))
+    if [(d["text"], d["pts"]) for d in dec if d["kind"] == "text"] != [
+            (t.decode(), 2 * i * sec) for i, t in enumerate(texts)]:
+        fail("kate: the texts did not come back")
+    spus = spu_packets(4, 2 * sec)
+
+    def feed_spu(enc):
+        r = []
+        for data, pts, clut in spus:
+            enc.set_clut([int(c) for c in clut])
+            r += enc.push_spu(data, pts)
+        return r
+    parsed, dec = kate_round({"category": "spu-subtitles"},
+                             "subpicture/x-dvd", feed_spu)
+    # the kate events in the parsed stream carry each picture as
+    # spu_decode reads it; katedec hands each on as an SPU at its pts
+    kd = kate_io.KateDecoder()
+    events = [ev for kind, ev in map(kd.packetin, (p_["data"]
+                                                   for p_ in parsed))
+              if kind == "event"]
+    dec = [d for d in dec if d["kind"] == "spu"]
+    if len(events) != len(spus) or [d["pts"] for d in dec] != [
+            pts for _, pts, _ in spus]:
+        fail(f"kate: {len(events)} events and {len(dec)} SPUs for "
+             f"{len(spus)} pictures")
+    lost = lines = 0
+    for ev, d, (data, _, clut) in zip(events, dec, spus):
+        region, bitmap, _, _, _ = kate_io.spu_decode(
+            data, [int(c) for c in clut])
+        if (not np.array_equal(ev.bitmap.pixels, bitmap.pixels)
+                or (ev.region.x, ev.region.y) != (region.x, region.y)):
+            fail("kate: a picture changed between kateenc and katedec")
+        again = kate_io.spu_decode(
+            d["data"], [d["clut_event"][f"clut{i:02d}"] for i in range(16)]
+        )[1].pixels
+        rows = min(len(again), len(bitmap.pixels))
+        lines += len(bitmap.pixels)
+        lost += int((again[:rows] != bitmap.pixels[:rows]).any(1).sum()
+                    + abs(len(again) - len(bitmap.pixels)))
+    out["kate"] = (f"{len(texts)} texts, {len(spus)} SPUs; katedec's SPUs "
+                   f"read back by spu_decode differ in {lost} of {lines} "
+                   "lines (its end-of-line code with a colour, ROADMAP "
+                   "queue 3)")
+
+    # mxfmux -> mxfdemux, asfmux -> asfparse
+    rng = np.random.default_rng(99)
+    payloads = [rng.integers(0, 256, int(rng.integers(100_000, 400_000)),
+                             dtype=np.uint8).tobytes()
+                for _ in range(MUX_PAYLOADS)]
+    total = sum(len(x) for x in payloads)
+    t0 = time.perf_counter()
+    mm = gtt.make("mxfmux")
+    mm.connect_video(W, H, (25, 1))
+    for x in payloads:
+        mm.chain_video(x)
+    blob = mm.event_eos()
+    dm = gtt.make("mxfdemux")
+    fr = []
+    for i in range(0, len(blob), 1 << 20):
+        fr += dm.push_bytes(blob[i:i + (1 << 20)])
+    t_mxf = time.perf_counter() - t0
+    if [f["data"] for f in fr] != payloads or [f["pts"] for f in fr] != [
+            i * 40_000_000 for i in range(MUX_PAYLOADS)]:
+        fail("mxf: the payloads or their timestamps did not come back")
+    t0 = time.perf_counter()
+    am = gtt.make("asfmux")
+    v = am.connect_video(b"MPG2", W, H)
+    for i, x in enumerate(payloads):
+        am.chain(v, x, pts_ns=i * 40_000_000, keyframe=i % 12 == 0)
+    stream = am.event_eos()
+    ap = gtt.make("asfparse")
+    units = []
+    for i in range(0, len(stream), 1 << 20):
+        units += ap.chain(stream[i:i + (1 << 20)])
+    objs = asf_payloads(stream)
+    t_asf = time.perf_counter() - t0
+    if (b"".join(units) != stream or [o[4] for o in objs] != payloads
+            or [(o[1], o[3]) for o in objs] != [
+                (i % 12 == 0, 40 * i + 5000) for i in range(MUX_PAYLOADS)]):
+        fail("asf: the packets, payloads or timestamps did not come back")
+    out["mxf"] = (f"{MUX_PAYLOADS} payloads, {total} B, "
+                  f"{total / t_mxf / 1e6:.2f} MB/s mux and demux")
+    out["asf"] = (f"{MUX_PAYLOADS} payloads, {len(units) - 1} packets, "
+                  f"{total / t_asf / 1e6:.2f} MB/s mux, parse and read back")
+
+    # rfbsrc against a scripted server in a process of its own
+    try:
+        line = srv.stdout.readline().split()
+        if line[:1] != [RFB_SERVER_STARTED]:
+            fail(f"rfbsrc: the server did not start ({line})")
+        src = gtt.make("rfbsrc", host="127.0.0.1", port=int(line[1]),
+                       version="3.8", password=RFB_PASSWORD,
+                       **{"use-copyrect": True})
+        src.connect_tcp()
+        t0 = time.perf_counter()
+        pulled = [src.pull_frame() for _ in range(RFB_FRAMES)]
+        t_rfb = time.perf_counter() - t0
+        want = json.loads(srv.stdout.readline())
+        if srv.wait(timeout=60) != 0:
+            fail(f"rfbsrc: the server exited {srv.returncode}")
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.wait()
+    got = [hashlib.sha256(f.tobytes()).hexdigest() for f in pulled]
+    if got != want or src.format != "BGRx" or pulled[0].shape != (H, W, 4):
+        fail("rfbsrc: a frame differs from the server's framebuffer")
+    out["rfbsrc"] = (f"{RFB_FRAMES} {W}x{H} frames, "
+                     f"{RFB_FRAMES / t_rfb:.2f} frames/s of pull_frame")
+    return out
+
+
+def file_format_reference_main(path: str, which: str) -> int:
+    """chip_smoke.py --file-format-reference DIR PATH: one of phase 4m's
+    CPU references by the port, beside the card's runs: "vmnc",
+    vmnc_headline_1080p's frames and pts (DIR/vmnc.npz), or "onnx",
+    onnx_detect_1080p's messages (DIR/onnx.pkl; the model at
+    DIR/model.onnx)."""
+    import gc
+    import pickle
+    import numpy as np
+    import torch
+    import gstbad_tpu_torch as gtt
+    os.nice(10)
+    torch.set_num_threads(3)
+    gc.disable()
+    if which == "vmnc":
+        run = vmnc_headline_path(
+            gtt, "cpu", screen_updates(VMNC_WINDOW * VMNC_WINDOWS, W, H),
+            VMNC_WINDOW)
+        np.savez(os.path.join(path, "vmnc.npz"),
+                 data=np.concatenate([b.data for b in run["outs"]]),
+                 pts=np.concatenate([b.pts for b in run["outs"]]))
+        return 0
+    msgs = onnx_detect_path(gtt, "cpu", os.path.join(path, "model.onnx"),
+                            W, H)
+    with open(os.path.join(path, "onnx.pkl"), "wb") as f:
+        pickle.dump(msgs, f)
+    return 0
+
+
+def file_format_slice(gtt, counters, launches, err, card) -> dict:
+    """Phase 4m: the file formats and the last in-repo device engines.
+    vmnc_headline_1080p on the card (vmnc_headline_path) with the counts
+    set to 0 just before its run and read just after (K1 once a window,
+    nothing else), every frame equal to the CPU port's (run meanwhile in
+    a process of its own, file_format_reference_main), K1 held against
+    its plain version on the path's own window and timed there; frames/s
+    end to end, the decoder's host clock, the device step and the idle
+    share.  onnx_detect_1080p: its messages against the CPU port's
+    (detections_close), no kernel launched, frames/s by events.
+    fingerprint_native_44k: chromaprint engine=native and ofa on the card,
+    each chroma image within CHROMA_TOL of the CPU port's, the strings
+    equal or within FP_CODE_SHARE.  Then file_format_host_checks.
+    Returns K1's time and bound on this path, and onnx_detect_1080p's
+    step."""
+    import gc
+    import pickle
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from gstbad_tpu_torch.elements.audio import fingerprint
+    from gstbad_tpu_torch.ops import chainfuse
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_4m_")
+    model = os.path.join(tmp, "model.onnx")
+    with open(model, "wb") as f:
+        f.write(onnx_model())
+    refs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--file-format-reference", tmp, which])
+            for which in ("vmnc", "onnx")]
+    rfb = rfb_server_process()
+    spent = {}
+    t_mark = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        spent[name] = now - t_mark[0]
+        t_mark[0] = now
+    try:
+        # vmnc_headline_1080p
+        n = VMNC_WINDOW * VMNC_WINDOWS
+        packets = screen_updates(n, W, H)
+        for c in counters.values():
+            c.launches = 0
+        run = vmnc_headline_path(gtt, "cuda", packets, VMNC_WINDOW)
+        torch.cuda.synchronize()
+        delta = {k: c.launches for k, c in counters.items()}
+        for k, c in delta.items():
+            want = VMNC_WINDOWS if k == "dilate_zebra_fused" else 0
+            if c != want:
+                fail(f"vmnc_headline_1080p: {k} launched {c} times in "
+                     f"{VMNC_WINDOWS} windows ({want} expected)")
+        for k in launches:
+            launches[k] += delta[k]
+        card_out = np.concatenate([b.data for b in run["outs"]])
+        card_pts = np.concatenate([b.pts for b in run["outs"]])
+        if card_out.shape != (n, H, W, 4):
+            fail(f"vmnc_headline_1080p: {card_out.shape} out of {n} frames")
+
+        # K1 on this path's own window, against its plain version
+        p, batch = run["p"], run["inputs"][0]
+        step = p.compile(VMNC_WINDOW)
+        params, states = p.params(), p.init_states(VMNC_WINDOW)
+        store = {}
+        restore = capture(chainfuse, "dilate_zebra_fused", store)
+        try:
+            step(params, states, batch)
+        finally:
+            restore()
+        (args, kw), = store["dilate_zebra_fused"]
+        src, rank_t, word_t, index, erode, thr, phase = args
+        b = VMNC_WINDOW
+        if tuple(src.shape) != (b, H, W) or kw.get("batch") not in (None, b):
+            fail(f"vmnc_headline_1080p: K1 took {tuple(src.shape)} "
+                 f"(batch {kw.get('batch')}), not a materialized window")
+        scal = torch.stack([chainfuse._per_frame_i32(v, b, src.device)
+                            for v in (erode, thr, phase)])
+        e = byte_err(chainfuse.dilate_zebra_fused(*args, **kw),
+                     chainfuse.dilate_zebra_plain(src, rank_t, word_t,
+                                                  index, scal))
+        err["dilate_zebra_fused"] = max(err["dilate_zebra_fused"], e)
+        if e:
+            fail(f"vmnc_headline_1080p: K1 is {e} from its plain version "
+                 "on the path's window")
+        times = {"K1_vmnc": (
+            cuda_ms(lambda: chainfuse.dilate_zebra_fused(*args, **kw)),
+            cuda_ms(lambda: chainfuse.dilate_zebra_plain(
+                src, rank_t, word_t, index, scal), iters=5), None)}
+        sm_hz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True).stdout.split()[0]) * 1e6
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        bounds = {"K1_vmnc": bound(2 * b * H * W * 4, 8 * b * H * W,
+                                   n_sm * INT32_LANES * sm_hz)}
+        step_ms = cuda_ms(lambda: step(params, states, batch), iters=5,
+                          warmup=1)
+        idle = 1.0 - VMNC_WINDOWS * step_ms / (run["t_wall"] * 1e3)
+        log(f"vmnc_headline_1080p: {n} frames of a seeded {W}x{H} VMnc "
+            f"recording ({sum(len(x) for x in packets)} bytes: a RAW "
+            f"frame, then COPY, HEXTILE and cursor updates) in "
+            f"{VMNC_WINDOWS} windows of {VMNC_WINDOW}; launches "
+            f"{({k: v for k, v in delta.items() if v})}; K1 equal to its "
+            f"plain version on the path's window [{b}, {H}, {W}], "
+            f"{times['K1_vmnc'][0]:.4f} ms (plain {times['K1_vmnc'][1]:.4f} "
+            "ms)")
+        log(f"vmnc_headline_1080p: {n / run['t_wall']:.2f} frames/s end to "
+            f"end (host clock, {run['t_wall']:.3f} s for run(); the CPU "
+            f"reference ran meanwhile at nice 10), the decoder "
+            f"{run['decode_s']:.3f} s ({run['decode_s'] / n * 1e3:.2f} ms a "
+            f"frame), vmncdec's pulls (decode, stack, upload) "
+            f"{run['pull_s']:.3f} s, device step {step_ms:.3f} ms a window "
+            f"(CUDA events), idle share {idle:.4f} ({card})")
+
+        mark("vmnc_headline_1080p")
+
+        # onnx_detect_1080p
+        for c in counters.values():
+            c.launches = 0
+        got = onnx_detect_path(gtt, "cuda", model, W, H)
+        torch.cuda.synchronize()
+        if any(c.launches for c in counters.values()):
+            fail("onnx_detect_1080p: a hand-written kernel launched: "
+                 f"{ {k: c.launches for k, c in counters.items()} }")
+
+        def onnx_build(d):
+            return gtt.parse_launch(ONNX_DETECT.format(w=W, h=H,
+                                                       model=model),
+                                    device=d)
+        fps, fps_all = fps_runs(onnx_build, ONNX_WINDOW)
+        onnx_step = ONNX_WINDOW * 1000.0 / fps
+        mark("onnx_detect_1080p")
+
+        # fingerprint_native_44k
+        samples = chord_audio(FP_SECONDS, FP_RATE)
+        t0 = time.perf_counter()
+        fp = fingerprint_path(gtt, "cuda", samples)
+        t_fp = time.perf_counter() - t0
+        if fp["engine"] != "native" or not fp["cp"] or not fp["ofa"]:
+            fail(f"fingerprint_native_44k: engine {fp['engine']}, "
+                 f"fingerprints {fp['cp']!r:.40} / {fp['ofa']!r:.40}")
+        worst, share = 0.0, {}
+        for (args, _), key in zip(fp["chroma_args"], ("cp", "ofa")):
+            mono, dev = args
+            if torch.device(dev).type != "cuda":
+                fail(f"fingerprint_native_44k: a chroma image on {dev}")
+            a = fingerprint._chroma_image(mono, "cuda")
+            c_img = fingerprint._chroma_image(mono, "cpu")
+            worst = max(worst, float(np.abs(a - c_img).max()))
+            cpu_fp = fingerprint._fingerprint_string(
+                fingerprint._quantize(c_img))
+            share[key] = code_diff_share(fp[key], cpu_fp)
+        if len(fp["chroma_args"]) != 2 or not worst <= CHROMA_TOL:
+            fail(f"fingerprint_native_44k: chroma {worst:.3e} from the CPU "
+                 f"port's ({CHROMA_TOL} allowed)")
+        if max(share.values()) > FP_CODE_SHARE:
+            fail(f"fingerprint_native_44k: {share} of the 2-bit codes "
+                 "differ from the CPU port's")
+
+        mark("fingerprint_native_44k")
+        for k, v in file_format_host_checks(gtt, card, rfb).items():
+            log(f"phase 4m host check {k}: {v}")
+        mark("host checks")
+
+        # the CPU references
+        for ref in refs:
+            if ref.wait(timeout=600) != 0:
+                fail(f"phase 4m: a CPU reference exited {ref.returncode}")
+        mark("waiting for the CPU references")
+        with np.load(os.path.join(tmp, "vmnc.npz")) as z:
+            if not (np.array_equal(z["data"], card_out)
+                    and np.array_equal(z["pts"], card_pts)):
+                fail("vmnc_headline_1080p: the card's output differs from "
+                     "the CPU port's")
+        with open(os.path.join(tmp, "onnx.pkl"), "rb") as f:
+            cpu_msgs = pickle.load(f)
+        gc.disable()
+        try:
+            close = detections_close(got, cpu_msgs)
+        finally:
+            gc.enable()
+        if not close["kept"]:
+            fail("onnx_detect_1080p: no detection kept")
+        log("vmnc_headline_1080p: the card's output equals the CPU port's "
+            "byte for byte (frames and pts)")
+        log(f"onnx_detect_1080p: {len(got)} frames' messages within "
+            f"{ONNX_TOL} of the CPU port's (largest: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in close["worst"].items())
+            + f"); {close['kept']} detections kept on both, "
+            f"{close['near']} scores within {ONNX_TOL} of the threshold "
+            f"{ONNX_THRESHOLD} kept on one side only; no kernel launched; "
+            f"{fps:.2f} frames/s by events (median of "
+            f"{[round(x, 2) for x in fps_all]}), step {onnx_step:.3f} ms a "
+            f"window of {ONNX_WINDOW} ({card})")
+        log(f"fingerprint_native_44k: engine {fp['engine']} "
+            f"(chromaprint) and ofa on {FP_SECONDS} s of seeded "
+            f"{FP_RATE} Hz stereo S16 through appsrc; chroma images within "
+            f"{worst:.3e} of the CPU port's (rows of unit norm); 2-bit codes "
+            f"differing from the CPU port's: "
+            + ", ".join(f"{k} {v:.5f}" for k, v in share.items())
+            + "; fingerprint "
+            + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in fp["ms"].items())
+            + f" (host clock, the chroma image on the card); the path "
+            f"{t_fp:.2f} s ({card})")
+    finally:
+        for proc in refs + [rfb]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"file_format_slice: {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()) + ")")
+    return {"times": times, "bounds": bounds,
+            "onnx_step": (onnx_step, ONNX_WINDOW)}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -6028,6 +7065,11 @@ def main() -> int:
     transport = transport_slice(gtt, counters, launches, err, card)
     phase_done("4l")
 
+    # 4m. the file formats and the last in-repo device engines
+    # (file_format_slice)
+    formats = file_format_slice(gtt, counters, launches, err, card)
+    phase_done("4m")
+
     # 5. timing
     fps = {}
     for key, build in runs.items():
@@ -6055,6 +7097,7 @@ def main() -> int:
     # slices' traces stand in PERF.md section 5 from their own runs
     # (tracing them took most of the profile process)
     step_ms.update((k, sessions["step_ms"][k]) for k in TRACED_4J)
+    step_ms["onnx_detect_1080p"] = formats["onnx_step"]
     phase_done("5 (frames/s)")
     profile_graphs(step_ms)
     phase_done("5 (profiles)")
@@ -6374,6 +7417,9 @@ def main() -> int:
     # K1 on rtp_headline_1080p's own window (phase 4l)
     times.update(transport["times"])
     bounds.update(transport["bounds"])
+    # K1 on vmnc_headline_1080p's own window (phase 4m)
+    times.update(formats["times"])
+    bounds.update(formats["bounds"])
     for label, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bounds[label]
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
@@ -6408,6 +7454,8 @@ def main() -> int:
               "materialized"),
         entry("dilate_zebra_fused", "K1_rtp", "tablefuse_kernels.cu",
               "gstbad_tpu/ops/chainfuse.py:78", "rtp_headline_1080p"),
+        entry("dilate_zebra_fused", "K1_vmnc", "tablefuse_kernels.cu",
+              "gstbad_tpu/ops/chainfuse.py:78", "vmnc_headline_1080p"),
         entry("apply_word_table", "K2", "tablefuse_kernels.cu",
               "gstbad_tpu/ops/lut.py:91"),
         entry("metrics_default", "K4", "deinterlace_kernels.cu",
@@ -6476,4 +7524,8 @@ if __name__ == "__main__":
         sys.exit(profile_main(sys.argv[2]))
     if sys.argv[1:2] == ["--rtp-reference"]:
         sys.exit(rtp_reference_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--file-format-reference"]:
+        sys.exit(file_format_reference_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--rfb-server"]:
+        sys.exit(rfb_server_main(sys.argv[2:]))
     sys.exit(main())

@@ -17,6 +17,7 @@ import numbers
 import types
 import xml.etree.ElementTree as ET
 
+import numpy as np
 import pytest
 
 PLAIN = (type(None), bool, numbers.Number, str, bytes, bytearray)
@@ -28,6 +29,9 @@ def tree(x, seen=None):
     seen = set() if seen is None else seen
     if isinstance(x, PLAIN):
         return x
+    if isinstance(x, np.ndarray):
+        return ("ndarray", x.dtype.str, x.shape,
+                np.ascontiguousarray(x).tobytes())
     if isinstance(x, enum.Enum):
         return (type(x).__name__, x.value)
     if isinstance(x, ET.Element):
@@ -57,7 +61,7 @@ def tree(x, seen=None):
 
 
 def _plain(x):
-    if isinstance(x, PLAIN):
+    if isinstance(x, PLAIN + (np.ndarray,)):
         return True
     if isinstance(x, (list, tuple)):
         return all(_plain(v) for v in x)
@@ -160,6 +164,11 @@ class Twin:
         assert bool(self._t) == r
         return r
 
+    def __instancecheck__(self, obj):
+        r = isinstance(_side(obj, 0), self._j)
+        assert isinstance(_side(obj, 1), self._t) == r
+        return r
+
     def __eq__(self, other):
         (jo,), (to,) = _sides([other])
         r = self._j == jo
@@ -175,10 +184,11 @@ class Twin:
         return f"Twin({self._j!r})"
 
 
-def jax_test_cases(modules, skip=()):
+def jax_test_cases(modules, skip=(), fixtures=()):
     """pytest params (module, test function, its arguments) for every test
     of the JAX test modules but those named in `skip`, a parametrized one
-    once per value."""
+    once per value.  A test may take the fixtures named in `fixtures`
+    (the runner supplies them); its skipif marks carry over."""
     out = []
     for mod in modules:
         for name, fn in sorted(vars(mod).items()):
@@ -187,13 +197,18 @@ def jax_test_cases(modules, skip=()):
                 continue
             marks = [m for m in getattr(fn, "pytestmark", ())
                      if m.name == "parametrize"]
+            skips = [m for m in getattr(fn, "pytestmark", ())
+                     if m.name == "skipif"]
             if marks:
                 argname, values = marks[0].args[:2]
-                out += [pytest.param(mod, fn, {argname: v},
-                                     id=f"{mod.__name__}.{name}[{i}]")
+                names = [a.strip() for a in argname.split(",")]
+                out += [pytest.param(
+                    mod, fn, dict(zip(names, v if len(names) > 1 else (v,))),
+                    marks=skips, id=f"{mod.__name__}.{name}[{i}]")
                         for i, v in enumerate(values)]
             else:
-                assert not inspect.signature(fn).parameters, name
-                out.append(pytest.param(mod, fn, {},
+                assert set(inspect.signature(fn).parameters) <= set(
+                    fixtures), name
+                out.append(pytest.param(mod, fn, {}, marks=skips,
                                         id=f"{mod.__name__}.{name}"))
     return out

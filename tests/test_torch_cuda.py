@@ -18,7 +18,10 @@ and the sessions (Play with a colour balance and with a visualisation, a
 Camera recording) on the card against the CPU port; and the raw-video RTP
 headline graph (rtpsrc ! the headline's chain ! rtpsink over localhost
 UDP) on the card against the CPU port, with K1 against its plain version
-on that path's own window.
+on that path's own window; and the file formats' device paths (vmncdec !
+the headline's chain, K1 once a window; onnxobjectdetector on phase 4m's
+detector, no kernel, scores and boxes within 1e-4; chromaprint's chroma
+image within 1e-5 on rows of unit norm) on the card against the CPU port.
 
 These tests need an NVIDIA card and nvcc, and skip without them.  They
 import neither jax nor gstbad_tpu, so they run on a machine that has only
@@ -1507,3 +1510,70 @@ def test_k1_on_the_rtp_window_matches_plain(dev):
         orig(*args, **kw),
         chainfuse.dilate_zebra_plain(src, rank_t, word_t, index, scal),
         rtol=0, atol=0)
+
+
+def _vmnc_headline(device, packets, window):
+    import chip_smoke
+    p = gtt.parse_launch("vmncdec framerate=60/1 ! " + chip_smoke.HEAD
+                         + " ! zebrastripe ! fakesink", device=device)
+    src = p.nodes[0].element
+    for x in packets:
+        src.push_packet(x)
+    return p.run(window=window)
+
+
+@pytest.mark.parametrize("size", [(256, 32), (200, 18)])
+def test_vmnc_headline_on_card_equals_cpu_port(dev, size):
+    """A seeded VMnc recording (chip_smoke.screen_updates: RAW, then COPY,
+    HEXTILE and cursor updates) through vmncdec ! the headline's chain, 2
+    windows of 4: K1 once a window on the card, every frame and pts equal
+    to the CPU port's."""
+    import chip_smoke
+    packets = chip_smoke.screen_updates(8, *size)
+    before = chainfuse.dilate_zebra_fused.launches
+    outs = _vmnc_headline("cuda", packets, 4)
+    assert chainfuse.dilate_zebra_fused.launches - before == 2
+    cpu = _vmnc_headline("cpu", packets, 4)
+    assert len(outs) == len(cpu) == 2
+    for a, b in zip(outs, cpu):
+        np.testing.assert_array_equal(a.data, b.data)
+        np.testing.assert_array_equal(a.pts, b.pts)
+
+
+def test_onnx_detector_on_card_matches_cpu_port(dev, tmp_path):
+    """chip_smoke.onnx_model in onnxobjectdetector behind a 128x96 ball, 2
+    windows of 4: no hand-written kernel launched, the keep masks equal
+    and scores, boxes and classes within 1e-4 of the CPU port's."""
+    import chip_smoke
+    model = tmp_path / "model.onnx"
+    model.write_bytes(chip_smoke.onnx_model())
+    desc = chip_smoke.ONNX_DETECT.format(w=128, h=96, model=model)
+    counts = [f.launches for f in (chainfuse.dilate_zebra_fused,
+                                   lut.apply_word_table)]
+    got = {}
+    for d in ("cuda", "cpu"):
+        p = gtt.parse_launch(desc, device=d)
+        p.run(n_frames=8, window=4)
+        got[d] = [m.fields for m in p.bus.messages]
+    assert counts == [f.launches for f in (chainfuse.dilate_zebra_fused,
+                                           lut.apply_word_table)]
+    assert len(got["cuda"]) == len(got["cpu"]) == 8
+    for a, b in zip(got["cuda"], got["cpu"]):
+        np.testing.assert_array_equal(a["scores"] > 0, b["scores"] > 0)
+        for k in ("scores", "boxes", "classes"):
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-4)
+
+
+def test_chroma_image_on_card_matches_cpu(dev):
+    """chromaprint's chroma image of 20 s of phase 4m's chords at 11025
+    Hz on the card (cuFFT) and on the CPU (pocketfft): within 1e-5 on
+    rows of unit norm, and the same fingerprint string."""
+    import chip_smoke
+    from gstbad_tpu_torch.elements.audio import fingerprint
+    mono = (chip_smoke.chord_audio(20, 11025).astype(np.float32)
+            / 32768).mean(1).astype(np.float32)
+    a = fingerprint._chroma_image(mono, "cuda")
+    b = fingerprint._chroma_image(mono, "cpu")
+    assert np.abs(a - b).max() <= 1e-5
+    assert fingerprint._fingerprint_string(fingerprint._quantize(a)) == \
+        fingerprint._fingerprint_string(fingerprint._quantize(b))

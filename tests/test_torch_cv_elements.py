@@ -282,4 +282,4 @@ def test_registry_has_the_cv_names():
     # inter-process transports (shmsink, shmsrc, ipcpipelinesink,
     # ipcpipelinesrc), 23 with the transport plane (rtp, sdp, onvif, pcap,
     # MPEG-TS/PS and the eleven elementary-stream parsers)
-    assert len(set(t_names())) == 195
+    assert len(set(t_names())) == 210
