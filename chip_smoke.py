@@ -310,6 +310,34 @@ line):
    most 0.5% of their 2-bit codes apart); and jpegparse/jifmux, kate, MXF,
    ASF and rfbsrc (against a scripted RFB 3.8 server in a process of its
    own over localhost TCP) once each against their round trips.
+   Then the codecs and the host audio engines (codec_slice, phase 4n):
+   which host libraries load is printed on a line of its own, and a path
+   whose library is missing is printed as missing and not run.
+   hevc_headline_1080p (libx265 and libde265): 32 seeded moving 1080p
+   I420 frames (a y4m file) through the port's Transcoder on the card,
+   profile hevc:lossless, with the headline's chain, in windows of 16,
+   then the stream through libde265dec ! the headline's chain, each run
+   with the counts set to 0 just before and read just after (K1 once a
+   window, nothing else): the decoded frames equal the frames the encoder
+   was given, and the encoder's input, the decoded frames, the output and
+   the stream equal the CPU port's (a --codec-reference process of its
+   own); av1_headline_1080p (libaom) the same with profile av1 (realtime,
+   cpu-used 8) and av1dec, the frames decoded from the card's stream equal
+   to those decoded from the CPU port's (the streams compared and the
+   result printed); j2k_headline_1080p (libopenjp2 through Pillow): 8
+   seeded moving 1080p RGB frames through appsrc ! openjpegenc on the card
+   (no kernel), then openjpegdec ! the headline's chain in 2 windows of 4
+   (K1 once a window): the decoded frames equal the input, codestreams and
+   output the CPU port's.  K1 against its plain version on each path's
+   first window and timed there; frames/s end to end by the host clock,
+   the encoder's and the decoder's host ms a frame, the device step and
+   the idle share.  Then the host checks once each, the card's pipelines
+   against the CPU port's: webpenc/webpdec lossless at 1080p (openjpeg's
+   lossless round trip is j2k_headline_1080p's), openexrdec of write_exr's 1080p half and float
+   files, sirenenc -> sirendec at 16 kHz, gsmenc -> gsmdec at 8 kHz,
+   opusparse over 256 packets of all four TOC codes, festival against an
+   in-process protocol server, gmedec on a VGM stream and openmptdec on a
+   MOD (gstbad_tpu_torch/utils/fixtures.py builds both).
    Each phase logs its seconds on a line of its own ("phase 4l: ... s").
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
    around 10 steps of a 64-frame window, 16 at 4K, data kept on the card;
@@ -5101,6 +5129,54 @@ def rtp_reference_main(path: str) -> int:
     return 0
 
 
+def k1_on_window(p, batch, window, h, w, err, key):
+    """K1 on the window `batch` a host source uploaded (rtpsrc, vmncdec,
+    a decoder), through the compiled step of pipeline p (an uncounted
+    run: the spy sees the arguments), against its plain version; fails
+    unless it took a materialized [window, h, w] source and equals it.
+    Returns ((K1 ms, plain ms, None), its bound, the step's ms), each
+    time by cuda_ms; the bound as K1_materialized's: the window's words
+    read and written, 8 INT32 operations a pixel."""
+    import torch
+    from gstbad_tpu_torch.ops import chainfuse
+    step = p.compile(window)
+    params, states = p.params(), p.init_states(window)
+    store = {}
+    restore = capture(chainfuse, "dilate_zebra_fused", store)
+    try:
+        step(params, states, batch)
+    finally:
+        restore()
+    (args, kw), = store["dilate_zebra_fused"]
+    src, rank_t, word_t, index, erode, thr, phase = args
+    if tuple(src.shape) != (window, h, w) or kw.get("batch") not in (
+            None, window):
+        fail(f"{key}: K1 took {tuple(src.shape)} (batch "
+             f"{kw.get('batch')}), not a materialized window")
+    scal = torch.stack([chainfuse._per_frame_i32(v, window, src.device)
+                        for v in (erode, thr, phase)])
+    e = byte_err(chainfuse.dilate_zebra_fused(*args, **kw),
+                 chainfuse.dilate_zebra_plain(src, rank_t, word_t, index,
+                                              scal))
+    err["dilate_zebra_fused"] = max(err["dilate_zebra_fused"], e)
+    if e:
+        fail(f"{key}: K1 is {e} from its plain version on the path's "
+             "window")
+    times = (cuda_ms(lambda: chainfuse.dilate_zebra_fused(*args, **kw)),
+             cuda_ms(lambda: chainfuse.dilate_zebra_plain(
+                 src, rank_t, word_t, index, scal), iters=5), None)
+    sm_hz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True,
+        text=True).stdout.split()[0]) * 1e6
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    b = bound(2 * window * h * w * 4, 8 * window * h * w,
+              n_sm * INT32_LANES * sm_hz)
+    step_ms = cuda_ms(lambda: step(params, states, batch), iters=5,
+                      warmup=1)
+    return times, b, step_ms
+
+
 def transport_slice(gtt, counters, launches, err, card) -> dict:
     """Phase 4l: the transport plane.  rtp_headline_1080p on the card
     (rtp_headline_path) with the counts set to 0 just before its run and
@@ -5117,7 +5193,6 @@ def transport_slice(gtt, counters, launches, err, card) -> dict:
     import tempfile
     import numpy as np
     import torch
-    from gstbad_tpu_torch.ops import chainfuse
 
     t_phase = time.perf_counter()
     n = WINDOW_4L * RTP_WINDOWS
@@ -5163,47 +5238,9 @@ def transport_slice(gtt, counters, launches, err, card) -> dict:
 
         # K1 on this path's own window (an uncounted replay of the step on
         # the first window rtpsrc uploaded), against its plain version
-        p, batch = run["p"], run["inputs"][0]
-        step = p.compile(WINDOW_4L)
-        params, states = p.params(), p.init_states(WINDOW_4L)
-        store = {}
-        restore = capture(chainfuse, "dilate_zebra_fused", store)
-        try:
-            step(params, states, batch)
-        finally:
-            restore()
-        (args, kw), = store["dilate_zebra_fused"]
-        src, rank_t, word_t, index, erode, thr, phase = args
-        if tuple(src.shape) != (WINDOW_4L, H, W) or kw.get("batch") not in (
-                None, WINDOW_4L):
-            fail(f"rtp_headline_1080p: K1 took {tuple(src.shape)} "
-                 f"(batch {kw.get('batch')}), not a materialized window")
-        b = WINDOW_4L
-        scal = torch.stack([chainfuse._per_frame_i32(v, b, src.device)
-                            for v in (erode, thr, phase)])
-        k1 = chainfuse.dilate_zebra_fused(*args, **kw)
-        e = byte_err(k1, chainfuse.dilate_zebra_plain(src, rank_t, word_t,
-                                                      index, scal))
-        err["dilate_zebra_fused"] = max(err["dilate_zebra_fused"], e)
-        if e:
-            fail(f"rtp_headline_1080p: K1 is {e} from its plain version on "
-                 "the path's window")
-        times = {"K1_rtp": (
-            cuda_ms(lambda: chainfuse.dilate_zebra_fused(*args, **kw)),
-            cuda_ms(lambda: chainfuse.dilate_zebra_plain(
-                src, rank_t, word_t, index, scal), iters=5), None)}
-        sm_hz = float(subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.max.sm",
-             "--format=csv,noheader,nounits"], capture_output=True,
-            text=True).stdout.split()[0]) * 1e6
-        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-        int32_per_s = n_sm * INT32_LANES * sm_hz
-        # as K1_materialized: B words read and written, 8 operations a
-        # pixel
-        bounds = {"K1_rtp": bound(2 * b * H * W * 4, 8 * b * H * W,
-                                  int32_per_s)}
-        step_ms = cuda_ms(lambda: step(params, states, batch), iters=5,
-                          warmup=1)
+        t, b, step_ms = k1_on_window(run["p"], run["inputs"][0], WINDOW_4L,
+                                     H, W, err, "rtp_headline_1080p")
+        times, bounds = {"K1_rtp": t}, {"K1_rtp": b}
         fps = n / run["t_wall"]
         idle = 1.0 - RTP_WINDOWS * step_ms / (run["t_wall"] * 1e3)
         log(f"rtp_headline_1080p: {n} seeded moving 1920x1080 BGRA frames "
@@ -6064,7 +6101,6 @@ def file_format_slice(gtt, counters, launches, err, card) -> dict:
     import numpy as np
     import torch
     from gstbad_tpu_torch.elements.audio import fingerprint
-    from gstbad_tpu_torch.ops import chainfuse
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_4m_")
@@ -6104,50 +6140,16 @@ def file_format_slice(gtt, counters, launches, err, card) -> dict:
             fail(f"vmnc_headline_1080p: {card_out.shape} out of {n} frames")
 
         # K1 on this path's own window, against its plain version
-        p, batch = run["p"], run["inputs"][0]
-        step = p.compile(VMNC_WINDOW)
-        params, states = p.params(), p.init_states(VMNC_WINDOW)
-        store = {}
-        restore = capture(chainfuse, "dilate_zebra_fused", store)
-        try:
-            step(params, states, batch)
-        finally:
-            restore()
-        (args, kw), = store["dilate_zebra_fused"]
-        src, rank_t, word_t, index, erode, thr, phase = args
-        b = VMNC_WINDOW
-        if tuple(src.shape) != (b, H, W) or kw.get("batch") not in (None, b):
-            fail(f"vmnc_headline_1080p: K1 took {tuple(src.shape)} "
-                 f"(batch {kw.get('batch')}), not a materialized window")
-        scal = torch.stack([chainfuse._per_frame_i32(v, b, src.device)
-                            for v in (erode, thr, phase)])
-        e = byte_err(chainfuse.dilate_zebra_fused(*args, **kw),
-                     chainfuse.dilate_zebra_plain(src, rank_t, word_t,
-                                                  index, scal))
-        err["dilate_zebra_fused"] = max(err["dilate_zebra_fused"], e)
-        if e:
-            fail(f"vmnc_headline_1080p: K1 is {e} from its plain version "
-                 "on the path's window")
-        times = {"K1_vmnc": (
-            cuda_ms(lambda: chainfuse.dilate_zebra_fused(*args, **kw)),
-            cuda_ms(lambda: chainfuse.dilate_zebra_plain(
-                src, rank_t, word_t, index, scal), iters=5), None)}
-        sm_hz = float(subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.max.sm",
-             "--format=csv,noheader,nounits"], capture_output=True,
-            text=True).stdout.split()[0]) * 1e6
-        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-        bounds = {"K1_vmnc": bound(2 * b * H * W * 4, 8 * b * H * W,
-                                   n_sm * INT32_LANES * sm_hz)}
-        step_ms = cuda_ms(lambda: step(params, states, batch), iters=5,
-                          warmup=1)
+        t, b, step_ms = k1_on_window(run["p"], run["inputs"][0], VMNC_WINDOW,
+                                     H, W, err, "vmnc_headline_1080p")
+        times, bounds = {"K1_vmnc": t}, {"K1_vmnc": b}
         idle = 1.0 - VMNC_WINDOWS * step_ms / (run["t_wall"] * 1e3)
         log(f"vmnc_headline_1080p: {n} frames of a seeded {W}x{H} VMnc "
             f"recording ({sum(len(x) for x in packets)} bytes: a RAW "
             f"frame, then COPY, HEXTILE and cursor updates) in "
             f"{VMNC_WINDOWS} windows of {VMNC_WINDOW}; launches "
             f"{({k: v for k, v in delta.items() if v})}; K1 equal to its "
-            f"plain version on the path's window [{b}, {H}, {W}], "
+            f"plain version on the path's window [{VMNC_WINDOW}, {H}, {W}], "
             f"{times['K1_vmnc'][0]:.4f} ms (plain {times['K1_vmnc'][1]:.4f} "
             "ms)")
         log(f"vmnc_headline_1080p: {n / run['t_wall']:.2f} frames/s end to "
@@ -6258,6 +6260,644 @@ def file_format_slice(gtt, counters, launches, err, card) -> dict:
         + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()) + ")")
     return {"times": times, "bounds": bounds,
             "onnx_step": (onnx_step, ONNX_WINDOW)}
+
+
+WINDOW_4N = 16                  # the hevc and av1 paths' window
+CODEC_WINDOWS = 2               # and their windows: 32 frames
+J2K_WINDOW = 4                  # j2k_headline_1080p's window
+J2K_WINDOWS = 2                 # and its windows (Pillow's JPEG 2000 codec
+#                                 takes about a second a 1080p frame)
+AUDIO_SECONDS_4N = 2            # siren's and gsm's seeded speech-band audio
+OPUS_PACKETS = 256              # opusparse's seeded packets
+# the headline's chain between a decoder's I420 and an encoder's I420
+CODEC_FILTERS = ("videoconvert format=BGRx ! " + HEAD
+                 + " ! zebrastripe ! videoconvert format=I420")
+CODEC_HEADLINE = ("{dec} framerate=60/1 ! videoconvert format=BGRx ! "
+                  + HEAD + " ! zebrastripe ! fakesink")
+# texts with the escapes (quote, backslash), the stuff key's prefix and
+# UTF-8
+FESTIVAL_TEXTS = ('say "hi" \\ now', "ft_StUfF_ke x", "café")
+
+
+def codec_libraries() -> dict:
+    """Which host libraries of phase 4n load here: {path: bool}."""
+    from gstbad_tpu_torch.elements.video import jpeg2000
+    from gstbad_tpu_torch.io import av1, exr, gme, gsmcodec, h265, \
+        openmpt, opus, webp
+    return {"libx265+libde265": h265.available(), "libaom": av1.available(),
+            "libwebp": webp.available(),
+            "libopenjp2 (Pillow)": jpeg2000.available(),
+            "OpenEXRCore (the exrdec shim)": exr.available(),
+            "libgsm": gsmcodec.available(), "libgme": gme.available(),
+            "libopenmpt": openmpt.available(),
+            "libopus": opus.libopus_available()}
+
+
+def moving_i420(n, w, h, seed=101):
+    """n seeded I420 frames that move: a window onto a larger seeded
+    image of smooth gradients with a sprinkle of noise, 4 pixels right
+    and 2 down a frame ({plane: [n, ...]}, uint8)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    bh, bw = h + 2 * n, w + 4 * n
+    yy, xx = np.mgrid[0:bh, 0:bw]
+    y = ((xx // 3 + yy // 2) % 256).astype(np.uint8)
+    y[::5, ::7] = rng.integers(0, 256, y[::5, ::7].shape, dtype=np.uint8)
+    u = ((xx[::2, ::2] // 5) % 256).astype(np.uint8)
+    v = ((yy[::2, ::2] // 4 + 64) % 256).astype(np.uint8)
+    return {"y": np.stack([y[2 * i:2 * i + h, 4 * i:4 * i + w]
+                           for i in range(n)]),
+            "u": np.stack([u[i:i + h // 2, 2 * i:2 * i + w // 2]
+                           for i in range(n)]),
+            "v": np.stack([v[i:i + h // 2, 2 * i:2 * i + w // 2]
+                           for i in range(n)])}
+
+
+def digests(arrays) -> list:
+    """SHA-256 of each array's bytes (shape and dtype prefixed)."""
+    import hashlib
+    import numpy as np
+    out = []
+    for a in arrays:
+        a = np.ascontiguousarray(a)
+        out.append(hashlib.sha256(f"{a.dtype.str}{a.shape}".encode()
+                                  + a.tobytes()).hexdigest())
+    return out
+
+
+def frame_digests(batches) -> list:
+    """digests of each valid frame of run()'s batches (planes in order)
+    and of its pts."""
+    import numpy as np
+    out = []
+    for b in batches:
+        planes = [b.data[k] for k in sorted(b.data)] \
+            if isinstance(b.data, dict) else [b.data]
+        for i in range(len(b.pts)):
+            out.append(digests([p[i] for p in planes]
+                               + [np.asarray(b.pts[i:i + 1])]))
+    return out
+
+
+def codec_transcode_path(gtt, device, src, dest, profile, window):
+    """The port's Transcoder from the y4m at `src` to `dest` with the
+    headline's chain (CODEC_FILTERS) under `profile`, on `device`.
+    Returns the frames the encoder was given (I420 planes, stacked), the
+    host clock inside the encoder's host_process and around run(), and
+    the encoded bytes (the file)."""
+    import numpy as np
+    import torch
+    from gstbad_tpu_torch.session import Transcoder
+    t = Transcoder(src, dest, CODEC_FILTERS, window=window, profile=profile,
+                   device=device)
+    enc = t.pipeline.get_by_name("tenc")
+    got = {"y": [], "u": [], "v": []}
+    spent = [0.0]
+    orig = enc.host_process
+
+    def host_process(np_batch, bus):
+        for k in got:
+            got[k].append(np.asarray(np_batch.data[k])[
+                np.asarray(np_batch.valid)])
+        t0 = time.perf_counter()
+        orig(np_batch, bus)
+        spent[0] += time.perf_counter() - t0
+    enc.host_process = host_process
+    t0 = time.perf_counter()
+    n = t.run()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t0
+    with open(dest, "rb") as f:
+        data = f.read()
+    return {"frames": {k: np.concatenate(v) for k, v in got.items()},
+            "n": n, "enc_s": spent[0], "t_wall": t_wall, "bytes": data,
+            "packets": [d for _p, d in enc.packets]}
+
+
+def codec_decode_path(gtt, device, dec, packets, window):
+    """CODEC_HEADLINE behind decoder `dec` through gtt.parse_launch on
+    `device`: the packets pushed, negotiate (libde265dec and av1dec
+    decode the stream there) and run() to the end.  Returns the pipeline,
+    its output batches, the input windows the decoder uploaded, the host
+    clock in negotiate and in the decoder's pulls (the decode where it
+    runs there, the window's stack and its upload), and run()'s."""
+    import torch
+    p = gtt.parse_launch(CODEC_HEADLINE.format(dec=dec), device=device)
+    src = element_named(p, dec)
+    for pk in packets:
+        src.push_packet(pk)
+    out = {"p": p, "inputs": [], "pull_s": 0.0}
+    t0 = time.perf_counter()
+    p.negotiate()
+    out["negotiate_s"] = time.perf_counter() - t0
+    orig_pull = src.pull_window
+
+    def pull(k):
+        t = time.perf_counter()
+        b = orig_pull(k)
+        out["pull_s"] += time.perf_counter() - t
+        if b is not None:
+            out["inputs"].append(b)
+        return b
+    src.pull_window = pull
+    t0 = time.perf_counter()
+    out["outs"] = p.run(window=window)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out["t_wall"] = time.perf_counter() - t0
+    return out
+
+
+def j2k_codestreams(gtt, device, frames):
+    """The port's openjpegenc (lossless, the defaults) over RGB `frames`
+    through appsrc on `device`: its codestreams and the host clock in its
+    host_process."""
+    n, h, w = frames.shape[:3]
+    p = gtt.parse_launch(f"appsrc name=src format=RGB width={w} height={h} "
+                         "! openjpegenc name=enc ! fakesink", device=device)
+    p.get_by_name("src").push_frames(frames)
+    enc = p.get_by_name("enc")
+    spent = [0.0]
+    orig = enc.host_process
+
+    def host_process(np_batch, bus):
+        t0 = time.perf_counter()
+        orig(np_batch, bus)
+        spent[0] += time.perf_counter() - t0
+    enc.host_process = host_process
+    p.run(window=J2K_WINDOW)
+    return [d for _p, d in enc.packets], spent[0]
+
+
+def j2k_frames(n, w, h, seed=103):
+    """n seeded RGB frames for the JPEG 2000 path: moving_i420's luma
+    and chroma as three channels (smooth gradients with noise)."""
+    import numpy as np
+    f = moving_i420(n, w, h, seed)
+    up = lambda p: np.repeat(np.repeat(p, 2, 1), 2, 2)[:, :h, :w]  # noqa
+    return np.ascontiguousarray(np.stack([f["y"], up(f["u"]), up(f["v"])],
+                                         -1))
+
+
+def codec_reference_main(path: str, which: str) -> int:
+    """chip_smoke.py --codec-reference DIR hevc|av1|j2k: one of phase
+    4n's video paths by the port on the CPU, beside the card's runs: the
+    same seeded input through the same transcode (hevc, av1) or the same
+    encoder (j2k) and the decode path; the digests of the encoder's input
+    frames, of the decoded frames and of the path's output frames, and
+    the encoded bytes, saved to DIR/<which>.pkl."""
+    import gc
+    import pickle
+    import torch
+    import gstbad_tpu_torch as gtt
+    from gstbad_tpu_torch.core.spec import MediaSpec
+    from gstbad_tpu_torch.io import y4m
+    os.nice(10)
+    torch.set_num_threads(3)
+    gc.disable()
+    out = {}
+    if which == "j2k":
+        frames = j2k_frames(J2K_WINDOW * J2K_WINDOWS, W, H)
+        packets, _ = j2k_codestreams(gtt, "cpu", frames)
+        dec = "openjpegdec"
+    else:
+        src = os.path.join(path, f"ref_{which}.y4m")
+        y4m.write_y4m(src, MediaSpec(kind="video", format="I420", width=W,
+                                     height=H),
+                      moving_i420(WINDOW_4N * CODEC_WINDOWS, W, H))
+        dest = os.path.join(path, f"ref_{which}.out")
+        run = codec_transcode_path(
+            gtt, "cpu", src, dest,
+            "hevc:lossless" if which == "hevc" else "av1", WINDOW_4N)
+        out["enc_in"] = digests(run["frames"][k][i] for i in range(run["n"])
+                                for k in "yuv")
+        packets = [run["bytes"]] if which == "hevc" else run["packets"]
+        dec = "libde265dec" if which == "hevc" else "av1dec"
+    out["bytes"] = packets
+    win = J2K_WINDOW if which == "j2k" else WINDOW_4N
+    d = codec_decode_path(gtt, "cpu", dec, packets, win)
+    out["decoded"] = frame_digests(b.to_numpy() for b in d["inputs"])
+    out["out"] = frame_digests(d["outs"])
+    with open(os.path.join(path, f"{which}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def codec_host_checks(gtt, libs) -> dict:
+    """The host engines of phase 4n once each, on the card's pipelines and
+    on the CPU port's, each against the other and against its round
+    trip: webpenc/webpdec lossless on a 1080p frame (openjpeg's round
+    trip is j2k_headline_1080p's), openexrdec of a 1080p file write_exr made (half and float
+    pixels), sirenenc -> sirendec at 16 kHz, gsmenc -> gsmdec at 8 kHz,
+    opusparse over packets of all four TOC codes, festival against an
+    in-process protocol server, gmedec on a VGM stream and openmptdec on
+    a MOD that fixtures builds.  A check whose library is missing is
+    reported and skipped.  Returns {check: what it showed}."""
+    import numpy as np
+    from gstbad_tpu_torch.io import exr, opus
+    from gstbad_tpu_torch.utils import fixtures
+    out = {}
+
+    secs = {}
+
+    def both(fn):
+        """fn(device) on the card and on the CPU: the same plain result
+        (frames compared as bytes), the card's returned.  The seconds of
+        the two runs and the comparison go to secs."""
+        t0 = time.perf_counter()
+        a, b = fn("cuda"), fn("cpu")
+        if digests_tree(a) != digests_tree(b):
+            fail(f"{fn.__name__}: the card's result differs from the CPU "
+                 "port's")
+        secs[fn.__name__] = time.perf_counter() - t0
+        return a
+
+    def pipe(device, desc, push=None, window=4, n_frames=0):
+        p = gtt.parse_launch(desc, device=device)
+        if push:
+            push(p)
+        outs = p.run(window=window, n_frames=n_frames)
+        p.close()
+        return p, outs
+
+    def missing(key, lib):
+        if not libs[lib]:
+            out[key] = f"not run: {lib} is missing"
+            return True
+        return False
+
+    rgb = j2k_frames(1, W, H, seed=107)
+    if not missing("webp_1080p", "libwebp"):
+        def webp_1080p(device):
+            p, _ = pipe(device, f"appsrc name=s format=RGB width={W} "
+                        f"height={H} ! webpenc name=e lossless=true "
+                        "! fakesink",
+                        lambda p: p.get_by_name("s").push_frames(rgb), 1)
+            data = p.get_by_name("e").packets[0][1]
+            q = gtt.parse_launch("webpdec ! fakesink", device=device)
+            q.nodes[0].element.push_packet(data)
+            got = q.run(window=1)[0].data[0]
+            if not np.array_equal(got, rgb[0]):
+                fail("webp_1080p: the lossless round trip is not exact")
+            return data, got
+        data, _ = both(webp_1080p)
+        out["webp_1080p"] = f"lossless round trip exact, {len(data)} bytes"
+    if not missing("openexr_1080p", "OpenEXRCore (the exrdec shim)"):
+        rng = np.random.default_rng(109)
+        planes = {c: (rng.random((H, W)) * 1.5).astype(np.float32)
+                  for c in "RGBA"}
+        for ptype, label in ((exr.PIXEL_HALF, "half"),
+                             (exr.PIXEL_FLOAT, "float")):
+            blob = exr.write_exr(None, planes, pixel_type=ptype,
+                                 compression=exr.COMPRESSION_ZIPS)
+
+            def openexr(device):
+                q = gtt.parse_launch("openexrdec ! fakesink", device=device)
+                q.nodes[0].element.push_packet(blob)
+                got = q.run(window=1)[0].data[0]
+                want = exr.to_argb64(exr.decode_exr(blob)[0])
+                if not np.array_equal(got, want):
+                    fail(f"openexr_1080p ({label}): not the reference's "
+                         "conversion of the decoded pixels")
+                return got
+            openexr.__name__ = f"openexr_1080p_{label}"
+            both(openexr)
+            out[f"openexr_1080p_{label}"] = (
+                f"ARGB64 equal to to_argb64(decode_exr), {len(blob)} bytes")
+    speech = (np.sin(np.arange(16000 * AUDIO_SECONDS_4N) * 0.19) * 9000
+              + np.sin(np.arange(16000 * AUDIO_SECONDS_4N) * 0.041) * 5000
+              ).astype(np.int16)
+
+    def siren_16k(device):
+        p = gtt.parse_launch("sirenenc ! fakesink", device=device)
+        p.nodes[0].element.push_samples(speech)
+        frames = np.concatenate([b.data for b in p.run(window=50)])
+        q = gtt.parse_launch("sirendec ! fakesink", device=device)
+        q.nodes[0].element.push_bytes(frames.tobytes())
+        pcm = np.concatenate([b.data for b in q.run(window=50)]).reshape(-1)
+        a, b = pcm[640:].astype(float), speech[320:-320].astype(float)
+        snr = 10 * np.log10((b ** 2).mean() / ((a - b) ** 2).mean())
+        if not snr > 15:
+            fail(f"siren_16k: round trip at {snr:.1f} dB")
+        return frames, pcm, snr
+    _, _, snr = both(siren_16k)
+    out["siren_16k"] = (f"{AUDIO_SECONDS_4N} s at 16 kHz round trip "
+                        f"{snr:.1f} dB after the transform's frame (no "
+                        "library)")
+    if not missing("gsm_8k", "libgsm"):
+        def gsm_8k(device):
+            p, _ = pipe(device, "audiotestsrc wave=sine freq=300 format=S16 "
+                        "rate=8000 channels=1 samplesperbuffer=800 ! gsmenc "
+                        "name=e ! fakesink", window=5,
+                        n_frames=10 * AUDIO_SECONDS_4N)
+            frames = b"".join(d for _p, d in p.get_by_name("e").packets)
+            q = gtt.parse_launch("gsmdec samplesperbuffer=800 ! fakesink",
+                                 device=device)
+            q.nodes[0].element.push_packet(frames)
+            return frames, [b.data for b in q.run(window=5)]
+        frames, _ = both(gsm_8k)
+        out["gsm_8k"] = f"{len(frames) // 33} frames of 33 bytes, decoded"
+
+    packets = fixtures.opus_packets(OPUS_PACKETS, seed=5)
+
+    def opusparse(device):
+        el = gtt.make("opusparse")
+        stream = fixtures.opus_test_vectors(packets)
+        got = []
+        for k in range(0, len(stream), 4096):
+            got += el.chain(stream[k:k + 4096])
+        el2 = gtt.make("opusparse")
+        framed = []
+        for pk in packets:
+            framed += el2.chain(pk, packetized=True)
+        if [b["data"] for b in framed] != packets:
+            fail("opusparse: the packetized buffers are not the packets")
+        return got, framed
+    got, framed = both(opusparse)
+    codes = sorted({pk[0] & 3 for pk in packets})
+    out["opusparse"] = (f"{len(packets)} packets of TOC codes {codes}, "
+                        f"{len(got)} buffers from the test-vector stream, "
+                        f"{framed[-1]['offset_end']} samples at 48 kHz; "
+                        "parser: " + ("libopus" if opus.libopus_available()
+                                      else "from the spec (no libopus)"))
+
+    def festival(device):
+        with fixtures.FestivalServer() as srv:
+            p, outs = pipe(device, f"festival host=127.0.0.1 port={srv.port}"
+                           " samplesperbuffer=160 ! fakesink",
+                           lambda p: [p.nodes[0].element.push_text(t)
+                                      for t in FESTIVAL_TEXTS])
+            wavs = p.nodes[0].element.wav_packets
+        if wavs != [fixtures.spoken(t) for t in FESTIVAL_TEXTS]:
+            fail("festival: the waveforms are not the server's")
+        return wavs, [b.data for b in outs]
+    wavs, blocks = both(festival)
+    out["festival"] = (f"{len(wavs)} texts, {sum(len(w) for w in wavs)} "
+                       f"bytes of WAV read a byte a call, "
+                       f"{sum(len(b) for b in blocks)} blocks of 160 "
+                       "samples (no library)")
+    if not missing("gmedec", "libgme"):
+        def gmedec(device):
+            p, outs = pipe(device, "gmedec ! fakesink",
+                           lambda p: p.nodes[0].element.push_packet(
+                               fixtures.make_vgm(2)), window=8)
+            return [b.data for b in outs], bus_messages(p)
+        blocks, msgs = both(gmedec)
+        tags = msgs[0][3]
+        out["gmedec"] = (f"{sum(len(x) for x in blocks)} blocks of 1600 "
+                         f"stereo samples at 32 kHz, system "
+                         f"{tags.get('system')!r}, duration "
+                         f"{tags.get('duration')} ns")
+    if not missing("openmptdec", "libopenmpt"):
+        def openmptdec(device):
+            p, outs = pipe(device, "openmptdec ! fakesink",
+                           lambda p: p.nodes[0].element.push_packet(
+                               fixtures.make_mod()), window=8, n_frames=32)
+            return [b.data for b in outs], bus_messages(p)
+        blocks, msgs = both(openmptdec)
+        tags = msgs[0][3]
+        out["openmptdec"] = (f"{sum(len(x) for x in blocks)} blocks of "
+                             f"1024 F32 stereo samples at 48 kHz, title "
+                             f"{tags.get('title')!r}, duration "
+                             f"{tags.get('duration')} ns")
+    for k, v in secs.items():
+        key = next(o for o in out if o.startswith(k))
+        out[key] += f" (card and CPU {v:.2f} s)"
+    return out
+
+
+def digests_tree(x):
+    """x with every array (numpy or torch) replaced by its digest."""
+    import numpy as np
+    import torch
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    if isinstance(x, np.ndarray):
+        return digests([x])[0]
+    if isinstance(x, dict):
+        return {k: digests_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [digests_tree(v) for v in x]
+    if isinstance(x, float):
+        return None           # host-clock seconds, SNRs: not compared
+    return x
+
+
+def counted(counters, launches, key, want, fn):
+    """fn() with the counts set to 0 just before and read just after: each
+    kernel must have launched want.get(kernel, 0) times.  Adds the counts
+    to `launches`; returns fn's result and the counts that were not 0."""
+    import torch
+    for c in counters.values():
+        c.launches = 0
+    r = fn()
+    torch.cuda.synchronize()
+    delta = {k: c.launches for k, c in counters.items()}
+    for k, c in delta.items():
+        if c != want.get(k, 0):
+            fail(f"{key}: {k} launched {c} times ({want.get(k, 0)} "
+                 "expected)")
+    for k in launches:
+        launches[k] += delta[k]
+    return r, {k: v for k, v in delta.items() if v}
+
+
+def codec_slice(gtt, counters, launches, err, card) -> dict:
+    """Phase 4n: the codecs and the host audio engines.  Prints which host
+    libraries load; a path whose library is missing is printed as missing
+    and not run.  hevc_headline_1080p (libx265 and libde265):
+    CODEC_WINDOWS windows of WINDOW_4N seeded moving 1080p I420 frames
+    (a y4m file) through the port's Transcoder on the card, profile
+    hevc:lossless, with the headline's chain (CODEC_FILTERS), then the
+    stream through libde265dec ! the headline's chain (CODEC_HEADLINE) on
+    the card; each run with the counts set to 0 just before and read just
+    after (K1 once a window, nothing else); the decoded frames equal the
+    frames the encoder was given, and the encoder's input, the decoded
+    frames and the path's output equal the CPU port's (a
+    --codec-reference process of its own).  av1_headline_1080p
+    (libaom): the same with profile av1 (realtime, cpu-used 8) and
+    av1dec; the frames decoded from the card's stream equal those
+    decoded from the CPU port's.  j2k_headline_1080p (libopenjp2
+    through Pillow): J2K_WINDOWS windows of J2K_WINDOW seeded RGB frames
+    through appsrc ! openjpegenc on the card (no kernel), then
+    openjpegdec ! the headline's chain (K1 once a window): the decoded
+    frames equal the input (lossless), codestreams and output equal the
+    CPU port's.  K1 against its plain version on each path's first
+    window, timed there.  Then codec_host_checks.  Returns K1's times
+    and bounds on the video paths that ran."""
+    import pickle
+    import shutil
+    import tempfile
+    import numpy as np
+    from gstbad_tpu_torch.core.spec import MediaSpec
+    from gstbad_tpu_torch.io import y4m
+
+    t_phase = time.perf_counter()
+    libs = codec_libraries()
+    log("codec libraries: " + ", ".join(
+        f"{k} {'loads' if v else 'missing'}" for k, v in libs.items()))
+    paths = {"hevc": libs["libx265+libde265"], "av1": libs["libaom"],
+             "j2k": libs["libopenjp2 (Pillow)"]}
+    for key, ok in paths.items():
+        if not ok:
+            log(f"{key}_headline_1080p: not run, its library is missing "
+                "on this host")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_4n_")
+    refs = {which: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--codec-reference",
+         tmp, which]) for which, ok in paths.items() if ok}
+    spent, times, bounds = {}, {}, {}
+    t_mark = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        spent[name] = now - t_mark[0]
+        t_mark[0] = now
+    card_runs = {}
+    try:
+        for which in ("hevc", "av1"):
+            if not paths[which]:
+                continue
+            key = f"{which}_headline_1080p"
+            n = WINDOW_4N * CODEC_WINDOWS
+            frames = moving_i420(n, W, H)
+            src = os.path.join(tmp, f"{which}.y4m")
+            y4m.write_y4m(src, MediaSpec(kind="video", format="I420",
+                                         width=W, height=H), frames)
+            profile = "hevc:lossless" if which == "hevc" else "av1"
+            enc, d1 = counted(
+                counters, launches, key + " (transcode)",
+                {"dilate_zebra_fused": CODEC_WINDOWS},
+                lambda: codec_transcode_path(
+                    gtt, "cuda", src, os.path.join(tmp, f"{which}.out"),
+                    profile, WINDOW_4N))
+            if enc["n"] != n or enc["frames"]["y"].shape != (n, H, W):
+                fail(f"{key}: the encoder took "
+                     f"{enc['frames']['y'].shape} of {n} frames")
+            packets = [enc["bytes"]] if which == "hevc" else enc["packets"]
+            dec_name = "libde265dec" if which == "hevc" else "av1dec"
+            dec, d2 = counted(
+                counters, launches, key + " (decode)",
+                {"dilate_zebra_fused": CODEC_WINDOWS},
+                lambda: codec_decode_path(gtt, "cuda", dec_name, packets,
+                                          WINDOW_4N))
+            decoded = [b.to_numpy() for b in dec["inputs"]]
+            got = {k: np.concatenate([b.data[k][b.valid] for b in decoded])
+                   for k in "yuv"}
+            if which == "hevc":
+                for k in "yuv":
+                    if not np.array_equal(got[k], enc["frames"][k]):
+                        fail(f"{key}: plane {k} decoded is not the frames "
+                             "the encoder was given (lossless)")
+            out = np.concatenate([b.data for b in dec["outs"]])
+            if out.shape != (n, H, W, 4):
+                fail(f"{key}: {out.shape} out of {n} frames")
+            t, b, step_ms = k1_on_window(dec["p"], dec["inputs"][0],
+                                         WINDOW_4N, H, W, err, key)
+            times[f"K1_{which}"], bounds[f"K1_{which}"] = t, b
+            idle = 1.0 - CODEC_WINDOWS * step_ms / (dec["t_wall"] * 1e3)
+            card_runs[which] = {
+                "enc_in": digests(enc["frames"][k][i] for i in range(n)
+                                  for k in "yuv"),
+                "bytes": packets, "decoded": frame_digests(decoded),
+                "out": frame_digests(dec["outs"])}
+            log(f"{key}: {n} seeded moving {W}x{H} I420 frames through the "
+                f"Transcoder (profile {profile}, the headline's chain, "
+                f"windows of {WINDOW_4N}; launches {d1}), "
+                f"{sum(len(x) for x in packets)} bytes, then {dec_name} ! "
+                f"the headline's chain (launches {d2}); K1 equal to its "
+                f"plain version on the decoder's window [{WINDOW_4N}, {H}, "
+                f"{W}], {t[0]:.4f} ms (plain {t[1]:.4f} ms, bound "
+                f"{b[0]:.4f} ms by {b[1]})")
+            log(f"{key}: transcode {n / enc['t_wall']:.2f} frames/s end to "
+                f"end (host clock, {enc['t_wall']:.3f} s), the encoder "
+                f"{enc['enc_s'] / n * 1e3:.2f} ms a frame (host clock); "
+                f"decode path {n / (dec['t_wall'] + dec['negotiate_s']):.2f}"
+                f" frames/s end to end, the decoder "
+                f"{(dec['negotiate_s'] + dec['pull_s']) / n * 1e3:.2f} ms a "
+                f"frame (negotiate and pulls, host clock), device step "
+                f"{step_ms:.3f} ms a window (CUDA events), idle share "
+                f"{idle:.4f} ({card})")
+            mark(key)
+
+        if paths["j2k"]:
+            key = "j2k_headline_1080p"
+            n = J2K_WINDOW * J2K_WINDOWS
+            frames = j2k_frames(n, W, H)
+            (packets, enc_s), d1 = counted(
+                counters, launches, key + " (encode)", {},
+                lambda: j2k_codestreams(gtt, "cuda", frames))
+            dec, d2 = counted(
+                counters, launches, key + " (decode)",
+                {"dilate_zebra_fused": J2K_WINDOWS},
+                lambda: codec_decode_path(gtt, "cuda", "openjpegdec",
+                                          packets, J2K_WINDOW))
+            decoded = [b.to_numpy() for b in dec["inputs"]]
+            if not np.array_equal(np.concatenate(
+                    [b.data[b.valid] for b in decoded]), frames):
+                fail(f"{key}: the decoded frames are not the input "
+                     "(lossless)")
+            t, b, step_ms = k1_on_window(dec["p"], dec["inputs"][0],
+                                         J2K_WINDOW, H, W, err, key)
+            times["K1_j2k"], bounds["K1_j2k"] = t, b
+            idle = 1.0 - J2K_WINDOWS * step_ms / (dec["t_wall"] * 1e3)
+            card_runs["j2k"] = {"bytes": packets,
+                                "decoded": frame_digests(decoded),
+                                "out": frame_digests(dec["outs"])}
+            log(f"{key}: {n} seeded moving {W}x{H} RGB frames through "
+                f"appsrc ! openjpegenc on the card (launches {d1}), "
+                f"{sum(len(x) for x in packets)} bytes of lossless "
+                f"codestreams, then openjpegdec ! videoconvert format=BGRx "
+                f"! the headline's chain in windows of {J2K_WINDOW} "
+                f"(launches {d2}); the decoded frames equal the input; K1 "
+                f"equal to its plain version on the decoder's window "
+                f"[{J2K_WINDOW}, {H}, {W}], {t[0]:.4f} ms (plain "
+                f"{t[1]:.4f} ms, bound {b[0]:.4f} ms by {b[1]})")
+            log(f"{key}: the encoder {enc_s / n * 1e3:.1f} ms a frame (host "
+                f"clock); decode path {n / dec['t_wall']:.3f} frames/s end "
+                f"to end (host clock, {dec['t_wall']:.3f} s), the decoder's "
+                f"pulls (decode, stack, upload) {dec['pull_s'] / n * 1e3:.1f}"
+                f" ms a frame, device step {step_ms:.3f} ms a window (CUDA "
+                f"events), idle share {idle:.4f} ({card})")
+            mark(key)
+
+        for k, v in codec_host_checks(gtt, libs).items():
+            log(f"phase 4n host check {k}: {v}")
+        mark("host checks")
+
+        for which, ref in refs.items():
+            if ref.wait(timeout=600) != 0:
+                fail(f"phase 4n: the {which} CPU reference exited "
+                     f"{ref.returncode}")
+        mark("waiting for the CPU references")
+        for which, got in card_runs.items():
+            with open(os.path.join(tmp, f"{which}.pkl"), "rb") as f:
+                cpu = pickle.load(f)
+            key = f"{which}_headline_1080p"
+            for part in ("enc_in", "decoded", "out"):
+                if part in got and got[part] != cpu[part]:
+                    fail(f"{key}: the card's {part} differs from the CPU "
+                         "port's")
+            same = got["bytes"] == cpu["bytes"]
+            if which != "av1" and not same:
+                fail(f"{key}: the card's stream differs from the CPU "
+                     "port's")
+            log(f"{key}: the card's "
+                + ("encoder input, " if "enc_in" in got else "")
+                + "decoded frames and output equal the CPU port's byte for "
+                "byte; the streams of the same frames are "
+                + ("equal" if same else "NOT equal"))
+    finally:
+        for proc in refs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"codec_slice: {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()) + ")")
+    return {"times": times, "bounds": bounds}
+
 
 
 def main() -> int:
@@ -7070,6 +7710,10 @@ def main() -> int:
     formats = file_format_slice(gtt, counters, launches, err, card)
     phase_done("4m")
 
+    # 4n. the codecs and the host audio engines (codec_slice)
+    codecs = codec_slice(gtt, counters, launches, err, card)
+    phase_done("4n")
+
     # 5. timing
     fps = {}
     for key, build in runs.items():
@@ -7420,6 +8064,9 @@ def main() -> int:
     # K1 on vmnc_headline_1080p's own window (phase 4m)
     times.update(formats["times"])
     bounds.update(formats["bounds"])
+    # K1 behind the decoders of phase 4n whose libraries load here
+    times.update(codecs["times"])
+    bounds.update(codecs["bounds"])
     for label, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bounds[label]
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
@@ -7456,6 +8103,12 @@ def main() -> int:
               "gstbad_tpu/ops/chainfuse.py:78", "rtp_headline_1080p"),
         entry("dilate_zebra_fused", "K1_vmnc", "tablefuse_kernels.cu",
               "gstbad_tpu/ops/chainfuse.py:78", "vmnc_headline_1080p"),
+    ] + [
+        entry("dilate_zebra_fused", label, "tablefuse_kernels.cu",
+              "gstbad_tpu/ops/chainfuse.py:78", f"{path}_headline_1080p")
+        for label, path in (("K1_hevc", "hevc"), ("K1_av1", "av1"),
+                            ("K1_j2k", "j2k")) if label in times
+    ] + [
         entry("apply_word_table", "K2", "tablefuse_kernels.cu",
               "gstbad_tpu/ops/lut.py:91"),
         entry("metrics_default", "K4", "deinterlace_kernels.cu",
@@ -7528,4 +8181,6 @@ if __name__ == "__main__":
         sys.exit(file_format_reference_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--rfb-server"]:
         sys.exit(rfb_server_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--codec-reference"]:
+        sys.exit(codec_reference_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -6,6 +6,8 @@ transcode (the gst-transcoder CLI analog, tools/gst-transcoder.c).
                    videoconvert format=I420" [--device cpu]
     python -m gstbad_tpu_torch transcode in.y4m out.gdp --profile gdp
     python -m gstbad_tpu_torch transcode in.gdp out_%d.pnm --profile pnm:RGB
+    python -m gstbad_tpu_torch transcode in.y4m out.h265 --profile hevc:lossless
+    python -m gstbad_tpu_torch transcode in.y4m out.ivf --profile av1
     python -m gstbad_tpu_torch launch videotestsrc ! solarize ! fakesink
 
 Both run on the CUDA card unless --device cpu is given; without a card a
@@ -86,8 +88,9 @@ def transcode_main(argv=None):
     ap.add_argument("--window", type=int, default=8)
     ap.add_argument("--profile", default="y4m",
                     help="encoding profile: y4m[:FMT], pnm[:FMT] (dest "
-                         "holds a %%d pattern) or gdp[:FMT]; hevc and av1 "
-                         "are not ported yet")
+                         "holds a %%d pattern), gdp[:FMT], "
+                         "hevc[:qp=N|:lossless] (libx265) or "
+                         "av1[:bitrate=N] (libaom, IVF)")
     _device_arg(ap)
     args = ap.parse_args(argv)
 

@@ -6,16 +6,17 @@ from gstbad_tpu_torch.elements import (  # noqa: F401
     pcap, rfbsrc, rtp, sdpdemux, videoparsers)
 from gstbad_tpu_torch.elements.analysis import compare  # noqa: F401
 from gstbad_tpu_torch.elements.audio import (  # noqa: F401
-    adpcm, bpmdetect, bs2b, buffersplit, convert as audio_convert,
-    fingerprint, freeverb, meters, mixmatrix, pitch, removesilence, spandsp,
-    visualizers, webrtcdsp)
+    adpcm, bpmdetect, bs2b, buffersplit, convert as audio_convert, festival,
+    fingerprint, freeverb, gsmcodec, meters, mixmatrix, moduledec, opusparse,
+    pitch, removesilence, siren, spandsp, visualizers, webrtcdsp)
 from gstbad_tpu_torch.elements import cv  # noqa: F401
 from gstbad_tpu_torch.io import ipcpipeline as _ipc_elements  # noqa: F401
 from gstbad_tpu_torch.io import shm as _shm_elements  # noqa: F401
 from gstbad_tpu_torch.elements.geometry import geometrictransform  # noqa: F401
 from gstbad_tpu_torch.elements.sources import testsrc  # noqa: F401
 from gstbad_tpu_torch.elements.video import (  # noqa: F401
-    assrender, bayer, closedcaption, codecalpha, coloreffects, convert,
-    digitalzoom, faceoverlay, fieldanalysis, gaudieffects, interlace, ivtc,
-    lcms, onnxdetector, overlay, qroverlay, rsvg, teletext, ttmlrender,
-    videofilters, videosignal, vmncdec)
+    assrender, av1codec, bayer, closedcaption, codecalpha, coloreffects,
+    convert, digitalzoom, faceoverlay, fieldanalysis, gaudieffects,
+    h265codec, interlace, ivtc, jpeg2000, lcms, onnxdetector, openexr,
+    overlay, qroverlay, rsvg, teletext, ttmlrender, videofilters,
+    videosignal, vmncdec, webpcodec)

@@ -12,9 +12,15 @@ string selects the output:
                      output format
     "gdp"            GDP packet stream (any negotiated format, caps on
                      the wire; "gdp:FMT" forces one)
+    "hevc"           H.265 annex-B elementary stream via x265enc (libx265,
+                     speed-preset ultrafast, tune zerolatency); options
+                     "hevc:qp=N" or "hevc:lossless"; needs I420 reaching
+                     the encoder
+    "av1"            AV1 in an IVF container via av1enc (libaom, realtime
+                     usage at cpu-used 8); option "av1:bitrate=N" (kbit/s)
 
-The hevc and av1 profiles of the JAX package drive libx265 and libaom
-encoders that the port does not have yet, and raise.  Inputs: .y4m files,
+The encoders run on the host over the windows the graph hands back, as in
+the JAX package.  Inputs: .y4m files,
 fed through an appsrc, or .gdp files, read by gdpfilesrc; the graph runs
 on `device` ("cuda", the default, or "cpu"; a CUDA request without a card
 raises).  Progress posts `position` messages and calls the optional
@@ -33,12 +39,11 @@ from gstbad_tpu_torch.core.bus import Message
 from gstbad_tpu_torch.core.pipeline import parse_launch
 from gstbad_tpu_torch.core.spec import VideoFormat
 from gstbad_tpu_torch.io import gdp, y4m
+from gstbad_tpu_torch.io.ivf import write_ivf
 from gstbad_tpu_torch.io.pnm import write_pnm
 
-# the JAX package's profiles whose encoders (x265enc, av1enc) the port has
-# not yet ported
-NOT_PORTED = ("hevc", "av1")
-PROFILES = ("y4m", "pnm", "gdp")
+PROFILES = ("y4m", "pnm", "gdp", "hevc", "av1")
+CODECS = ("hevc", "av1")
 
 
 class Transcoder:
@@ -53,11 +58,6 @@ class Transcoder:
         self.on_position = on_position
         container, _, fmt = profile.partition(":")
         self.container = container or "y4m"
-        if self.container in NOT_PORTED:
-            raise ValueError(f"profile container {self.container!r} is not "
-                             "ported yet: its encoder is not (not yet "
-                             f"ported: {', '.join(NOT_PORTED)}); use "
-                             f"{', '.join(PROFILES)}")
         if self.container not in PROFILES:
             raise ValueError(f"unknown profile container {container!r}; "
                              f"known: {', '.join(PROFILES)}")
@@ -66,13 +66,28 @@ class Transcoder:
                              "dest must contain a %d pattern")
         if not src_uri.endswith((".y4m", ".gdp")):
             raise ValueError("transcoder reads .y4m or .gdp input")
-        self.out_format = fmt or None
+        codec = self.container in CODECS
+        self.codec_opt = fmt if codec else None
+        self.out_format = None if codec else (fmt or None)
         desc = ("gdpfilesrc name=tsrc location=" + src_uri
                 if src_uri.endswith(".gdp") else "appsrc name=tsrc")
         if self.filters:
             desc += " ! " + self.filters
         if self.out_format:
             desc += f" ! videoconvert format={self.out_format}"
+        if self.container == "hevc":
+            enc = "x265enc name=tenc speed-preset=ultrafast " \
+                  "tune=zerolatency"
+            if self.codec_opt == "lossless":
+                enc += " lossless=true"
+            elif self.codec_opt and self.codec_opt.startswith("qp="):
+                enc += f" qp={int(self.codec_opt[3:])}"
+            desc += " ! " + enc
+        elif self.container == "av1":
+            enc = "av1enc name=tenc usage-profile=realtime cpu-used=8"
+            if self.codec_opt and self.codec_opt.startswith("bitrate="):
+                enc += f" target-bitrate={int(self.codec_opt[8:])}"
+            desc += " ! " + enc
         desc += " ! appsink"
         self.pipeline = parse_launch(desc, device=device)
 
@@ -103,14 +118,16 @@ class Transcoder:
         total_ns = int(n * spec.frame_duration_ns) if spec is not None \
             else 0
         outs = self.pipeline.run(window=self.window)
-        self.pipeline.close()
+        self.pipeline.close()        # drains an encoder's lookahead
         batches = outs if isinstance(outs, list) else outs[0]
         written = 0
         sink_planes = {"y": [], "u": [], "v": []}
         packed_frames = []
         gdp_blobs = []
         for b in batches:
-            if self.container == "y4m":
+            if self.container in CODECS:
+                pass                 # the encoder keeps its packets
+            elif self.container == "y4m":
                 if not isinstance(b.data, dict):
                     raise ValueError(
                         f"y4m profile needs planar output; pipeline "
@@ -131,7 +148,17 @@ class Transcoder:
                 self.on_position(pos, total_ns)
             self.bus.post(Message("transcoder", "position", pos,
                                   {"position": pos, "duration": total_ns}))
-        if self.container == "y4m":
+        if self.container == "hevc":
+            with open(self.dest_uri, "wb") as f:
+                for _pts, d in self.pipeline.get_by_name("tenc").packets:
+                    f.write(d)
+        elif self.container == "av1":
+            fr = out_spec.framerate
+            write_ivf(self.dest_uri, b"AV01", out_spec.width,
+                      out_spec.height, fr.numerator, fr.denominator,
+                      [(i, d) for i, (_p, d) in enumerate(
+                          self.pipeline.get_by_name("tenc").packets)])
+        elif self.container == "y4m":
             merged = {k: np.concatenate(v) for k, v in sink_planes.items()}
             y4m.write_y4m(self.dest_uri, out_spec, merged)
         elif self.container == "pnm":

@@ -21,6 +21,12 @@ import numpy as np
 import pytest
 
 PLAIN = (type(None), bool, numbers.Number, str, bytes, bytearray)
+# classes whose instances hold native handles (a library's context
+# pointers, which differ between two instances), by io module and name:
+# compared by class name alone, and through what their methods return
+OPAQUE = {"io.h265.H265Encoder", "io.h265.H265Decoder", "io.av1.AV1Encoder",
+          "io.av1.AV1Decoder", "io.gsmcodec.GsmCodec", "io.gme.GmePlayer",
+          "io.openmpt.Module"}
 
 
 def tree(x, seen=None):
@@ -39,6 +45,9 @@ def tree(x, seen=None):
     if isinstance(x, (types.FunctionType, types.MethodType, type,
                       types.ModuleType)):
         return ("callable", getattr(x, "__name__", "?"))
+    if ".".join(type(x).__module__.split(".")[-2:] + [type(x).__name__]) \
+            in OPAQUE:
+        return ("opaque", type(x).__name__)
     if id(x) in seen:
         return ("cycle", type(x).__name__)
     seen = seen | {id(x)}

@@ -21,7 +21,10 @@ UDP) on the card against the CPU port, with K1 against its plain version
 on that path's own window; and the file formats' device paths (vmncdec !
 the headline's chain, K1 once a window; onnxobjectdetector on phase 4m's
 detector, no kernel, scores and boxes within 1e-4; chromaprint's chroma
-image within 1e-5 on rows of unit norm) on the card against the CPU port.
+image within 1e-5 on rows of unit norm) on the card against the CPU port;
+and the decoders in front of the headline's chain (libde265dec, av1dec and
+openjpegdec: one upload a window onto the card, K1 once a window, every
+frame equal to the CPU port's; each skips where its library is missing).
 
 These tests need an NVIDIA card and nvcc, and skip without them.  They
 import neither jax nor gstbad_tpu, so they run on a machine that has only
@@ -1577,3 +1580,88 @@ def test_chroma_image_on_card_matches_cpu(dev):
     assert np.abs(a - b).max() <= 1e-5
     assert fingerprint._fingerprint_string(fingerprint._quantize(a)) == \
         fingerprint._fingerprint_string(fingerprint._quantize(b))
+
+
+def _decoder_packets(name, w, h, n):
+    """A seeded stream for one of the decoders, made by the port's own
+    encoder on the CPU (skips where the decoder's library is missing):
+    lossless x265, realtime AV1, lossless JPEG 2000 codestreams."""
+    from gstbad_tpu_torch.elements.video import jpeg2000
+    from gstbad_tpu_torch.io import av1, h265
+    lib = {"libde265dec": h265.available, "av1dec": av1.available,
+           "openjpegdec": jpeg2000.available}[name]
+    if not lib():
+        pytest.skip(f"{name}: its library is not present")
+    rng = np.random.default_rng(17)
+    if name == "openjpegdec":
+        enc = "openjpegenc"
+        p = gtt.parse_launch(f"appsrc name=src format=RGB width={w} "
+                             f"height={h} ! {enc} name=enc ! fakesink",
+                             device="cpu")
+        p.get_by_name("src").push_frames(
+            rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8))
+    else:
+        enc = ("x265enc lossless=true speed-preset=ultrafast "
+               "tune=zerolatency" if name == "libde265dec" else
+               "av1enc usage-profile=realtime cpu-used=8")
+        p = gtt.parse_launch(f"appsrc name=src format=I420 width={w} "
+                             f"height={h} ! {enc} name=enc ! fakesink",
+                             device="cpu")
+        p.get_by_name("src").push_frames(
+            {"y": rng.integers(0, 256, (n, h, w), dtype=np.uint8),
+             "u": rng.integers(0, 256, (n, h // 2, w // 2), dtype=np.uint8),
+             "v": rng.integers(0, 256, (n, h // 2, w // 2), dtype=np.uint8)})
+    p.run(window=n)
+    p.close()
+    packets = [d for _pts, d in p.get_by_name("enc").packets]
+    return [b"".join(packets)] if name == "libde265dec" else packets
+
+
+def _decoder_headline(name, device, packets, window):
+    import chip_smoke
+    p = gtt.parse_launch(f"{name} framerate=60/1 ! videoconvert format=BGRx "
+                         f"! {chip_smoke.HEAD} ! zebrastripe ! fakesink",
+                         device=device)
+    for x in packets:
+        p.nodes[0].element.push_packet(x)
+    return p.run(window=window)
+
+
+@pytest.mark.parametrize("name", ["libde265dec", "av1dec", "openjpegdec"])
+def test_decoder_uploads_once_to_the_card(dev, name, monkeypatch):
+    """Each decoder hands the runner a window in one host-to-device copy
+    (core/frame.upload_frames) onto the card."""
+    from gstbad_tpu_torch.core import frame
+    packets = _decoder_packets(name, 64, 48, 5)
+    seen = []
+    orig = frame.upload_frames
+
+    def spy(device, frames, **kw):
+        out = orig(device, frames, **kw)
+        seen.append((torch.device(device).type, len(frames),
+                     out.pts.device.type))
+        return out
+    module = {"libde265dec": "h265codec", "av1dec": "av1codec",
+              "openjpegdec": "jpeg2000"}[name]
+    monkeypatch.setattr(f"gstbad_tpu_torch.elements.video.{module}."
+                        "upload_frames", spy)
+    outs = _decoder_headline(name, "cuda", packets, 4)
+    assert seen == [("cuda", 4, "cuda"), ("cuda", 4, "cuda")]
+    assert [len(b.pts) for b in outs] == [4, 1]
+
+
+@pytest.mark.parametrize("name", ["libde265dec", "av1dec", "openjpegdec"])
+@pytest.mark.parametrize("size", [(256, 32), (200, 48)])
+def test_decoder_headline_on_card_equals_cpu_port(dev, name, size):
+    """A decoded stream through `<decoder> ! videoconvert format=BGRx !
+    the headline's chain ! zebrastripe`, 2 windows of 4: K1 once a window
+    on the card, every frame and pts equal to the CPU port's."""
+    packets = _decoder_packets(name, *size, 8)
+    before = chainfuse.dilate_zebra_fused.launches
+    outs = _decoder_headline(name, "cuda", packets, 4)
+    assert chainfuse.dilate_zebra_fused.launches - before == 2
+    cpu = _decoder_headline(name, "cpu", packets, 4)
+    assert len(outs) == len(cpu) == 2
+    for a, b in zip(outs, cpu):
+        np.testing.assert_array_equal(a.data, b.data)
+        np.testing.assert_array_equal(a.pts, b.pts)

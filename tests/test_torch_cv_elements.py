@@ -281,5 +281,7 @@ def test_registry_has_the_cv_names():
     # with the sessions (dashdemux, hlsdemux, mssdemux), 4 with the
     # inter-process transports (shmsink, shmsrc, ipcpipelinesink,
     # ipcpipelinesrc), 23 with the transport plane (rtp, sdp, onvif, pcap,
-    # MPEG-TS/PS and the eleven elementary-stream parsers)
-    assert len(set(t_names())) == 210
+    # MPEG-TS/PS and the eleven elementary-stream parsers), 15 with the
+    # file formats and the last in-repo device engines, 17 with the
+    # codecs and the host audio engines: all of the JAX registry
+    assert len(set(t_names())) == 227

@@ -2,8 +2,9 @@
 and writer (the bytes equal the JAX writer's), y4mfilesrc/y4mfilesink,
 filesink and multifilesink, and the transcoder through its class and its
 CLI: the output y4m byte for byte the JAX Transcoder's on the verify
-chain, y4m:GRAY8, the position messages, and the profiles not yet
-ported (hevc and av1; pnm and gdp are held in test_torch_gdp_aiff.py)."""
+chain, y4m:GRAY8, the position messages, and the hevc and av1 profiles'
+graphs (their streams are held in test_torch_video_codecs.py; pnm and gdp
+in test_torch_gdp_aiff.py)."""
 
 import numpy as np
 import pytest
@@ -149,9 +150,16 @@ def test_transcoder_positions_equal_jax(src, tmp_path):
 
 @pytest.mark.parametrize("profile", ["hevc:qp=24", "av1"])
 def test_profiles_not_yet_ported_raise(src, tmp_path, profile):
-    with pytest.raises(ValueError, match="not ported yet"):
-        Transcoder(str(src), str(tmp_path / "o_%d.pnm"), profile=profile,
+    """The hevc and av1 profiles, which raised until their encoders were
+    ported, now build the JAX transcoder's graph: the same elements with
+    the same properties (their streams are held against the JAX
+    package's in tests/test_torch_video_codecs.py)."""
+    j = JTranscoder(str(src), str(tmp_path / "o_%d.pnm"), profile=profile)
+    t = Transcoder(str(src), str(tmp_path / "o_%d.pnm"), profile=profile,
                    device="cpu")
+    assert [(n.element.NAME, n.element.props) for n in t.pipeline.nodes] \
+        == [(n.element.NAME, n.element.props) for n in j.pipeline.nodes]
+    assert t.codec_opt == j.codec_opt and t.out_format is None
 
 
 def test_unknown_profile_raises(src, tmp_path):

@@ -63,8 +63,10 @@ MAGICS = [
 
 def test_typefind():
     """find_type on the JAX tests' magics; make_source for the y4m and
-    AIFF routes (the port's file sources) and, for a type whose decoder
-    the port has not yet ported, the registry's unknown-element error."""
+    AIFF routes (the port's file sources) and, for a VGM stream, the
+    port's gmedec with the JAX element's properties (the seven decoder
+    routes are held against the JAX package in
+    tests/test_torch_video_codecs.py)."""
     assert [t_typefind.find_type(m) for m in MAGICS] == [
         j_typefind.find_type(m) for m in MAGICS]
     assert t_typefind.decodable_types() == j_typefind.decodable_types()
@@ -79,12 +81,14 @@ def test_typefind():
         assert te.props == je.props
     with pytest.raises(ValueError, match="file path"):
         t_typefind.make_source(y4m)
-    with pytest.raises(KeyError, match="gmedec"):
-        t_typefind.make_source(b"Vgm " + bytes(256))
+    (jt, je), (tt, te) = (tf.make_source(b"Vgm " + bytes(256))
+                          for tf in (j_typefind, t_typefind))
+    assert tt == jt == "audio/x-vgm" and te.NAME == je.NAME == "gmedec"
+    assert te.props == je.props
     with pytest.raises(ValueError, match="unrecognized"):
         t_typefind.make_source(b"garbage here....")
     assert "gmedec" in gt.element_names()
-    assert "gmedec" not in gtt.element_names()
+    assert "gmedec" in gtt.element_names()
 
 
 def test_subtitles():

@@ -185,5 +185,5 @@ def test_negotiation_sweep(name):
 
 def test_port_registers_the_breadth_slice():
     assert set(BREADTH) <= set(gtt.element_names())
-    assert len(gtt.element_names()) == 210
+    assert len(gtt.element_names()) == 227
     assert JSpecError.__name__ == SpecError.__name__
