@@ -338,6 +338,31 @@ line):
    opusparse over 256 packets of all four TOC codes, festival against an
    in-process protocol server, gmedec on a VGM stream and openmptdec on a
    MOD (gstbad_tpu_torch/utils/fixtures.py builds both).
+   Then the dynamic plugin hosts, the stateless-decoder layer and the byte
+   tools (plugin_slice, phase 4o): the port's LADSPA, LV2 and frei0r
+   fixtures built with gcc and registered (twelve names);
+   frei0r_headline_1080p, 32 frames of frei0r-src-fixgradient at
+   1920x1080 through frei0r-filter-fixbrightness (a seeded level) on the
+   host, appsrc ! the headline's chain in windows of 16 (K1 once a window,
+   nothing else), each output window mixed with its input by
+   frei0r-mixer-fixblend, every stage equal to the CPU port's byte for
+   byte (a --plugin-reference process of its own), K1 against its plain
+   version on the path's first window and timed there;
+   ladspa_config3_48k, 64 blocks of 4800 samples of 8 LADSPA sine
+   channels through the LV2 amp (and width on channels 0-1) on the host,
+   appsrc ! config 3's chain in windows of 32 (K8's bracket once a
+   window), ladspasink-gstbadtest-peak-meter on the S16 output, within 1
+   LSB of the CPU port's, each K8 form that ran against its plain version
+   on the path's windows; frames or blocks/s end to end by the host
+   clock, the plugins' host ms, the device step, and the idle share of the
+   video path (2 audio windows are too short to give one).  Then
+   the host checks once each, against the CPU port's: the twelve names'
+   property tables, the LV2 statefilter's preset round trip,
+   fixlabeler's string parameter, the six DPB engines' output order and
+   POCs over the streams of phase 4l's parsers (VP8 has none: not run),
+   jp2kdecimator on a synthetic 1080p codestream with SOP markers, bz2 of
+   a 1080p frame, a MIDI timeline with a tempo change, and chopmydata
+   re-chunking the H.264 stream into h264parse.
    Each phase logs its seconds on a line of its own ("phase 4l: ... s").
 5. Time: the median of 5 runs of source frames/s per graph (CUDA events
    around 10 steps of a 64-frame window, 16 at 4K, data kept on the card;
@@ -376,8 +401,8 @@ line):
    also timed on random 720-row frames 2560, 3840 and 8192 wide.
 6. Print the kernel table as one JSON line (K1 and K3 once on a
    broadcast base and once on a materialized window, K1 also on
-   rtp_headline_1080p's and vmnc_headline_1080p's windows, each with its
-   "mode"), then the result
+   rtp_headline_1080p's, vmnc_headline_1080p's, the decoders' and
+   frei0r_headline_1080p's windows, each with its "mode"), then the result
    line {"ok": true, "device": {...}} last.
 """
 
@@ -6899,6 +6924,668 @@ def codec_slice(gtt, counters, launches, err, card) -> dict:
     return {"times": times, "bounds": bounds}
 
 
+WINDOW_4O = 16                  # frei0r_headline_1080p's window
+FREI0R_WINDOWS = 2              # and its windows: 32 frames
+FREI0R_SEED = 111               # its seeded fixbrightness level
+# frei0r_headline_1080p: the frei0r frames (BGRA8888 bytes) as BGRx into
+# the headline's chain
+FREI0R_HEADLINE = ("appsrc name=src format=BGRx width={w} height={h} "
+                   "framerate=60/1 ! " + HEAD + " ! zebrastripe ! fakesink")
+LADSPA_BLOCKS = 64              # ladspa_config3_48k's blocks of AUDIO_BLOCK
+WINDOW_4O_AUDIO = 32            # and its window
+LADSPA_SEED = 113               # its seeded frequencies, levels and gains
+# config 3's chain (models/benchmarks.py config3_audio) behind appsrc
+LADSPA_CONFIG3 = ("appsrc name=src kind=audio format=F32 channels=8 "
+                  "rate={rate} ! audiomixmatrix matrix='{matrix}' ! freeverb "
+                  "! audioconvert format=S16 channels=1 ! removesilence "
+                  "! fakesink")
+# the twelve names the fixtures register
+PLUGIN_NAMES = (
+    "frei0r-filter-fixbrightness", "frei0r-filter-fixlabeler",
+    "frei0r-mixer-fixblend", "frei0r-src-fixgradient",
+    "ladspa-gstbadtest-amp-mono", "ladspa-gstbadtest-amp-stereo",
+    "ladspasink-gstbadtest-peak-meter", "ladspasrc-gstbadtest-sine-osc",
+    "urn-gstbad-lv2-amp", "urn-gstbad-lv2-sine",
+    "urn-gstbad-lv2-statefilter", "urn-gstbad-lv2-width")
+
+
+def config3_matrix() -> str:
+    """config 3's audiomixmatrix: 8 channels in, 2 out, each output its
+    own input at 1.0 and the others at 0.125."""
+    return "<" + ",".join(
+        "<" + ",".join("1.0" if i == o else "0.125" for i in range(8)) + ">"
+        for o in range(2)) + ">"
+
+
+def register_plugin_fixtures() -> list:
+    """Build the port's fixtures and register their elements: the new
+    names (none where they are registered already)."""
+    from gstbad_tpu_torch.elements.audio.ladspa import \
+        register_ladspa_elements
+    from gstbad_tpu_torch.elements.audio.lv2 import register_lv2_elements
+    from gstbad_tpu_torch.elements.video.frei0r import \
+        register_frei0r_elements
+    from gstbad_tpu_torch.io import ladspa, lv2
+    from gstbad_tpu_torch.core import registry
+    before = set(registry.element_names())
+    register_ladspa_elements(ladspa.build_test_plugins())
+    register_lv2_elements(lv2.build_test_plugins())
+    register_frei0r_elements()
+    return sorted(set(registry.element_names()) - before)
+
+
+def _pulls(p, out):
+    """Wrap appsrc's pull_window to keep each window it uploads in
+    out["inputs"]."""
+    src = p.get_by_name("src")
+    orig = src.pull_window
+
+    def pull(k):
+        b = orig(k)
+        if b is not None:
+            out["inputs"].append(b)
+        return b
+    src.pull_window = pull
+
+
+def _host_batches(outs):
+    import numpy as np
+    return (np.concatenate([np.asarray(b.data)[np.asarray(b.valid)]
+                            for b in outs]),
+            np.concatenate([np.asarray(b.pts)[np.asarray(b.valid)]
+                            for b in outs]))
+
+
+def frei0r_headline_path(launch, make, device, n, window, w, h, level):
+    """frei0r_headline_1080p through launch(desc, device=device) and the
+    frei0r elements of make (a package's make, its fixtures registered):
+    frei0r-src-fixgradient creates n frames at 60 fps and
+    frei0r-filter-fixbrightness (level) transforms them on the host; they
+    go through appsrc into the headline's chain (FREI0R_HEADLINE) in
+    windows of `window`; frei0r-mixer-fixblend mixes each output window
+    (as run() hands it to the host) with its input.  Returns the
+    pipeline, the frames of each stage, the output pts, the windows
+    appsrc uploaded, the host clock in the plugins and around run()."""
+    import numpy as np
+    out = {"inputs": []}
+    t0 = time.perf_counter()
+    src = make("frei0r-src-fixgradient", width=w, height=h)
+    flt = make("frei0r-filter-fixbrightness", width=w, height=h,
+               level=level)
+    mix = make("frei0r-mixer-fixblend", width=w, height=h)
+    out["source"] = src.create(n, t0=0.0, fps=60.0)
+    out["filtered"] = flt.transform(out["source"], t0=0.0, fps=60.0)
+    plug_s = time.perf_counter() - t0
+    p = launch(FREI0R_HEADLINE.format(w=w, h=h), device=device)
+    p.get_by_name("src").push_frames(out["filtered"])
+    _pulls(p, out)
+    t0 = time.perf_counter()
+    outs = p.run(window=window)
+    if device not in (None, "cpu"):
+        import torch
+        torch.cuda.synchronize()
+    out["t_wall"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mixed = [mix.mix(np.asarray(b.data)[np.asarray(b.valid)],
+                     out["filtered"][k * window:(k + 1) * window],
+                     t0=k * window / 60.0, fps=60.0)
+             for k, b in enumerate(outs)]
+    out["plug_s"] = plug_s + time.perf_counter() - t0
+    out["out"], out["pts"] = _host_batches(outs)
+    out["mixed"] = np.concatenate(mixed)
+    out["p"] = p
+    return out
+
+
+def ladspa_config3_path(launch, make, device, n_blocks, window, block,
+                        seed=LADSPA_SEED):
+    """ladspa_config3_48k through launch(desc, device=device) and the
+    LADSPA/LV2 elements of make (a package's make, its fixtures
+    registered): 8 channels, each a ladspasrc-gstbadtest-sine-osc at a
+    seeded frequency and amplitude through urn-gstbad-lv2-amp at a seeded
+    gain, channels 0-1 then through urn-gstbad-lv2-width, make n_blocks
+    F32 blocks of `block` samples at 48 kHz on the host; they go through
+    appsrc into config 3's chain (LADSPA_CONFIG3) in windows of `window`;
+    ladspasink-gstbadtest-peak-meter takes the S16 output block by block
+    and its peak (the largest since it started) is read after each.
+    Returns the pipeline, the blocks, the output and its pts, the bus
+    messages, the peaks, the windows appsrc uploaded and the host clock
+    in the plugins and around run()."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    freqs = rng.uniform(110.0, 2000.0, 8)
+    levels = rng.uniform(0.05, 0.2, 8)
+    gains = rng.uniform(0.5, 1.5, 8)
+    spread = float(rng.uniform(0.2, 0.9))
+    out = {"inputs": []}
+    t0 = time.perf_counter()
+    srcs = [make("ladspasrc-gstbadtest-sine-osc", rate=AUDIO_RATE,
+                 **{"frequency--hz-": float(f), "amplitude": float(a)})
+            for f, a in zip(freqs, levels)]
+    amps = [make("urn-gstbad-lv2-amp", rate=AUDIO_RATE, gain=float(g))
+            for g in gains]
+    width = make("urn-gstbad-lv2-width", rate=AUDIO_RATE, width=spread)
+    blocks = np.empty((n_blocks, block, 8), np.float32)
+    for b in range(n_blocks):
+        ch = [amps[c].chain(srcs[c].create(block))[:, 0] for c in range(8)]
+        blocks[b, :, :2] = width.chain(np.stack(ch[:2], 1))
+        blocks[b, :, 2:] = np.stack(ch[2:], 1)
+    plug_s = time.perf_counter() - t0
+    p = launch(LADSPA_CONFIG3.format(rate=AUDIO_RATE,
+                                     matrix=config3_matrix()),
+               device=device)
+    p.get_by_name("src").push_frames(blocks)
+    _pulls(p, out)
+    t0 = time.perf_counter()
+    outs = p.run(window=window)
+    if device not in (None, "cpu"):
+        import torch
+        torch.cuda.synchronize()
+    out["t_wall"] = time.perf_counter() - t0
+    out["out"], out["pts"] = _host_batches(outs)
+    t0 = time.perf_counter()
+    meter = make("ladspasink-gstbadtest-peak-meter", rate=AUDIO_RATE)
+    out["peaks"] = []
+    for blk in out["out"]:
+        meter.chain(blk.astype(np.float32) / 32768.0)
+        out["peaks"].append(float(meter.get_property("peak")))
+    out["plug_s"] = plug_s + time.perf_counter() - t0
+    out["blocks"] = blocks
+    out["messages"] = [(m.element, m.name, int(m.pts), m.fields)
+                       for m in p.bus.messages]
+    out["p"] = p
+    for el in srcs + amps + [width, meter]:
+        el.close()
+    return out
+
+
+def jp2k_codestream(w, h, layers, levels, body, seed=115):
+    """A synthetic single-tile JPEG 2000 codestream (one component, LRCP,
+    SOP markers), as tests/test_jp2k.py builds one: SIZ, COD, QCD, one
+    tile part of layers x (levels + 1) packets, each a seeded body of
+    `body` bytes below 0xFF (no marker inside).  Returns it and the
+    bodies."""
+    import numpy as np
+    from gstbad_tpu_torch.io import jp2k
+    rng = np.random.default_rng(seed)
+    be = lambda v, k: int(v).to_bytes(k, "big")  # noqa: E731
+    siz = be(jp2k.MARKER_SIZ, 2) + be(41, 2) + be(0, 2) + b"".join(
+        be(v, 4) for v in (w, h, 0, 0, w, h, 0, 0)) + be(1, 2) \
+        + bytes([7, 1, 1])
+    cod = be(jp2k.MARKER_COD, 2) + be(12, 2) + bytes([0x02, jp2k.LRCP]) \
+        + be(layers, 2) + bytes([0, levels, 2, 2, 0, 0])
+    qcd = jp2k._marker_buffer(jp2k.MARKER_QCD, bytes([0x20, 0x40]))
+    bodies = [rng.integers(0, 255, body, np.uint8).tobytes()
+              for _ in range(layers * (levels + 1))]
+    payload = b"".join(be(jp2k.MARKER_SOP, 2) + be(4, 2) + be(i, 2) + b
+                       for i, b in enumerate(bodies))
+    sot = be(jp2k.MARKER_SOT, 2) + be(10, 2) + be(0, 2) \
+        + be(12 + 2 + len(payload), 4) + bytes([0, 1])
+    stream = (be(jp2k.MARKER_SOC, 2) + siz + cod + qcd + sot
+              + be(jp2k.MARKER_SOD, 2) + payload + be(jp2k.MARKER_EOC, 2))
+    return stream, bodies
+
+
+def midi_file() -> bytes:
+    """A two-track Standard MIDI File (480 pulses a quarter): a C major
+    arpeggio of 16 notes in running status on track 1, and on track 2 a
+    tempo change from the default 500000 to 250000 us a quarter at pulse
+    1920."""
+    def vlq(v):
+        out = [v & 0x7F]
+        v >>= 7
+        while v:
+            out.append(0x80 | (v & 0x7F))
+            v >>= 7
+        return bytes(reversed(out))
+    t1 = vlq(0) + bytes([0x90, 60, 100])
+    for k in range(1, 16):
+        t1 += vlq(240) + bytes([60 + (4, 3, 5)[k % 3] * (k % 4), 90])
+    t1 += vlq(240) + bytes([0x80, 60, 0]) + vlq(0) + bytes([0xFF, 0x2F, 0])
+    t2 = vlq(1920) + bytes([0xFF, 0x51, 0x03]) + (250000).to_bytes(3, "big") \
+        + vlq(0) + bytes([0xFF, 0x2F, 0])
+    out = b"MThd" + (6).to_bytes(4, "big") + (1).to_bytes(2, "big") \
+        + (2).to_bytes(2, "big") + (480).to_bytes(2, "big")
+    for t in (t1, t2):
+        out += b"MTrk" + len(t).to_bytes(4, "big") + t
+    return out
+
+
+def dpb_streams() -> dict:
+    """The streams phase 4l's parsers are fed, as the units the six DPB
+    engines take: the seeded H.264 stream's access units (h264_stream),
+    the 128x128 HEVC IDRs, the MPEG-2 pictures, the VP9 frames and the
+    AV1 temporal units of tests/data; VP8 has none (None)."""
+    data = os.path.join(ROOT, "tests", "data")
+    with open(os.path.join(data, "vp9_frames.bin"), "rb") as f:
+        blob = f.read()
+    with open(os.path.join(data, "vp9_frames.json")) as f:
+        idx = json.load(f)
+    vp9 = [blob[e["offset"]:e["offset"] + e["len"]] for e in idx["frames"]]
+    with open(os.path.join(data, "av1_streams.bin"), "rb") as f:
+        blob = f.read()
+    with open(os.path.join(data, "av1_streams.json")) as f:
+        idx = json.load(f)
+    off, _ = idx["arrays"]["stream_no_annexb_av1"]
+    av1 = []
+    for n in idx["nums"]["stream_av1_frame_size"]:
+        av1.append(blob[off:off + n])
+        off += n
+    return {"h264": [a for a, _ in h264_stream(TS_SECONDS, TS_FPS,
+                                               TS_AU_BYTES)],
+            "h265": [H265_128 + H265_128_IDR] + [H265_128_IDR] * 2,
+            "mpeg2": [MPEG2_SEQ + MPEG2_PIC] + [MPEG2_PIC] * 2,
+            "vp8": None, "vp9": vp9, "av1": av1}
+
+
+def port_engines():
+    """The port's DPB engines by codec, and its VP9 superframe split."""
+    from gstbad_tpu_torch.codecs import av1, h264, h265, mpeg2, vp9
+    from gstbad_tpu_torch.io.vp9 import split_superframe
+    return ({"h264": h264.H264Decoder, "h265": h265.H265Decoder,
+             "mpeg2": mpeg2.Mpeg2Decoder, "vp9": vp9.Vp9Decoder,
+             "av1": av1.Av1Decoder}, split_superframe)
+
+
+def dpb_orders(streams, engines=None) -> dict:
+    """Each engine over its stream in `streams`: [(system frame number,
+    POC)] in output order (POC None where the codec has none), or None
+    where no stream exists.  `engines` is port_engines()'s pair, or
+    another package's engines in the same form."""
+    decoders, split_superframe = engines or port_engines()
+    out = {k: None for k, v in streams.items() if v is None}
+    for key, push, poc in (("h264", "push_au", "poc"),
+                           ("h265", "push_au", "poc"),
+                           ("mpeg2", "push_frame", None),
+                           ("vp9", "push_frame", None),
+                           ("av1", "push_tu", None)):
+        if streams.get(key) is None:
+            continue
+        dec = decoders[key]()
+        pics = []
+        for i, unit in enumerate(streams[key]):
+            units = split_superframe(unit) if key == "vp9" else [unit]
+            for u in units:
+                pics += getattr(dec, push)(u, i)
+        if hasattr(dec, "drain"):
+            pics += dec.drain()
+        out[key] = [(o.system_frame_number,
+                     getattr(o, poc) if poc else
+                     getattr(getattr(o, "picture", None), "pic_order_cnt",
+                             None)) for o in pics]
+    return out
+
+
+def plugin_host_checks(gtt, aus, frame) -> dict:
+    """Phase 4o's host checks once each, every one against its own
+    invariant (fail() otherwise); returns their results as plain values
+    and digests, which the card's run holds against the CPU port's: the
+    twelve dynamic names and their property tables; the LV2 statefilter's
+    preset round trip (load_preset, the plugin's output, save_state);
+    frei0r-filter-fixlabeler's string parameter on the 1080p `frame`; the
+    six DPB engines' output order and POCs over dpb_streams(); a 1080p
+    JPEG 2000 codestream decimated to 1 of 3 layers and 2 of 3
+    resolutions; bz2enc/bz2dec over `frame`'s bytes; a MIDI timeline with
+    a tempo change; and ChopMyData re-chunking the H.264 access units
+    `aus` into h264parse, the access units equal to the unchopped feed."""
+    import bz2
+    import numpy as np
+    from gstbad_tpu_torch.core import registry
+    from gstbad_tpu_torch.io import bz2stream, chop, jp2k, midi
+    res = {}
+    names = [n for n in registry.element_names() if n in PLUGIN_NAMES]
+    if names != sorted(PLUGIN_NAMES):
+        fail(f"phase 4o: registered {names}, not the twelve")
+    res["registry"] = {n: [(p.name, p.type.__name__, p.default, p.min,
+                            p.max) for p in
+                           registry.get_class(n).PROPERTIES]
+                       for n in names}
+
+    el = gtt.make("urn-gstbad-lv2-statefilter", rate=AUDIO_RATE)
+    if not el.load_preset("steps"):
+        fail("phase 4o: the statefilter's preset 'steps' did not load")
+    y = np.asarray(el.chain(np.ones(8, np.float32))).ravel()
+    snap = el._instance.save_state()
+    state = el.PLUGIN.preset_state["steps"]
+    el.close()
+    if not np.array_equal(y, np.tile(np.array([2.0, 0.5, 1.5, 1.0],
+                                              np.float32), 2)) \
+            or {k: v[0] for k, v in snap.items()} != {
+                k: v[0] for k, v in state.items()}:
+        fail("phase 4o: the statefilter's preset round trip differs")
+    res["lv2_state"] = (y.tolist(), sorted(snap))
+
+    h, w = frame.shape[:2]
+    el = gtt.make("frei0r-filter-fixlabeler", width=w, height=h)
+    tag = "phase 4o: frei0r"
+    el.set_property("tag", tag)
+    out = el.transform(frame[None])[0]
+    if el.read_param("tag") != tag or out.reshape(-1)[0] != len(tag) \
+            or not np.array_equal(out.reshape(-1)[4:],
+                                  frame.reshape(-1)[4:]):
+        fail("phase 4o: fixlabeler's string parameter did not reach the "
+             "plugin")
+    res["fixlabeler"] = digests([out])
+
+    orders = dpb_orders(dpb_streams())
+    for key, got in orders.items():
+        if got is None:
+            continue
+        frames = [n for n, _ in got]
+        if not got or len(set(frames)) != len(frames):
+            fail(f"phase 4o: the {key} engine output {frames}")
+        # output order is POC order within each run from a POC of 0
+        starts = [i for i, (_, poc) in enumerate(got) if poc == 0]
+        for a, b in zip(starts, starts[1:] + [len(got)]):
+            pocs = [poc for _, poc in got[a:b]]
+            if pocs != sorted(pocs):
+                fail(f"phase 4o: the {key} engine's POCs {pocs} are not "
+                     "in output order")
+    res["dpb"] = orders
+
+    stream, bodies = jp2k_codestream(W, H, 3, 2, 2000)
+    small = jp2k.decimate(stream, max_layers=1, max_decomposition_levels=1)
+    tile = jp2k.parse_main_header(small).tiles[0]
+    kept = [p.data != b"\x00" for p in tile.packets]
+    if kept != [i < 2 for i in range(9)] or [
+            p.data for p in tile.packets[:2]] != bodies[:2] \
+            or tile.tile_part_size != len(jp2k._write_tile(tile)):
+        fail("phase 4o: jp2kdecimator kept the wrong packets")
+    res["jp2k"] = (len(stream), len(small), digests(
+        [np.frombuffer(small, np.uint8)]))
+
+    raw = frame.tobytes()
+    enc = bz2stream.Bz2Enc(block_size=9, buffer_size=1 << 16)
+    chunks = []
+    for k in range(0, len(raw), 1 << 20):
+        chunks += enc.push(raw[k:k + (1 << 20)])
+    packed = b"".join(chunks + enc.finish())
+    dec = bz2stream.Bz2Dec()
+    back = b"".join(dec.push(packed)) + b"".join(dec.finish())
+    if packed != bz2.compress(raw, 9) or back != raw:
+        fail("phase 4o: the bz2 round trip differs")
+    res["bz2"] = (len(raw), len(packed))
+
+    events = midi.parse_midi(midi_file())
+    notes = [(e.event, e.data[0], e.pulse, e.time_ns) for e in events
+             if e.event in (0x80, 0x90)]
+    # the scheduler's absolute rescale (midiparse.c:1141): pulse 3840 at
+    # the new tempo is 3840 * 250000 us / 480
+    if len(notes) != 17 or notes[-1][2:] != (3840, 2_000_000_000) \
+            or notes[4][3] != 960 * 1000 * 500000 // 480:
+        fail(f"phase 4o: the MIDI timeline is {notes}")
+    res["midi"] = notes
+
+    feeds = {}
+    for key in ("whole", "chopped"):
+        el = gtt.make("h264parse")
+        stream = b"".join(aus)
+        if key == "whole":
+            chunks = [stream]
+        else:
+            c = chop.ChopMyData(min_size=1, max_size=4096, step_size=7,
+                                seed=117)
+            chunks = c.push(stream) + c.flush()
+        got = []
+        for ch in chunks:
+            got += el.push(ch)
+        got += el.finish()
+        feeds[key] = [o["data"] for o in got]
+    if feeds["chopped"] != feeds["whole"] or feeds["whole"] != list(aus):
+        fail("phase 4o: h264parse's access units differ under chopmydata")
+    res["chop"] = (len(aus), len(stream))
+    return res
+
+
+def frei0r_level() -> float:
+    import numpy as np
+    return float(np.random.default_rng(FREI0R_SEED).uniform(0.3, 0.7))
+
+
+def plugin_reference_main(path: str) -> int:
+    """chip_smoke.py --plugin-reference DIR: phase 4o by the port on the
+    CPU, beside the card's runs: frei0r_headline_1080p's and
+    ladspa_config3_48k's stages (digests of the frames; the audio output,
+    messages and peaks as they are) and the host checks, saved to
+    DIR/plugins.pkl."""
+    import gc
+    import pickle
+    import torch
+    import gstbad_tpu_torch as gtt
+    os.nice(10)
+    torch.set_num_threads(4)
+    gc.disable()
+    register_plugin_fixtures()
+    f = frei0r_headline_path(gtt.parse_launch, gtt.make, "cpu",
+                             WINDOW_4O * FREI0R_WINDOWS, WINDOW_4O, W, H,
+                             frei0r_level())
+    a = ladspa_config3_path(gtt.parse_launch, gtt.make, "cpu",
+                            LADSPA_BLOCKS, WINDOW_4O_AUDIO, AUDIO_BLOCK)
+    aus = [x for x, _ in h264_stream(2, TS_FPS, TS_AU_BYTES)]
+    out = {"frei0r": {k: digests(f[k]) for k in ("source", "filtered",
+                                                   "out", "pts", "mixed")},
+           "ladspa": {k: a[k] for k in ("out", "pts", "messages", "peaks")},
+           "ladspa_blocks": digests(a["blocks"]),
+           "host": plugin_host_checks(gtt, aus, f["out"][0])}
+    with open(os.path.join(path, "plugins.pkl"), "wb") as fh:
+        pickle.dump(out, fh)
+    return 0
+
+
+def k8_on_windows(p, batches, window, err, key) -> dict:
+    """K8 on the windows `batches` a host source uploaded, through the
+    compiled step of pipeline p (an uncounted run: spies see the
+    arguments): each bracket input against vad_powers_bracket_plain, each
+    serial input against vad_powers_serial_plain on a CPU copy.  Fails
+    unless each equals its plain version; returns the calls of each form
+    and the first bracket input."""
+    import torch
+    from gstbad_tpu_torch.ops import audio
+    step = p.compile(window)
+    params, states = p.params(), p.init_states(window)
+    store = {}
+    undo = [capture(audio, "vad_powers_bracket", store),
+            capture(audio, "vad_powers_serial", store)]
+    try:
+        for b in batches:
+            states, _leaves, _msgs = step(params, states, b)
+    finally:
+        for u in undo:
+            u()
+    calls = {k: store.get(k, []) for k in ("vad_powers_bracket",
+                                           "vad_powers_serial")}
+    for (x,), _ in calls["vad_powers_bracket"]:
+        lo, hi = audio.vad_powers_bracket(x)
+        want_lo, want_hi = audio.vad_powers_bracket_plain(x)
+        e = max(max_abs_err(lo, want_lo), max_abs_err(hi, want_hi))
+        err["vad_powers_bracket"] = max(err["vad_powers_bracket"], e)
+        if e:
+            fail(f"{key}: K8's bracket is {e} from its plain version on "
+                 "the path's window")
+    for (x, p0), _ in calls["vad_powers_serial"]:
+        got = audio.vad_powers_serial(x, p0)
+        want = audio.vad_powers_serial_plain(x.cpu(), p0.cpu())
+        torch.cuda.synchronize()
+        e = max_abs_err(got.cpu(), want)
+        err["vad_powers_serial"] = max(err["vad_powers_serial"], e)
+        if e:
+            fail(f"{key}: K8's serial form is {e} from its plain version "
+                 "on the path's window")
+    return {"bracket": len(calls["vad_powers_bracket"]),
+            "serial": len(calls["vad_powers_serial"])}
+
+
+def plugin_slice(gtt, counters, launches, err, card) -> dict:
+    """Phase 4o: the dynamic plugin hosts, the stateless-decoder layer and
+    the byte tools.  The port's fixtures are built and registered (the
+    twelve names).  frei0r_headline_1080p: 32 frames of
+    frei0r-src-fixgradient at 1920x1080 through frei0r-filter-fixbrightness
+    (a seeded level) on the host, appsrc into the headline's chain on the
+    card in windows of 16 with the counts set to 0 just before and read
+    just after (K1 once a window, nothing else), each output window mixed
+    with its input by frei0r-mixer-fixblend; K1 against its plain version
+    on the path's first window and timed there.  ladspa_config3_48k: 64
+    blocks of 4800 samples, 8 channels of ladspasrc-gstbadtest-sine-osc
+    through urn-gstbad-lv2-amp (urn-gstbad-lv2-width on channels 0-1), on
+    the host, appsrc into config 3's chain on the card in windows of 32,
+    ladspasink-gstbadtest-peak-meter on the S16 output; K8's bracket once
+    a window and its serial form once a window whose bracket stays open
+    (and nothing else), each form that ran against its plain version on
+    the path's windows.  Then plugin_host_checks.  A --plugin-reference
+    process runs all of it on the CPU port meanwhile: the frames and host
+    checks equal its, the audio within config 3's tolerance (S16 within 1
+    LSB, the peaks within 1 LSB of S16, blocks and messages equal).
+    Returns K1's times and bound on frei0r_headline_1080p's window."""
+    import pickle
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    spent = {}
+    t_mark = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        spent[name] = now - t_mark[0]
+        t_mark[0] = now
+    new = register_plugin_fixtures()
+    if new != sorted(PLUGIN_NAMES):
+        fail(f"phase 4o: the fixtures registered {new}")
+    log(f"phase 4o: the port's fixtures built (gcc, gstbad_tpu_torch/"
+        f"_build/) and registered: {len(new)} dynamic names, "
+        f"{len(gtt.element_names())} in all")
+    mark("fixtures")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_4o_")
+    ref = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                            "--plugin-reference", tmp])
+    try:
+        key = "frei0r_headline_1080p"
+        n = WINDOW_4O * FREI0R_WINDOWS
+        level = frei0r_level()
+        f, d1 = counted(
+            counters, launches, key, {"dilate_zebra_fused": FREI0R_WINDOWS},
+            lambda: frei0r_headline_path(gtt.parse_launch, gtt.make, "cuda",
+                                         n, WINDOW_4O, W, H, level))
+        if f["out"].shape != (n, H, W, 4) or f["mixed"].shape != (n, H, W,
+                                                                   4):
+            fail(f"{key}: {f['out'].shape} out, {f['mixed'].shape} mixed "
+                 f"of {n} frames")
+        t, b, step_ms = k1_on_window(f["p"], f["inputs"][0], WINDOW_4O, H,
+                                     W, err, key)
+        idle = 1.0 - FREI0R_WINDOWS * step_ms / (f["t_wall"] * 1e3)
+        log(f"{key}: {n} frames of frei0r-src-fixgradient at {W}x{H} "
+            f"through frei0r-filter-fixbrightness level={level:.6f} on the "
+            f"host, appsrc ! the headline's chain in windows of {WINDOW_4O} "
+            f"(launches {d1}), each output window mixed with its input by "
+            f"frei0r-mixer-fixblend; K1 equal to its plain version on the "
+            f"path's window [{WINDOW_4O}, {H}, {W}], {t[0]:.4f} ms (plain "
+            f"{t[1]:.4f} ms, bound {b[0]:.4f} ms by {b[1]})")
+        total = f["plug_s"] + f["t_wall"]
+        log(f"{key}: {n / total:.2f} frames/s end to end (host clock, "
+            f"{total:.3f} s), the plugins {f['plug_s'] / n * 1e3:.2f} ms a "
+            f"frame (host clock), device step {step_ms:.3f} ms a window "
+            f"(CUDA events), idle share {idle:.4f} ({card})")
+        mark(key)
+
+        key = "ladspa_config3_48k"
+        for c in counters.values():
+            c.launches = 0
+        a = ladspa_config3_path(gtt.parse_launch, gtt.make, "cuda",
+                                LADSPA_BLOCKS, WINDOW_4O_AUDIO, AUDIO_BLOCK)
+        torch.cuda.synchronize()
+        d2 = {k: c.launches for k, c in counters.items()}
+        for k in launches:
+            launches[k] += d2[k]
+        n_win = LADSPA_BLOCKS // WINDOW_4O_AUDIO
+        if a["out"].shape != (LADSPA_BLOCKS, AUDIO_BLOCK, 1):
+            fail(f"{key}: {a['out'].shape} out of {LADSPA_BLOCKS} blocks")
+        forms = k8_on_windows(a["p"], a["inputs"], WINDOW_4O_AUDIO, err,
+                              key)
+        want = {"vad_powers_bracket": n_win,
+                "vad_powers_serial": forms["serial"]}
+        if forms["bracket"] != n_win or any(
+                v != want.get(k, 0) for k, v in d2.items()):
+            fail(f"{key}: launches {d2}, {want} expected ({forms})")
+        step = a["p"].compile(WINDOW_4O_AUDIO)
+        params, states = a["p"].params(), a["p"].init_states(WINDOW_4O_AUDIO)
+        step_ms = cuda_ms(lambda: step(params, states, a["inputs"][0]),
+                          iters=5, warmup=1)
+        # no idle share: a step timed apart, n_win times, can exceed the
+        # run's own wall time over so few windows (it did, by 1 ms)
+        total = a["plug_s"] + a["t_wall"]
+        realtime = LADSPA_BLOCKS * AUDIO_BLOCK / AUDIO_RATE / total
+        log(f"{key}: {LADSPA_BLOCKS} blocks of {AUDIO_BLOCK} samples, 8 "
+            f"channels of ladspasrc-gstbadtest-sine-osc through "
+            f"urn-gstbad-lv2-amp (urn-gstbad-lv2-width on 0-1) on the host, "
+            f"appsrc ! config 3's chain in windows of {WINDOW_4O_AUDIO} "
+            f"(launches {({k: v for k, v in d2.items() if v})}; K8's "
+            f"bracket {forms['bracket']} and serial {forms['serial']} calls,"
+            f" each equal to its plain version on the path's windows), "
+            f"ladspasink-gstbadtest-peak-meter on the S16 output: peak "
+            f"{a['peaks'][-1]:.6f}")
+        log(f"{key}: {LADSPA_BLOCKS / total:.2f} blocks/s end to end (host "
+            f"clock, {total:.3f} s; {realtime:.2f}x realtime), the "
+            f"plugins {a['plug_s'] / LADSPA_BLOCKS * 1e3:.3f} ms a block "
+            f"(host clock), device step {step_ms:.3f} ms a window (CUDA "
+            f"events, timed apart), run() {a['t_wall'] * 1e3:.3f} ms for "
+            f"{n_win} windows (host clock) ({card})")
+        mark(key)
+
+        aus = [x for x, _ in h264_stream(2, TS_FPS, TS_AU_BYTES)]
+        host = plugin_host_checks(gtt, aus, f["out"][0])
+        for k, v in host["dpb"].items():
+            log(f"phase 4o host check dpb {k}: " + (
+                "not run, no stream of phase 4l's parsers" if v is None
+                else f"{len(v)} pictures out, (frame, POC) "
+                f"{v[:6]}{' ...' if len(v) > 6 else ''}"))
+        log(f"phase 4o host checks: {len(host['registry'])} names and "
+            f"their properties, the statefilter's preset round trip, "
+            f"fixlabeler's string parameter, jp2kdecimator {host['jp2k'][0]}"
+            f" -> {host['jp2k'][1]} bytes, bz2 {host['bz2'][0]} -> "
+            f"{host['bz2'][1]} bytes and back, {len(host['midi'])} MIDI "
+            f"notes across a tempo change, {host['chop'][0]} access units "
+            "through chopmydata into h264parse equal to the unchopped feed")
+        mark("host checks")
+
+        if ref.wait(timeout=600) != 0:
+            fail(f"phase 4o: the CPU reference exited {ref.returncode}")
+        mark("waiting for the CPU reference")
+        with open(os.path.join(tmp, "plugins.pkl"), "rb") as fh:
+            cpu = pickle.load(fh)
+        for part in ("source", "filtered", "out", "pts", "mixed"):
+            if digests(f[part]) != cpu["frei0r"][part]:
+                fail(f"frei0r_headline_1080p: the card's {part} differs "
+                     "from the CPU port's")
+        c = cpu["ladspa"]
+        lsb = int(np.abs(a["out"].astype(np.int32)
+                         - c["out"].astype(np.int32)).max())
+        peak_err = float(np.abs(np.asarray(a["peaks"])
+                                - np.asarray(c["peaks"])).max())
+        if digests(a["blocks"]) != cpu["ladspa_blocks"] or lsb > 1 \
+                or not np.array_equal(a["pts"], c["pts"]) \
+                or a["messages"] != c["messages"] or peak_err > 1 / 32768:
+            fail(f"ladspa_config3_48k: the card's output differs from the "
+                 f"CPU port's by {lsb} LSB, its peaks by {peak_err:.3e}, or "
+                 "its blocks, pts or messages differ")
+        if host != cpu["host"]:
+            fail("phase 4o: the host checks differ from the CPU port's")
+        log(f"phase 4o: frei0r_headline_1080p's source, filtered, output "
+            f"and mixed frames equal the CPU port's byte for byte; "
+            f"ladspa_config3_48k's blocks and messages equal, its S16 "
+            f"output within {lsb} LSB (1 allowed) and its peaks within "
+            f"{peak_err:.3e} (1/32768 allowed) of the CPU port's; the host "
+            "checks equal")
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"plugin_slice: {time.perf_counter() - t_phase:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()) + ")")
+    return {"times": {"K1_frei0r": t}, "bounds": {"K1_frei0r": b}}
+
 
 def main() -> int:
     import numpy as np
@@ -7714,6 +8401,11 @@ def main() -> int:
     codecs = codec_slice(gtt, counters, launches, err, card)
     phase_done("4n")
 
+    # 4o. the dynamic plugin hosts, the stateless-decoder layer and the
+    # byte tools (plugin_slice)
+    plugins = plugin_slice(gtt, counters, launches, err, card)
+    phase_done("4o")
+
     # 5. timing
     fps = {}
     for key, build in runs.items():
@@ -8067,6 +8759,9 @@ def main() -> int:
     # K1 behind the decoders of phase 4n whose libraries load here
     times.update(codecs["times"])
     bounds.update(codecs["bounds"])
+    # K1 on frei0r_headline_1080p's own window (phase 4o)
+    times.update(plugins["times"])
+    bounds.update(plugins["bounds"])
     for label, (ms, plain_ms, lib_ms) in times.items():
         b_ms, b_by = bounds[label]
         lib = "null" if lib_ms is None else f"{lib_ms:.4f}"
@@ -8108,6 +8803,9 @@ def main() -> int:
               "gstbad_tpu/ops/chainfuse.py:78", f"{path}_headline_1080p")
         for label, path in (("K1_hevc", "hevc"), ("K1_av1", "av1"),
                             ("K1_j2k", "j2k")) if label in times
+    ] + [
+        entry("dilate_zebra_fused", "K1_frei0r", "tablefuse_kernels.cu",
+              "gstbad_tpu/ops/chainfuse.py:78", "frei0r_headline_1080p"),
     ] + [
         entry("apply_word_table", "K2", "tablefuse_kernels.cu",
               "gstbad_tpu/ops/lut.py:91"),
@@ -8183,4 +8881,6 @@ if __name__ == "__main__":
         sys.exit(rfb_server_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--codec-reference"]:
         sys.exit(codec_reference_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--plugin-reference"]:
+        sys.exit(plugin_reference_main(sys.argv[2]))
     sys.exit(main())

@@ -28,14 +28,13 @@ This module adds:
 
 A copy of the JAX package's io/exr.py: the shim is the port's own copy,
 gstbad_tpu_torch/csrc/exrdec.c, built at first use into
-gstbad_tpu_torch/_build/ (beside it, then renamed, with the compiler's
-output kept out of the caller's); the rest differs only in its imports.
+gstbad_tpu_torch/_build/ (io/_native_build.py); the rest differs only in
+its imports.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import struct
 import subprocess
@@ -44,8 +43,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "exrdec.c")
+from gstbad_tpu_torch.io import _native_build
+
 _LIB = None
 
 MAGIC = 0x01312F76  # 'v'/'1'\x01 little-endian (gstopenexrdec.cpp:243)
@@ -61,9 +60,8 @@ PIXEL_FLOAT = 2
 
 
 def _so_path() -> str:
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(_PKG, "_build", f"libexrdec-{digest}.so")
+    return os.path.join(_native_build.build_dir("exrdec", ["exrdec.c"]),
+                        "libexrdec.so")
 
 
 def _load():
@@ -71,16 +69,8 @@ def _load():
     if _LIB is not None:
         return _LIB
     so = _so_path()
-    if not os.path.exists(so):
-        os.makedirs(os.path.dirname(so), exist_ok=True)
-        # build beside it and rename: processes that build at once never
-        # load a half-written library
-        tmp = f"{so}.{os.getpid()}.tmp"
-        subprocess.run(
-            ["gcc", "-O2", "-shared", "-fPIC", "-I/usr/include/OpenEXR",
-             "-o", tmp, _SRC, "-lOpenEXRCore-3_1"],
-            check=True, capture_output=True)
-        os.replace(tmp, so)
+    _native_build.gcc_shared(so, "exrdec.c", "-I/usr/include/OpenEXR",
+                             libs=("-lOpenEXRCore-3_1",))
     lib = ctypes.CDLL(so)
     lib.exrdec_decode_rgba.restype = ctypes.c_int
     lib.exrdec_decode_rgba.argtypes = [

@@ -5,34 +5,27 @@ shmsink/shmsrc elements — the sys/shm + sys/ipcpipeline analog.
 Frames cross the process boundary as GDP packets (io/gdp.py) through a
 POSIX shared-memory ring with semaphore backpressure, mirroring the
 reference's ack'd chunk protocol (sys/ipcpipeline/protocol.txt).  The
-ring is built with g++ at first use into gstbad_tpu_torch/_build/.
+ring is built with g++ at first use into gstbad_tpu_torch/_build/
+(io/_native_build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from typing import Optional
 
 from gstbad_tpu_torch.core.element import Element, Property
 from gstbad_tpu_torch.core.frame import FrameBatch
 from gstbad_tpu_torch.core.registry import register
-from gstbad_tpu_torch.io import gdp
+from gstbad_tpu_torch.io import _native_build, gdp
 
 _LIB = None
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "shmring.cpp")
 
 
 def _so_path() -> str:
-    """Content-hash-named build artifact: always built from the checked-in
-    source, never a committed binary (a stale mtime on a fresh clone must
-    not dlopen an unverifiable blob)."""
-    import hashlib
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(_PKG, "_build", f"libshmring-{digest}.so")
+    return os.path.join(_native_build.build_dir("shmring", ["shmring.cpp"]),
+                        "libshmring.so")
 
 
 def _load():
@@ -40,14 +33,8 @@ def _load():
     if _LIB is not None:
         return _LIB
     so = _so_path()
-    if not os.path.exists(so):
-        os.makedirs(os.path.dirname(so), exist_ok=True)
-        # build beside it and rename: processes that build at once never
-        # load a half-written library
-        tmp = f"{so}.{os.getpid()}.tmp"
-        subprocess.check_call(
-            ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, _SRC, "-lpthread"])
-        os.replace(tmp, so)
+    _native_build.gcc_shared(so, "shmring.cpp", compiler="g++",
+                             libs=("-lpthread",))
     lib = ctypes.CDLL(so)
     lib.shmring_create.restype = ctypes.c_void_p
     lib.shmring_create.argtypes = [ctypes.c_char_p, ctypes.c_uint32,
