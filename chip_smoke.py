@@ -64,7 +64,9 @@ line):
    CPU port a window of 16 blocks).  Each path's launch counters are zeroed
    just before and read just after; each of its kernels must have
    launched as planned, and its frames must equal the same graph run by
-   the port on the CPU: exactly, but config 3's and freeverb_22k's S16
+   the port on the CPU (in a process of its own started after phase 1,
+   `chip_smoke.py --main-reference`, main_reference_main, beside the
+   card's work of phases 2-4): exactly, but config 3's and freeverb_22k's S16
    samples within 1 LSB (with the share that differs printed), config 3's
    freeverb output within 2e-6, since the card's float32 matrix products
    sum in another order, and iqa's dssim fields within 1e-5 (its ssim
@@ -389,11 +391,17 @@ line):
    freeverb_scan's the same way: the window's samples times the cycles of
    one comb step (gst_freeverb_step_cycles), its plain time the host
    clock's around the CPU walk.  The four audio walks the same way, from
-   gst_adpcm_step_cycles and gst_scope_step_cycles; H2 and H3 from
+   gst_adpcm_step_cycles and gst_scope_step_cycles (the filter's
+   walker's own unrolled step, x in registers, no stores); H2 and H3 from
    gst_haar_tilted_step_cycles (a row of the wavefront, barrier included)
    and gst_sgm_step_cycles (a step of a scan line), and H1 from the
    (window, node) evaluations its early exit leaves, which the plain
-   version counts, each a few FP32 operations.
+   version counts, each a few FP32 operations.  H1 is timed on the largest
+   scale of facedetect_720p's and handdetect_640x480's windows and over
+   each whole window (16 and 32 launches, beside the sum of their bounds);
+   every launch of the face, faceblur and hand windows is held against the
+   plain version, whose count mode also logs the windows alive at each
+   stage's start.
    K5 and K6 take their chain bound the same way: the H - 4 rows of a
    column in order, each one dependent step of the row recurrence (the
    clamp of the carried cell, the select and the add; gst_comb_row_cycles
@@ -527,6 +535,72 @@ def byte_err(a, b) -> int:
     packed-pixel kernels' error per channel)."""
     import torch
     return max_abs_err(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def main_plan() -> dict:
+    """Phase 4's fourteen graphs: {key: (windows, window) of each one's
+    counted run, {kernel: launches it must make a window}}."""
+    return {"headline_bars": (3, 8, {"dilate_zebra_fused": 1}),
+            "headline_ball": (3, 8, {"dilate_zebra_fused": 1}),
+            "prefix_bars": (3, 8, {"apply_word_table": 2}),
+            "config5_ivtc": (2, WINDOW, {"metrics_default": 1,
+                                         "comb_score_pairs": 1}),
+            "combdetect_720p": (2, WINDOW, {"comb_mask": 1}),
+            "config2_blur_bars": (2, 8, {"gaussian_blur_words": 1}),
+            "config2_blur_ball": (2, 8, {"gaussian_blur_words": 1}),
+            "config4_warp": (1, WINDOW4, {"warp_words": 2}),
+            "warp_1080p": (2, WINDOW, {"warp_words": 1}),
+            # a sine's brackets close: the serial mode never runs
+            "config3_audio": (2, WINDOW, {"vad_powers_bracket": 1,
+                                          "vad_powers_serial": 0}),
+            "vad_square": (2, WINDOW, {"vad_powers_bracket": 1,
+                                       "vad_powers_serial": 1}),
+            "transcode_i420_blur": (2, 8, {"gaussian_blur_words": 1}),
+            "iqa_dssim_1080p": (2, 4, {"gaussian_blur_words": 1}),
+            # a window of 16: the CPU port walks its 35280 samples one by
+            # one (the kernel's plain check takes the 64-block window)
+            "freeverb_22k": (1, 16, {"freeverb_scan": 1})}
+
+
+def main_reference_main(path: str) -> int:
+    """chip_smoke.py --main-reference PATH: phase 4's graphs (main_graphs)
+    by the port on the CPU, beside the card's runs: each graph's output
+    batches and bus messages over its counted run's windows (main_plan)
+    and its run's seconds, and config 5's fidelity on the CPU, saved to
+    PATH (pickle)."""
+    import gc
+    import pickle
+    import torch
+    import gstbad_tpu_torch as gtt
+    from gstbad_tpu_torch.models import benchmarks
+    # behind the card's work, which launches from this host's cores, on
+    # half of them
+    os.nice(10)
+    torch.set_num_threads(4)
+    gc.disable()
+    runs, _ = main_graphs(gtt, benchmarks)
+    out = {}
+    for key, (n_windows, window, _) in main_plan().items():
+        t0 = time.perf_counter()
+        pipe = runs[key]("cpu")
+        got = pipe.run(n_frames=n_windows * window, window=window)
+        out[key] = (got, bus_messages(pipe), time.perf_counter() - t0)
+    out["config5_fidelity"] = benchmarks.config5_fidelity(W5, H5,
+                                                          device="cpu")
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(out, f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(path + ".tmp", path)
+    return 0
+
+
+def stop_reference(proc, tmp: str) -> None:
+    """Ends a reference process that is still running and removes its
+    directory (at exit, whether the run passed or failed)."""
+    import shutil
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main_graphs(gtt, benchmarks):
@@ -2164,6 +2238,7 @@ def cv_detect_slice(gtt, counters, launches, err, card) -> dict:
     inputs = {}
     for key, names, module in (
             ("facedetect_720p", ("haar_cascade",), haar),
+            ("faceblur_720p", ("haar_cascade",), haar),
             ("handdetect_640x480", ("haar_cascade", "tilted_integral"), haar),
             ("disparity_720p", ("sgm_aggregate",), stereo)):
         build, feed, window, _, _ = paths[key]
@@ -2189,8 +2264,9 @@ def cv_detect_slice(gtt, counters, launches, err, card) -> dict:
     def h1_main(args, count=False):
         """H1 and its plain version on one launch the main path made:
         passed equal everywhere, score equal where passed.  -> (windows
-        passing, the plain version's ms, its (window, node) evaluations
-        with the early exit where count)"""
+        passing, the plain version's ms, with count its (window, node)
+        evaluations with the early exit and the windows alive at each
+        stage's start)"""
         kp, ks = haar.haar_cascade(*args)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -2200,7 +2276,8 @@ def cv_detect_slice(gtt, counters, launches, err, card) -> dict:
         pp, ps = res[:2]
         note("haar_cascade",
              int((kp != pp).sum()) + int((ks[pp] != ps[pp]).sum()))
-        return int(pp.sum()), plain_ms, int(res[2].sum()) if count else None
+        return (int(pp.sum()), plain_ms, int(res[2].sum()) if count else None,
+                res[3].tolist() if count else None)
 
     def h1_bound(args, n_eval):
         """The least loads (ii, sq and the rotated table read once, passed
@@ -2214,43 +2291,63 @@ def cv_detect_slice(gtt, counters, launches, err, card) -> dict:
         return bound(2 * ii.numel() * 4 + t_bytes + 5 * n_win,
                      n_eval * (5 * rects + 3) + n_win * 20, fp32_per_s)
 
-    # H1 on the facedetect path: the largest scale (the window's frames at
-    # 1280x720), timed, and the scale where the most windows pass
+    def h1_window(label, launches, res):
+        """H1 over a whole window of launches: the sum of each launch's
+        time, of its plain version's and of its bound (bound_by: the kind
+        that bounds the most of that sum)."""
+        per = [cuda_ms(lambda a=a: haar.haar_cascade(*a)) for a in launches]
+        b = [h1_bound(a, r[2]) for a, r in zip(launches, res)]
+        by = {k: sum(ms for ms, kk in b if kk == k)
+              for k in ("bytes", "operations")}
+        times[label] = (sum(per), sum(r[1] for r in res), None)
+        bounds[label] = (sum(ms for ms, _ in b), max(by, key=by.get))
+        return per
+
+    # H1 on the face paths: every launch of a window (a pyramid scale
+    # each) held against the plain version, which counts the evaluations
+    # and the windows alive at each stage; the largest scale (the
+    # window's frames at 1280x720) timed alone, and the whole window
     face = [a for a, _ in inputs["facedetect_720p"]["haar_cascade"]]
+    res = [h1_main(a, count=True) for a in face]
+    blur_res = [h1_main(a) for a, _ in inputs["faceblur_720p"]["haar_cascade"]]
     args = face[0]
     ii, sq, tii, pk, ny, nx = args
-    n_pass, plain_ms, n_eval = h1_main(args, count=True)
+    n_pass, plain_ms, n_eval, alive = res[0]
     times["haar_cascade"] = (cuda_ms(lambda: haar.haar_cascade(*args)),
                              plain_ms, None)
     bounds["haar_cascade"] = h1_bound(args, n_eval)
-    passes = [int(haar.haar_cascade(*a)[0].sum()) for a in face]
-    most = max(range(1, len(face)), key=lambda i: passes[i])
-    n_most, _, _ = h1_main(face[most])
+    per = h1_window("haar_cascade_face_window", face, res)
     log(f"haar_cascade on facedetect_720p's largest scale {tuple(ii.shape)}"
         f" ({ny}x{nx} windows a frame): {n_pass} windows pass; "
         f"{n_eval} (window, node) evaluations with the early exit, against "
         f"{ii.shape[0] * ny * nx * int(pk.thr.shape[0])} without it; "
-        f"{len(face)} launches a window, windows passing each "
-        f"{passes}; also held against the plain version at scale {most} "
-        f"{tuple(face[most][0].shape)} ({n_most} windows pass)")
+        f"windows alive at each stage's start {alive}; {len(face)} launches "
+        f"a window, windows passing each {[r[0] for r in res]}, each held "
+        f"against the plain version, and faceblur_720p's {len(blur_res)}; "
+        f"the window {sum(per):.4f} ms ({[round(t, 4) for t in per]}), "
+        f"bound {bounds['haar_cascade_face_window'][0]:.4f} ms ({card})")
 
     # H1 on the handdetect path: every launch of a window (fist's pyramid,
-    # then palm's), the largest fist scale timed
+    # then palm's), the largest fist scale timed alone, and the window
     hand = [a for a, _ in inputs["handdetect_640x480"]["haar_cascade"]]
     n_fist = n_scales(480, 640, packs["fist"].window, 1.1)
-    res = [h1_main(a, count=(i == 0)) for i, a in enumerate(hand)]
+    res = [h1_main(a, count=True) for a in hand]
     args = hand[0]
     ii, sq, tii, pk, ny, nx = args
     times["haar_cascade_unrolled"] = (
         cuda_ms(lambda: haar.haar_cascade(*args)), res[0][1], None)
     bounds["haar_cascade_unrolled"] = h1_bound(args, res[0][2])
+    per = h1_window("haar_cascade_hand_window", hand, res)
     log(f"haar_cascade on handdetect_640x480's {len(hand)} launches a window "
         f"(fist {n_fist} scales, palm {len(hand) - n_fist}), each held "
         f"against the plain version: {sum(r[0] for r in res[:n_fist])} fist "
         f"and {sum(r[0] for r in res[n_fist:])} palm windows pass; largest "
         f"fist scale {tuple(ii.shape)} ({ny}x{nx} windows a frame): "
         f"{res[0][2]} (window, node) evaluations with the early exit, "
-        f"against {ii.shape[0] * ny * nx * int(pk.thr.shape[0])} without it")
+        f"against {ii.shape[0] * ny * nx * int(pk.thr.shape[0])} without it, "
+        f"windows alive at each stage's start {res[0][3]}; the window "
+        f"{sum(per):.4f} ms ({[round(t, 4) for t in per]}), bound "
+        f"{bounds['haar_cascade_hand_window'][0]:.4f} ms ({card})")
 
     # H2 on the handdetect path's largest plane
     tilted = [a[0] for a, _ in inputs["handdetect_640x480"]["tilted_integral"]]
@@ -7640,6 +7737,16 @@ def main() -> int:
 
     phase_done("1")
 
+    # the CPU port's runs of phase 4's graphs, in a process of their own
+    # beside the card's work of phases 2-4
+    import atexit
+    import tempfile
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_main_")
+    ref_path = os.path.join(ref_dir, "reference.pkl")
+    main_ref = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--main-reference", ref_path])
+    atexit.register(stop_reference, main_ref, ref_dir)
+
     # 2. build
     t0 = time.perf_counter()
     _cuda.library()
@@ -8075,32 +8182,12 @@ def main() -> int:
 
     phase_done("3")
 
-    # 4. the main paths through parse_launch on the card
+    # 4. the main paths through parse_launch on the card (the CPU port's
+    # runs of the same graphs: main_ref, started after phase 1)
     runs, windows = main_graphs(gtt, benchmarks)
     audio_keys = ("config3_audio", "vad_square")
     counters = kernel_counters()
-    # (windows, window) of each path's counted run, and the launches each
-    # kernel must make per window on it
-    plan = {"headline_bars": (3, 8, {"dilate_zebra_fused": 1}),
-            "headline_ball": (3, 8, {"dilate_zebra_fused": 1}),
-            "prefix_bars": (3, 8, {"apply_word_table": 2}),
-            "config5_ivtc": (2, WINDOW, {"metrics_default": 1,
-                                         "comb_score_pairs": 1}),
-            "combdetect_720p": (2, WINDOW, {"comb_mask": 1}),
-            "config2_blur_bars": (2, 8, {"gaussian_blur_words": 1}),
-            "config2_blur_ball": (2, 8, {"gaussian_blur_words": 1}),
-            "config4_warp": (1, WINDOW4, {"warp_words": 2}),
-            "warp_1080p": (2, WINDOW, {"warp_words": 1}),
-            # a sine's brackets close: the serial mode never runs
-            "config3_audio": (2, WINDOW, {"vad_powers_bracket": 1,
-                                          "vad_powers_serial": 0}),
-            "vad_square": (2, WINDOW, {"vad_powers_bracket": 1,
-                                       "vad_powers_serial": 1}),
-            "transcode_i420_blur": (2, 8, {"gaussian_blur_words": 1}),
-            "iqa_dssim_1080p": (2, 4, {"gaussian_blur_words": 1}),
-            # a window of 16: the CPU port walks its 35280 samples one by
-            # one (the kernel's plain check takes the 64-block window)
-            "freeverb_22k": (1, 16, {"freeverb_scan": 1})}
+    plan = main_plan()
     shapes = {"headline_bars": (H, W, 4), "headline_ball": (H, W, 4),
               "prefix_bars": (H, W, 4), "config5_ivtc": (H5, W5),
               "combdetect_720p": (H5, W5), "config2_blur_bars": (H, W, 4),
@@ -8198,12 +8285,18 @@ def main() -> int:
         for k in launches:
             launches[k] += delta[k]
     log(f"main path launches {launches}")
-    for key, build in runs.items():
-        n_windows, window, _ = plan[key]
-        t0 = time.perf_counter()
-        pipe = build("cpu")
-        cpu = pipe.run(n_frames=n_windows * window, window=window)
-        log(f"{key}: the CPU port's run {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    if main_ref.wait(timeout=900) != 0:
+        fail(f"the main paths' CPU reference process exited with "
+             f"{main_ref.returncode}")
+    import pickle
+    with open(ref_path, "rb") as f:
+        refs = pickle.load(f)     # written by this script's own process
+    log(f"main paths: the CPU port's runs in a process beside the card's, "
+        f"waited for {time.perf_counter() - t0:.1f} s after phase 4's")
+    for key in runs:
+        cpu, cpu_msgs, seconds = refs[key]
+        log(f"{key}: the CPU port's run {seconds:.1f} s")
         if key in audio_keys or key == "freeverb_22k":
             # S16 samples within 1 LSB (config 3 and freeverb_22k: the
             # float32 reverb's sums), exact for vad_square, at any share
@@ -8213,7 +8306,7 @@ def main() -> int:
             worst, n_diff, total = batches_close(
                 key, outs[key], cpu, lsb, share=1.0, shape=block,
                 dtype="int16")
-            messages_close(key, msgs[key], bus_messages(pipe))
+            messages_close(key, msgs[key], cpu_msgs)
             log(f"{key}: {len(cpu)} windows; {n_diff} of {total} samples "
                 f"({n_diff / total:.6f}) differ from the CPU port's, by at "
                 f"most {worst} LSB; pts, valid and {len(msgs[key])} bus "
@@ -8227,7 +8320,7 @@ def main() -> int:
                 "port")
             continue
         if key == "iqa_dssim_1080p":
-            worst = iqa_close(key, msgs[key], bus_messages(pipe))
+            worst = iqa_close(key, msgs[key], cpu_msgs)
             log(f"{key}: {len(msgs[key])} IQA messages within {worst:.3e} "
                 "(dssim) of the CPU port's; " + "; ".join(
                     f"pts {m[2]} dssim {m[3]['dssim']:.6f} ssim "
@@ -8235,8 +8328,8 @@ def main() -> int:
         batches_close(key, outs[key], cpu, shape=shapes[key], dtype="uint8")
         log(f"{key}: {len(cpu)} windows, {sum(len(b.pts) for b in cpu)} "
             "frames equal the CPU port")
-    fid = {d: benchmarks.config5_fidelity(W5, H5, device=d)
-           for d in ("cuda", "cpu")}
+    fid = {"cuda": benchmarks.config5_fidelity(W5, H5, device="cuda"),
+           "cpu": refs["config5_fidelity"]}
     log(f"config5_fidelity card {fid['cuda']} cpu {fid['cpu']}")
     if fid["cuda"] != fid["cpu"]:
         fail("config5_fidelity differs between the card and the CPU port")
@@ -8846,6 +8939,12 @@ def main() -> int:
               "gstbad_tpu/ops/haar.py:343", "arrays"),
         entry("haar_cascade", "haar_cascade_unrolled", "haar_kernels.cu",
               "gstbad_tpu/ops/haar.py:130", "unrolled"),
+        entry("haar_cascade", "haar_cascade_face_window", "haar_kernels.cu",
+              "gstbad_tpu/ops/haar.py:343",
+              "arrays, facedetect_720p's window: 16 launches"),
+        entry("haar_cascade", "haar_cascade_hand_window", "haar_kernels.cu",
+              "gstbad_tpu/ops/haar.py:130",
+              "unrolled, handdetect_640x480's window: 32 launches"),
         entry("tilted_integral", "tilted_integral", "haar_kernels.cu",
               "gstbad_tpu/ops/haar.py:72"),
         entry("sgm_aggregate", "sgm_aggregate", "stereo_kernels.cu",
@@ -8875,6 +8974,8 @@ if __name__ == "__main__":
         sys.exit(profile_main(sys.argv[2]))
     if sys.argv[1:2] == ["--rtp-reference"]:
         sys.exit(rtp_reference_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--main-reference"]:
+        sys.exit(main_reference_main(sys.argv[2]))
     if sys.argv[1:2] == ["--file-format-reference"]:
         sys.exit(file_format_reference_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--rfb-server"]:

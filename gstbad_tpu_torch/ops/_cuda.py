@@ -55,7 +55,7 @@ SIGNATURES = {
     "gst_adpcm_step_cycles": (_P, _I, _I),
     "gst_scope_filter": (_P,) * 4 + (_I,) * 2,
     "gst_scope_step_cycles": (_P, _I),
-    "gst_haar_cascade": (_P,) * 14 + (_I,) * 10,
+    "gst_haar_cascade": (_P,) * 9 + (_I,) * 22,
     "gst_haar_tilted_integral": (_P, _P, _I, _I, _I),
     "gst_haar_tilted_step_cycles": (_P, _I),
     "gst_sgm_aggregate": (_P, _P) + (_I,) * 9,

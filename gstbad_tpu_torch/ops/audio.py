@@ -1396,6 +1396,15 @@ adpcm_ima_encode.launches = 0
 # ---------------------------------------------------------------------------
 
 
+SCOPE_SLOT = 512    # samples x channels of a chunk of the kernel's rings
+
+
+def scope_chunk(c: int) -> int:
+    """The samples of a chunk csrc/scope_kernels.cu walks for c channels
+    (even, so that a chunk's taps start 16-byte aligned)."""
+    return (SCOPE_SLOT // c) & ~1
+
+
 def scope_filter_plain(state, x):
     """The plain form of scope_filter: the per-sample float64 filter as a
     loop over the samples on the host, one walk per channel.  The four
@@ -1434,8 +1443,9 @@ def scope_filter(state, x):
     Not a TPU kernel: it replaces the JAX package's lax.scan
     (gstbad_tpu/elements/audio/visualizers.py:228 for wavescope, :381 for
     spacescope).  CPU tensors take scope_filter_plain; CUDA tensors launch
-    csrc/scope_kernels.cu:scope_filter_kernel (one thread per channel) or
-    raise."""
+    csrc/scope_kernels.cu:scope_filter_kernel (one thread per channel
+    walks, three warps move x and the taps through shared memory in
+    chunks of scope_chunk(C) samples) or raise."""
     if x.ndim != 2 or state.dtype != torch.float64 \
             or state.shape != (6 * x.shape[1],):
         raise ValueError(f"scope_filter: state float64 [6C] and x [N, C], "

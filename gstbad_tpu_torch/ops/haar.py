@@ -17,10 +17,14 @@ FMA in the arrays form and two roundings in the unrolled one (pack's
 
 Two hand-written CUDA kernels (csrc/haar_kernels.cu) replace what would be
 launch-bound on the card as plain ops (about 10^5 small ops a frame):
-- `haar_cascade` (H1) walks one pyramid scale of a window of frames, one
-  thread a window, and stops at a window's first failed stage.  Its
-  contract: `passed` equals the plain version everywhere and `score`
-  equals it where `passed`; the elements read score only there.
+- `haar_cascade` (H1) walks one pyramid scale of a window of frames in
+  one launch, a block a tile of windows: the tile's regions of the tables
+  and the first node records go into shared memory once (`plan`), each
+  stage runs one thread a window over the windows still alive, compacted
+  after every stage, and a warp a window once few are left.  A window
+  stops at its first failed stage.  Its contract: `passed` equals the
+  plain version everywhere and `score` equals it where `passed`; the
+  elements read score only there.
 - `tilted_integral` (H2) is the rotated table's row recurrence as a
   wavefront, one block a plane, one barrier a row; bit exact.
 CPU tensors take the plain versions, which give the JAX package's passes
@@ -233,7 +237,9 @@ def eval_cascade_plain(ii, sq, tii, packed: Packed, ny: int, nx: int,
     evaluates it.  ii, sq [B, H+1, W+1]; tii [B, H+1, Wp+1] or None.
     Returns (passed [B, ny, nx] bool, score [B, ny, nx] f32: the last
     stage's sum) and, with count, the (window, node) evaluations that a
-    walk stopping at each window's first failed stage makes.
+    walk stopping at each window's first failed stage makes and the
+    survival profile: int64 [S], the windows alive at each stage's
+    start.
 
     A stage but the last is evaluated at the windows that passed every
     stage before it only: a window that failed stays failed, and its
@@ -309,7 +315,10 @@ def eval_cascade_plain(ii, sq, tii, packed: Packed, ny: int, nx: int,
     every = torch.arange(b * p, device=dev)
     tn = packed.tree_nodes
     n_stages = len(packed.stage_thr)
+    alive_at = torch.zeros(n_stages, dtype=torch.int64, device=dev)
     for s_i in range(n_stages):
+        if count:
+            alive_at[s_i] = passed.sum()
         sel = every if s_i == n_stages - 1 else every[passed]
         n = sel.shape[0]
         if n == 0:
@@ -346,17 +355,130 @@ def eval_cascade_plain(ii, sq, tii, packed: Packed, ny: int, nx: int,
         passed[sel] = alive & (st_sum >= float(packed.stage_thr[s_i]))
         score[sel] = st_sum
     out = (passed.reshape(b, ny, nx), score.reshape(b, ny, nx))
-    return out + (evals.reshape(b, ny, nx),) if count else out
+    return out + (evals.reshape(b, ny, nx), alive_at) if count else out
+
+
+# ---------------------------------------------------------------------------
+# H1's launch plan: the block's tile of windows, the regions of the tables
+# it copies into shared memory, and the node records with their corners as
+# offsets into those regions
+# ---------------------------------------------------------------------------
+
+TILE = (32, 16)         # windows a block: 32 across, 16 down
+SMEM_NODES = 128        # node records a block keeps in shared memory
+# the survivors at or below which a block gives each one a warp of its
+# own, whose lanes take a stage's trees 32 at a time
+WARP_MAX = 32
+REC_INTS = 16           # a node record: 64 bytes
+
+
+@dataclass
+class Plan:
+    """H1's launch plan for one cascade.  A region (dy0, dx0, rows,
+    pitch) is the part of a table one tile reads: rows from the tile's
+    first window's y + dy0, pitch (even) columns from its x + dx0, stored
+    a row at a time with the even columns first and the odd ones after
+    (a window steps 2 columns, so neighbouring windows read neighbouring
+    words).  A record (int32 [N, 16]) holds a node's rects as four corner
+    offsets each (uint16, two an int, a rect's sum is ((c0 - c1) - c2)
+    + c3), its weights, threshold, leaves, children (global node
+    indices, -1 a leaf) and its rect count | tilted << 8."""
+    tile: Tuple[int, int]               # (tx, ty)
+    region: Tuple[int, int, int, int]   # the summed-area table's
+    tregion: Tuple[int, int, int, int]  # the rotated table's, or zeros
+    records: np.ndarray
+    n_smem: int
+    warp_max: int                       # survivors a warp each from
+
+    def smem_bytes(self) -> int:
+        """The block's shared memory, as the kernel lays it out."""
+        tx, ty = self.tile
+        _, _, rows, pitch = self.region
+        _, _, trows, tpitch = self.tregion
+        return (self.n_smem * 4 * REC_INTS + 8 * trows * tpitch
+                + 4 * rows * pitch + 4 * tx * ty + 2 * 2 * tx * ty)
+
+
+def region_offset(region, dy: int, dx: int) -> int:
+    """Where the table entry (dy, dx) from a tile's first window lies in
+    its region."""
+    dy0, dx0, _, pitch = region
+    c = dx - dx0
+    return (dy - dy0) * pitch + (c & 1) * (pitch // 2) + (c >> 1)
+
+
+def _corners(r, tilted: bool):
+    """A rect's four corners (dy, dx) in the order its sum takes them."""
+    ry, rx, rh, rw = (int(v) for v in r)
+    if tilted:
+        return [(ry, rx), (ry + rh, rx - rh), (ry + rw, rx + rw),
+                (ry + rw + rh, rx + rw - rh)]
+    return [(ry + rh, rx + rw), (ry, rx + rw), (ry + rh, rx), (ry, rx)]
+
+
+def _region(corners, tile) -> Tuple[int, int, int, int]:
+    if not corners:
+        return (0, 0, 0, 0)
+    ys = [c[0] for c in corners]
+    xs = [c[1] for c in corners]
+    tx, ty = tile
+    dy0, dx0 = min(ys), min(xs)
+    rows = (ty - 1) * STRIDE + max(ys) - dy0 + 1
+    cols = (tx - 1) * STRIDE + max(xs) - dx0 + 1
+    return (dy0, dx0, rows, cols + (cols & 1))
+
+
+def plan(packed: Packed) -> Plan:
+    """H1's plan for packed (cached on it)."""
+    cached = getattr(packed, "_plan", None)
+    if cached is not None:
+        return cached
+    tilted = packed.tilted.astype(bool)
+    ww, wh = packed.window
+    live = packed.weights != 0
+    plain_c = [(0, 0), (0, ww), (wh, 0), (wh, ww)]   # the variance's
+    tilt_c = []
+    for n in range(len(packed.thr)):
+        for k in np.flatnonzero(live[n]):
+            (tilt_c if tilted[n] else plain_c).extend(
+                _corners(packed.rects[n, k], tilted[n]))
+    region, tregion = _region(plain_c, TILE), _region(tilt_c, TILE)
+    for reg in (region, tregion):
+        if reg[2] * reg[3] > 1 << 16:
+            raise ValueError("haar: a cascade's region does not fit "
+                             "16-bit offsets")
+    n = len(packed.thr)
+    ends = np.repeat(packed.tree_nodes[1:], np.diff(packed.tree_nodes))
+    idx = np.arange(n)[:, None]
+    if not ((packed.child < 0) | ((packed.child > idx)
+                                  & (packed.child < ends[:, None]))).all():
+        raise ValueError("haar: a child outside its tree or before its "
+                         "parent")
+    rec = np.zeros((n, REC_INTS), np.int32)
+    offs = np.zeros((n, 12), np.uint16)
+    for i in range(n):
+        reg = tregion if tilted[i] else region
+        for j, k in enumerate(np.flatnonzero(live[i])):
+            offs[i, 4 * j:4 * j + 4] = [
+                region_offset(reg, dy, dx)
+                for dy, dx in _corners(packed.rects[i, k], tilted[i])]
+            rec[i, 6 + j] = packed.weights[i, k:k + 1].view(np.int32)[0]
+    rec[:, 0:6] = offs.view(np.int32)    # little endian: even corner low
+    rec[:, 9] = packed.thr.view(np.int32)
+    rec[:, 10:12] = packed.leaf.view(np.int32)
+    rec[:, 12:14] = packed.child
+    rec[:, 14] = live.sum(1) | (tilted.astype(np.int32) << 8)
+    out = Plan(TILE, region, tregion, rec, min(n, SMEM_NODES), WARP_MAX)
+    packed._plan = out
+    return out
 
 
 def _device_tables(packed: Packed, device):
     cache = getattr(packed, "_dev", None)
     if cache is None or cache[0] != device:
         t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-        cache = (device, t(packed.rects), t(packed.weights), t(packed.tilted),
-                 t(packed.thr), t(packed.leaf), t(packed.child),
-                 t(packed.tree_nodes), t(packed.stage_trees),
-                 t(packed.stage_thr))
+        cache = (device, t(plan(packed).records), t(packed.tree_nodes),
+                 t(packed.stage_trees), t(packed.stage_thr))
         packed._dev = cache
     return cache[1:]
 
@@ -377,13 +499,15 @@ def eval_cascade(plane, packed: Packed):
 
 def haar_cascade(ii, sq, tii, packed: Packed, ny: int, nx: int):
     """H1 on CUDA tensors (eval_cascade_plain's contract: passed equal
-    everywhere, score equal where passed)."""
+    everywhere, score equal where passed): one launch, a block a tile of
+    plan(packed).tile windows."""
     from gstbad_tpu_torch.ops import _cuda
     b = ii.shape[0]
     passed = torch.empty((b, ny, nx), dtype=torch.uint8, device=ii.device)
     score = torch.empty((b, ny, nx), dtype=torch.float32, device=ii.device)
     if b * ny * nx == 0:
         return passed.bool(), score
+    pl = plan(packed)
     tabs = _device_tables(packed, ii.device)
     if tii is None:
         tii, wt = ii, 0
@@ -393,7 +517,8 @@ def haar_cascade(ii, sq, tii, packed: Packed, ny: int, nx: int):
     _cuda.launch("gst_haar_cascade", ii.contiguous(), sq.contiguous(),
                  tii.contiguous(), *tabs, passed, score, b, ii.shape[-2],
                  ii.shape[-1], wt, ny, nx, ww, wh, len(packed.stage_thr),
-                 int(packed.fused_variance))
+                 int(packed.fused_variance), *pl.tile, *pl.region,
+                 *pl.tregion, pl.n_smem, pl.warp_max)
     haar_cascade.launches += 1
     return passed.bool(), score
 

@@ -1069,6 +1069,23 @@ def test_scope_filter_kernel_matches_plain(dev, n, ch):
     assert torch.equal(s1.cpu(), s2) and torch.equal(t1.cpu(), t2)
 
 
+@pytest.mark.parametrize("ch", [1, 2, 32])
+@pytest.mark.parametrize("where", ["one", "chunk-1", "chunk+1", "long"])
+def test_scope_filter_kernel_chunk_edges(dev, ch, where):
+    """One sample, a chunk of the kernel's shared-memory ring less one and
+    more one, and play_vis_48k's 307200 samples, for 1, 2 and 32
+    channels: bit for bit."""
+    k = audio.scope_chunk(ch)
+    n = {"one": 1, "chunk-1": k - 1, "chunk+1": k + 1, "long": 307200}[where]
+    rng = np.random.default_rng(n + ch)
+    st = torch.from_numpy(rng.standard_normal(6 * ch) * 100)
+    x = torch.from_numpy(rng.integers(-32768, 32768, (n, ch)).astype(
+        np.int32))
+    s1, t1 = audio.scope_filter(st.to(dev), x.to(dev))
+    s2, t2 = audio.scope_filter_plain(st, x)
+    assert torch.equal(s1.cpu(), s2) and torch.equal(t1.cpu(), t2)
+
+
 AUDIO_BREADTH_GRAPHS = {
     "bs2b_pitch": ("audiotestsrc wave=sine format=F32 rate=44100 channels=2 "
                    "samplesperbuffer=4096 ! bs2b preset=cmoy ! pitch "
@@ -1147,6 +1164,147 @@ def test_haar_kernels_match_plain(dev, name, form, h, w):
     torch.cuda.synchronize()
     assert torch.equal(kp, pp)
     assert torch.equal(ks[pp], ps[pp])
+
+
+def _h1_check(packed, x):
+    """H1 against eval_cascade_plain on planes x: passed equal at every
+    window, score equal where passed; -> windows passing."""
+    from gstbad_tpu_torch.ops import haar
+    ny, nx = haar.grid(x.shape[-2], x.shape[-1], packed)
+    ii, sq = haar.integral(x), haar.integral(x * x)
+    tii = haar.tilted_integral(x) if packed.any_tilted else None
+    before = haar.haar_cascade.launches
+    kp, ks = haar.haar_cascade(ii, sq, tii, packed, ny, nx)
+    assert haar.haar_cascade.launches == before + 1
+    pp, ps = haar.eval_cascade_plain(ii, sq, tii, packed, ny, nx)
+    torch.cuda.synchronize()
+    assert torch.equal(kp, pp)
+    assert torch.equal(ks[pp], ps[pp])
+    return int(pp.sum())
+
+
+def _haar_packed(name, form):
+    from gstbad_tpu_torch.io.haarcascade import parse_cascade
+    from gstbad_tpu_torch.ops import haar
+    return haar.pack(parse_cascade(HAAR_DATA + name + ".xml"), form)
+
+
+@pytest.mark.parametrize("name,form", [("haarcascade_frontalface_alt2",
+                                        "arrays"), ("fist", "unrolled")])
+@pytest.mark.parametrize("h,w", [(57, 91), (26, 300), (203, 47)])
+def test_haar_cascade_ragged_tiles(dev, name, form, h, w):
+    """Window grids that are no multiple of the kernel's tile."""
+    from gstbad_tpu_torch.ops import haar
+    packed = _haar_packed(name, form)
+    tx, ty = haar.plan(packed).tile
+    ny, nx = haar.grid(h, w, packed)
+    assert ny % ty and nx % tx
+    _h1_check(packed, _haar_planes(dev, h, w))
+
+
+@pytest.mark.parametrize("name,form", [("haarcascade_frontalface_alt2",
+                                        "arrays"), ("fist", "unrolled"),
+                                       ("palm", "unrolled")])
+@pytest.mark.parametrize("everywhere", [True, False])
+def test_haar_cascade_all_or_none_pass(dev, name, form, everywhere):
+    """A flat plane with a copy of the cascade whose stage thresholds are
+    -1e30 (every window runs every stage and passes: the warps take the
+    late stages of whole tiles) or 1e30 (none passes the first)."""
+    import copy
+    from gstbad_tpu_torch.ops import haar
+    packed = copy.copy(_haar_packed(name, form))
+    packed.stage_thr = np.full_like(packed.stage_thr,
+                                    -1e30 if everywhere else 1e30)
+    x = torch.full((2, 60, 100), 93.0, device=dev)
+    ny, nx = haar.grid(60, 100, packed)
+    assert _h1_check(packed, x) == (2 * ny * nx if everywhere else 0)
+
+
+def _pixel_cascade(trees_per_stage):
+    """A cascade on a 4x4 window whose stage s passes where the window's
+    pixel (s % 2, 0) is positive: each tree two nodes on that pixel (a
+    weight of -1 against a threshold of 0), a leaf of 1 on the left."""
+    from gstbad_tpu_torch.ops import haar
+    rects, wts, leaf, child = [], [], [], []
+    tree_nodes, stage_trees, stage_thr = [0], [0], []
+    for s, nt in enumerate(trees_per_stage):
+        for _ in range(nt):
+            base = len(rects)
+            for d in range(2):
+                r = np.zeros((3, 4), np.int32)
+                r[0] = (s % 2, 0, 1, 1)
+                w = np.zeros(3, np.float32)
+                w[0] = -1.0
+                rects.append(r)
+                wts.append(w)
+                leaf.append((1.0, 0.0) if d else (0.0, 0.0))
+                child.append((base + 1, -1) if d == 0 else (-1, -1))
+            tree_nodes.append(len(rects))
+        stage_trees.append(len(tree_nodes) - 1)
+        stage_thr.append(nt - 0.5)
+    n = len(rects)
+    return haar.Packed((4, 4), np.asarray(rects), np.asarray(wts),
+                       np.zeros(n, np.int32), np.zeros(n, np.float32),
+                       np.asarray(leaf, np.float32),
+                       np.asarray(child, np.int32),
+                       np.asarray(tree_nodes, np.int32),
+                       np.asarray(stage_trees, np.int32),
+                       np.asarray(stage_thr, np.float32), True)
+
+
+@pytest.mark.parametrize("pattern", ["edges", "one", "below", "at",
+                                     "above"])
+def test_haar_cascade_survivors_on_tile_edges(dev, pattern):
+    """Windows that pass every stage on the edges of the kernel's tiles,
+    or the first 1, warp_max - 1, warp_max and warp_max + 1 of a tile
+    (the survivors at which warps take over), beside windows that pass
+    stage 0 and fail stage 1; stages of 1 to 70 trees, so a warp's lanes
+    take one to three rounds of 32."""
+    from gstbad_tpu_torch.ops import haar
+    packed = _pixel_cascade([3, 40, 33, 64, 1, 70, 32])
+    pl = haar.plan(packed)
+    tx, ty = pl.tile
+    ny, nx = 2 * ty + 7, 3 * tx - 5
+    h, w = (ny - 1) * haar.STRIDE + 4, (nx - 1) * haar.STRIDE + 4
+    x = np.zeros((3, h, w), np.float32)
+    wy, wx = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    ly, lx = wy % ty, wx % tx
+    if pattern == "edges":
+        keep = (lx == 0) | (lx == tx - 1) | (ly == 0) | (ly == ty - 1)
+    else:
+        k = {"one": 1, "below": pl.warp_max - 1, "at": pl.warp_max,
+             "above": pl.warp_max + 1}[pattern]
+        keep = ly * tx + lx >= tx * ty - k      # the tile's last k
+    half = ~keep & ((wy + wx) % 3 == 0)     # pass stage 0, fail stage 1
+    for f in range(3):
+        x[f, wy[keep] * 2, wx[keep] * 2] = 1.0 + f
+        x[f, wy[keep] * 2 + 1, wx[keep] * 2] = 2.0
+        x[f, wy[half] * 2, wx[half] * 2] = 3.0
+    assert _h1_check(packed, torch.from_numpy(x).to(dev)) == 3 * keep.sum()
+
+
+def test_haar_cascade_more_frames_than_sms(dev):
+    """More frames than the card has SMs: alt2 on random planes, and the
+    pixel cascade passing a pattern of windows that moves with the
+    frame."""
+    from gstbad_tpu_torch.ops import haar
+    n = torch.cuda.get_device_properties(0).multi_processor_count + 9
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy((rng.random((n, 36, 70)) * 255).astype(
+        np.float32)).to(dev)
+    _h1_check(_haar_packed("haarcascade_frontalface_alt2", "arrays"), x)
+    packed = _pixel_cascade([3, 40, 33])
+    ny, nx = 21, 40
+    x = np.zeros((n, (ny - 1) * haar.STRIDE + 4, (nx - 1) * haar.STRIDE + 4),
+                 np.float32)
+    wy, wx = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    want = 0
+    for f in range(n):
+        keep = (wy + wx + f) % 7 == 0
+        x[f, wy[keep] * 2, wx[keep] * 2] = 1.0
+        x[f, wy[keep] * 2 + 1, wx[keep] * 2] = 1.0
+        want += int(keep.sum())
+    assert _h1_check(packed, torch.from_numpy(x).to(dev)) == want
 
 
 @pytest.mark.parametrize("h,w,d", [(48, 160, 64), (33, 70, 64), (20, 50, 40)])
