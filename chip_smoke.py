@@ -392,9 +392,13 @@ line):
    one comb step (gst_freeverb_step_cycles), its plain time the host
    clock's around the CPU walk.  The four audio walks the same way, from
    gst_adpcm_step_cycles and gst_scope_step_cycles (the filter's
-   walker's own unrolled step, x in registers, no stores); H2 and H3 from
-   gst_haar_tilted_step_cycles (a row of the wavefront, barrier included)
-   and gst_sgm_step_cycles (a step of a scan line), and H1 from the
+   walker's own unrolled step, x in registers, no stores); H2 from the
+   smaller of gst_haar_tilted_step_cycles (the kernel's own walk at each
+   plane's geometry with its global loads and stores compiled out: its
+   row steps, barriers and block ends) and gst_haar_tilted_ring_cycles
+   (the earlier design's step), and timed over each launch of
+   handdetect_640x480's window; H3 from gst_sgm_step_cycles (a step of a
+   scan line), and H1 from the
    (window, node) evaluations its early exit leaves, which the plain
    version counts, each a few FP32 operations.  H1 is timed on the largest
    scale of facedetect_720p's and handdetect_640x480's windows and over
@@ -2259,7 +2263,7 @@ def cv_detect_slice(gtt, counters, launches, err, card) -> dict:
          "nounits"], capture_output=True, text=True).stdout.split()[0]) * 1e6
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     fp32_per_s = n_sm * FP32_LANES * sm_hz
-    probe = torch.zeros(2, dtype=torch.int64, device=dev)
+    probe = torch.zeros(3, dtype=torch.int64, device=dev)
 
     def h1_main(args, count=False):
         """H1 and its plain version on one launch the main path made:
@@ -2349,32 +2353,74 @@ def cv_detect_slice(gtt, counters, launches, err, card) -> dict:
         f"{sum(per):.4f} ms ({[round(t, 4) for t in per]}), bound "
         f"{bounds['haar_cascade_hand_window'][0]:.4f} ms ({card})")
 
-    # H2 on the handdetect path's largest plane
+    # H2 on the handdetect path: every launch of a window (fist's pyramid,
+    # then palm's) held against the plain version (elements that differ:
+    # 0 allowed), each timed beside its plain version and its bound; the
+    # largest plane's line and the window's.  Its chain: the plane's rows
+    # in order times a row step's cycles, the smaller of the kernel's own
+    # walk without its loads and stores at the plane's geometry
+    # (gst_haar_tilted_step_cycles) and the earlier design's ring step
+    # (gst_haar_tilted_ring_cycles)
     tilted = [a[0] for a, _ in inputs["handdetect_640x480"]["tilted_integral"]]
+    h2_diff = []
     for x in tilted:
-        note("tilted_integral", float((haar.tilted_integral(x)
-                                       - haar.tilted_integral_plain(x)
-                                       ).abs().max()))
-    x = tilted[0]
-    times["tilted_integral"] = (
-        cuda_ms(lambda: haar.tilted_integral(x)),
-        cuda_ms(lambda: haar.tilted_integral_plain(x), iters=1, warmup=1),
-        None)
-    steps = 1 << 14
-    _cuda.launch("gst_haar_tilted_step_cycles", probe, steps)
+        got, want = haar.tilted_integral(x), haar.tilted_integral_plain(x)
+        h2_diff.append(int((got != want).sum()))
+        note("tilted_integral", float((got - want).abs().max()))
+    steps, h2_reps = 1 << 14, 16
+    _cuda.launch("gst_haar_tilted_ring_cycles", probe, steps)
     torch.cuda.synchronize()
-    cyc = probe[0].item() / steps
-    b_, h_, w_ = x.shape
-    wp = w_ + h_ + 2 * haar.TILT_PAD
-    chains["tilted_integral"] = h_ * cyc / sm_hz * 1e3
-    bounds["tilted_integral"] = bound(
-        4 * x.numel() + 8 * b_ * (h_ + 1) * (wp + 1),
-        4 * b_ * h_ * (wp + 1), fp32_per_s / 2, chains["tilted_integral"])
-    log(f"tilted_integral on {tuple(x.shape)}: {h_} rows in order x "
-        f"{cyc:.1f} cycles (probe, {steps} rows) = chain "
-        f"{chains['tilted_integral']:.4f} ms; "
-        f"{len(tilted)} launches a window, each held against the plain "
-        "version")
+    ring_cyc = probe[0].item() / steps
+    h2_cycles, h2_rows = {}, {}
+
+    def h2_line(x):
+        """(ms, plain ms, bound (ms, by), chain ms) of H2 on plane x."""
+        b_, h_, w_ = x.shape
+        if (h_, w_) not in h2_cycles:
+            plan = haar.tilted_plan(h_, w_)
+            _cuda.launch("gst_haar_tilted_step_cycles", probe, h2_reps, h_,
+                         w_, plan.cols, plan.threads)
+            torch.cuda.synchronize()
+            h2_cycles[(h_, w_)] = probe[0].item() / (h2_reps * h_)
+            h2_rows[(h_, w_)] = int(probe[2].item())
+        chain = h_ * min(h2_cycles[(h_, w_)], ring_cyc) / sm_hz * 1e3
+        w1 = w_ + h_ + 2 * haar.TILT_PAD + 1
+        return (cuda_ms(lambda: haar.tilted_integral(x)),
+                cuda_ms(lambda: haar.tilted_integral_plain(x), iters=1,
+                        warmup=1),
+                bound(4 * x.numel() + 8 * b_ * (h_ + 1) * w1,
+                      4 * b_ * h_ * w1, fp32_per_s / 2, chain), chain)
+
+    h2 = [h2_line(x) for x in tilted]
+    ms0, plain0, bound0, chain0 = h2[0]
+    times["tilted_integral"] = (ms0, plain0, None)
+    bounds["tilted_integral"] = bound0
+    chains["tilted_integral"] = chain0
+    by = {k: sum(r[2][0] for r in h2 if r[2][1] == k)
+          for k in ("bytes", "operations")}
+    times["tilted_integral_hand_window"] = (sum(r[0] for r in h2),
+                                            sum(r[1] for r in h2), None)
+    bounds["tilted_integral_hand_window"] = (sum(r[2][0] for r in h2),
+                                             max(by, key=by.get))
+    chains["tilted_integral_hand_window"] = sum(r[3] for r in h2)
+    b_, h_, w_ = tilted[0].shape
+    plan = haar.tilted_plan(h_, w_)
+    log(f"tilted_integral on handdetect_640x480's {len(tilted)} launches a "
+        f"window, each held against the plain version (elements that "
+        f"differ: {h2_diff}); largest plane {tuple(tilted[0].shape)} "
+        f"({plan.threads} threads x {plan.cols} columns, "
+        f"{h2_rows[(h_, w_)]} rows a bulk copy): "
+        f"{ms0:.4f} ms, {h_} rows in order x "
+        f"{min(h2_cycles[(h_, w_)], ring_cyc):.1f} cycles = chain "
+        f"{chain0:.4f} ms (the smaller of the kernel's walk without its "
+        f"loads and stores, {h2_cycles[(h_, w_)]:.1f} a row over "
+        f"{h2_reps} passes, and the earlier design's ring step, "
+        f"{ring_cyc:.1f}); row-step cycles by plane "
+        f"{ {f'{k[0]}x{k[1]}': round(v, 1) for k, v in h2_cycles.items()} }"
+        f"; the window {times['tilted_integral_hand_window'][0]:.4f} ms "
+        f"({[round(r[0], 4) for r in h2]}), bound "
+        f"{bounds['tilted_integral_hand_window'][0]:.4f} ms, chain "
+        f"{chains['tilted_integral_hand_window']:.4f} ms ({card})")
 
     # H3 on the disparity path's cost volume, each pass
     (args, _), = inputs["disparity_720p"]["sgm_aggregate"][:1]
@@ -8947,6 +8993,9 @@ def main() -> int:
               "unrolled, handdetect_640x480's window: 32 launches"),
         entry("tilted_integral", "tilted_integral", "haar_kernels.cu",
               "gstbad_tpu/ops/haar.py:72"),
+        entry("tilted_integral", "tilted_integral_hand_window",
+              "haar_kernels.cu", "gstbad_tpu/ops/haar.py:72",
+              "handdetect_640x480's window: 32 launches"),
         entry("sgm_aggregate", "sgm_aggregate", "stereo_kernels.cu",
               "gstbad_tpu/ops/stereo.py:136"),
         # not a TPU kernel: the overlay elements' whole-window jnp blends

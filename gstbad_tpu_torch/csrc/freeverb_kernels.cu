@@ -29,55 +29,72 @@ namespace {
 // Bound: the dependency chain.  A comb's filterstore is a lag-1 recurrence
 // (one multiply and one add a sample), so each comb walks its N samples in
 // order; the 16 combs (8 a side) walk side by side.  Nothing else is
-// serial: the comb input (x + DC)*gain does not depend on the output, a
-// comb's tap is its own value of D samples before, and the allpasses have
-// no lag-1 term at all, so within a sub-chunk of Ka <= A samples each
-// sample's four stages run on their own lane.
+// serial: a comb's tap at time t is its own value of D samples before, so
+// tmp*damp2 is known D samples ahead; the comb input (x + DC)*gain does not
+// depend on the output; and the allpasses have no lag-1 term at all, so
+// within a sub-chunk of Ka <= A samples each sample's four stages run on
+// their own lane.
 //
-// Design (one block of 128 threads; everything in shared memory).  A
-// comb's tap at time t is the value it wrote at t - D, so each comb keeps
-// a linear history of the values it writes, kHist (a power of two, longer
-// than every ring plus two chunks) deep and mirrored kAhead past its end,
-// instead of its ring: its lane writes at t & (kHist - 1) and reads at
-// (t - D) & (kHist - 1) with no other position arithmetic.  The rings come
-// in and go out in the JAX layout (index t mod D) at the ends of the
-// launch.  Chunks of K samples (a multiple of kAhead); in iteration c,
-//   - lanes 0-15 of warp 0 walk the combs over chunk c, reading their taps
-//     one group of kAhead steps ahead of the writes (a read D >= 32 steps
-//     back never meets them) and the comb inputs staged the iteration
-//     before; the history rows sit on distinct banks, so the writes of the
-//     16 lanes never conflict;
-//   - warps 1-3 stage chunk c + 1's samples, sum chunk c - 1's taps (read
-//     back from the histories, not yet overwritten) in comb order, and run
-//     its allpasses and mix, Ka lanes a sub-chunk, one named barrier
-//     between the phases and a sub-chunk.
-// One block barrier a chunk.  Two earlier designs were slower on the
-// card: a walk over the rings themselves (a wrap test a step, conflicting
-// banks), and one over taps that the other warps staged from the rings
-// and whose values they wrote back (the walk waited for them).  What holds
-// this one above its chain is not measured (no stall counters); a step of
-// the walk issues some eight instructions from its one warp.
+// Design (one block of 256 threads; everything in shared memory).  The
+// walk runs in chunks of K samples, K at most half the shortest comb
+// (ops/audio.freeverb_chunk), so that every tap of chunk c + 1 was
+// written by chunk c - 1 or earlier.  Each comb keeps a linear history of
+// the values it writes, kHist (a power of two, longer than every ring and
+// a chunk) deep; the rings come in and go out in the JAX layout (index t
+// mod D) at the ends of the launch.  In iteration c,
+//   - lanes 0-15 of warp 0 (one a comb) walk chunk c and issue only the
+//     chain: st = a[t] + st*damp1, where a[t] = tap*damp2 comes from
+//     shared memory in 16-byte loads a group of 16 steps ahead and st goes
+//     back in 16-byte stores, two groups a trip with registers of their
+//     own;
+//   - warps 5-7 (group A) stage chunk c + 3's samples (cp.async), write
+//     chunk c - 1 into the histories (in + st*feedback, from the walk's
+//     stores) and then read chunk c + 1's taps: a for the walk, and their
+//     sums in comb order; each thread issues all the loads of three
+//     samples before their arithmetic;
+//   - warps 1-4 (group B, two a side) run chunk c's allpasses from the
+//     sums group A read the iteration before, at most the side's shortest
+//     allpass of samples a sub-chunk (one named barrier each), then its
+//     wet/dry mix.
+// One block barrier a chunk.  The earlier design kept the whole comb step
+// in the walker (the tap and input loads, ct*damp2, the feedback product
+// and the history store: some eight instructions a step from its one
+// warp) and ran the taps, allpasses and mix on three warps one after
+// another: 1.82 ms at [141120, 2] and 22.05 kHz on an H100 80GB HBM3 at
+// 700 W, about 25.6 cycles a sample against the 8.2-cycle chain; one-off
+// copies of it with no walk at all, or with the walker's loads taken out,
+// ran only a little faster, so both sides held it.  This one takes about
+// 1.14 ms there, 16 cycles a sample, about what one-off copies of the walk
+// alone took: its shared loads and stores queue behind the other warps'
+// (PERF.md section 6).
 // ---------------------------------------------------------------------------
 
-constexpr int kThreads = 128;            // warp 0 walks, warps 1-3 the rest
-constexpr int kApThreads = kThreads - 32;
+constexpr int kThreads = 256;
+// warp 0 walks; warps 1-4 (group B) run the allpasses and the mix, two
+// warps a side; warps 5-7 (group A) stage the samples, write the
+// histories and read the taps
+constexpr int kB = 128, kA = 96;
+constexpr int kBSide = kB / 2;
 constexpr int kMaxChunk = 256;
-constexpr int kAhead = 16;               // comb steps per group
+constexpr int kGroup = 16;               // walk steps a loop trip
 constexpr int kHist = 2048;              // comb history depth (a power of 2)
 constexpr int kHistMask = kHist - 1;
-// a history row, with its mirror; 2065 = 17 mod 32, so the 16 rows start
-// on 16 distinct banks
-constexpr int kHistRow = kHist + kAhead + 1;
-constexpr int kStride = kMaxChunk + 1;   // sample rows, off the bank period
+// a comb's row of a (or of the walk's filterstores) for one chunk, with
+// room for the walk's loads past its last group; 276 / 4 = 69 is odd, so
+// the 16-byte accesses of 8 lanes fall on 8 distinct bank groups
+constexpr int kRowA = kMaxChunk + kGroup + 4;
+constexpr int kXSlot = 2 * kMaxChunk;    // one chunk's samples
+constexpr int kXSlots = 5;               // chunks c - 2 .. c + 3 but c - 2
+constexpr int kUnroll = (kMaxChunk + kA - 1) / kA;
 constexpr int kCombs = 16;               // 8 left, then 8 right
 constexpr int kRings = 24;               // the combs, then 4 + 4 allpasses
 constexpr int kAps = kRings - kCombs;
 constexpr float kDC = 1e-8f;             // DC_OFFSET
-// the floats of shared memory besides the allpass rings: the comb
-// histories, the comb inputs and dry samples [3][2][kStride] each, the comb
-// sums [2][kMaxChunk]
-constexpr int kBufFloats =
-    kCombs * kHistRow + 2 * 3 * 2 * kStride + 2 * kMaxChunk;
+// the floats of shared memory besides the allpass rings: the histories,
+// a and the filterstores [2][16][kRowA] each, the samples, the tap sums
+// [2][2][kMaxChunk] and the allpass outputs [2][kMaxChunk]
+constexpr int kBufFloats = kCombs * kHist + 2 * 2 * kCombs * kRowA +
+                           kXSlots * kXSlot + 3 * 2 * kMaxChunk;
 
 __host__ __device__ inline int ring_base(int r) {
   // comb and allpass tunings at 44.1 kHz (gstfreeverb.c), right = left + 23
@@ -92,18 +109,6 @@ __host__ __device__ inline int ring_base(int r) {
 // freeverb_sizes: int32(tuning * (rate / 44100.0)) in double, as numpy
 __host__ __device__ inline int ring_size(int r, int rate) {
   return static_cast<int>(ring_base(r) * (rate / 44100.0));
-}
-
-// the chunk length: a multiple of kAhead, at most kMaxChunk, with the
-// longest comb plus two chunks and a group inside the history
-__host__ __device__ inline int chunk_len(int rate) {
-  int dmax = 0;
-  for (int r = 0; r < kCombs; ++r) {
-    const int d = ring_size(r, rate);
-    dmax = d > dmax ? d : dmax;
-  }
-  const int k = (kHist - kAhead - dmax) / 2 / kAhead * kAhead;
-  return k < kMaxChunk ? k : kMaxChunk;
 }
 
 // jnp.remainder(t, d) for d > 0
@@ -124,7 +129,7 @@ struct FvArgs {
   float* ap_out[2];
   float* store_out[2];
   int* t_out;
-  int n, mono, rate, cmax, amax;
+  int n, mono, rate, cmax, amax, chunk;
 };
 
 __device__ inline const float* ring_src(const FvArgs& a, int r) {
@@ -137,233 +142,349 @@ __device__ inline float* ring_dst(const FvArgs& a, int r) {
                     : a.ap_out[(r - kCombs) >> 2] + ((r - kCombs) & 3) * a.amax;
 }
 
-// the comb inputs and dry samples of samples [base, base + k) into slot q
-// of in1 and dry ([3][2][kStride]), by threads t = 0 .. kNt-1 (all the
-// loads first)
-template <int kNt>
-__device__ inline void stage_samples(const FvArgs& a, float* in1, float* dry,
-                                     int base, int k, float gain, int q,
-                                     int t) {
-  constexpr int kPer = (kMaxChunk + kNt - 1) / kNt;
-  float* il = in1 + (q * 2) * kStride;
-  float* dl = dry + (q * 2) * kStride;
-  float xl[kPer], xr[kPer];
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// named barriers: 1 group A, 2 and 3 group B's sides, 4 group B
+__device__ __forceinline__ void bar_named(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// A chunk's place: its first sample and its length.
+struct Chunk {
+  int base, k;
+};
+
+__device__ __forceinline__ Chunk chunk_at(int c, int K, int n) {
+  return Chunk{c * K, min(K, n - c * K)};
+}
+
+// group A (u = 0 .. 95): chunk c's samples into slot c % 5, one cp.async
+// group (empty past the last chunk)
+__device__ __forceinline__ void stage_chunk(const float* x, int mono, int n,
+                                            int K, int chunks, float* xbuf,
+                                            int c, int u) {
+  if (c < chunks) {
+    const Chunk ch = chunk_at(c, K, n);
+    const int m = (mono ? 1 : 2) * ch.k;
+    const float* src = x + (mono ? 1 : 2) * static_cast<size_t>(ch.base);
+    float* dst = xbuf + (c % kXSlots) * kXSlot;
+    for (int i = u; i < m; i += kA) cp_async4(dst + i, src + i);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float sample_of(const float* xs, int mono,
+                                           int side, int s) {
+  return mono ? xs[s] : xs[2 * s + side];
+}
+
+// lanes 0-15 of warp 0: comb `lane`'s chain over chunk c, returning the
+// filterstore.  Two groups of 16 steps a trip, each with registers of its
+// own, so that a group's stores never hold up the next group's chain; a
+// group's 16-byte loads are issued a group ahead.
+__device__ __forceinline__ void load_group(float (&v)[kGroup],
+                                           const float* p) {
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int s = t + j * kNt;
-    if (s < k) {
-      if (a.mono) {
-        xl[j] = xr[j] = a.x[base + s];
-      } else {
-        xl[j] = a.x[2 * (base + s)];
-        xr[j] = a.x[2 * (base + s) + 1];
-      }
+  for (int m = 0; m < kGroup / 4; ++m) {
+    const float4 q = *reinterpret_cast<const float4*>(p + 4 * m);
+    v[4 * m] = q.x;
+    v[4 * m + 1] = q.y;
+    v[4 * m + 2] = q.z;
+    v[4 * m + 3] = q.w;
+  }
+}
+
+__device__ __forceinline__ void store_group(float* p,
+                                            const float (&v)[kGroup]) {
+#pragma unroll
+  for (int m = 0; m < kGroup / 4; ++m)
+    *reinterpret_cast<float4*>(p + 4 * m) =
+        make_float4(v[4 * m], v[4 * m + 1], v[4 * m + 2], v[4 * m + 3]);
+}
+
+// st through the group's a values (the first `k` of them), each replaced
+// by the filterstore after it
+__device__ __forceinline__ float chain_group(float (&v)[kGroup], int k,
+                                             float st, float d1) {
+  if (k >= kGroup) {
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      st = __fadd_rn(v[j], __fmul_rn(st, d1));
+      v[j] = st;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kGroup; ++j) {
+      if (j < k) st = __fadd_rn(v[j], __fmul_rn(st, d1));
+      v[j] = st;
     }
   }
+  return st;
+}
+
+__device__ __forceinline__ float walk_chunk(const float* ar, float* sr,
+                                            int k, float st, float d1) {
+  float va[kGroup], vb[kGroup];
+  load_group(va, ar);
+  for (int s = 0; s < k; s += 2 * kGroup) {
+    load_group(vb, ar + s + kGroup);   // past k: not used
+    st = chain_group(va, k - s, st, d1);
+    store_group(sr + s, va);
+    load_group(va, ar + s + 2 * kGroup);
+    if (s + kGroup < k) {
+      st = chain_group(vb, k - s - kGroup, st, d1);
+      store_group(sr + s + kGroup, vb);
+    }
+  }
+  return st;
+}
+
+// group A: chunk c into the histories, in + st*feedback from the walk's
+// filterstores.  A thread's kUnroll samples of a side at a time, all their
+// loads first, so that they overlap.
+__device__ __forceinline__ void commit_chunk(float* hist, const float* sr,
+                                             const float* xs, Chunk ch,
+                                             int mono, float gain, float fb,
+                                             int u) {
 #pragma unroll
-  for (int j = 0; j < kPer; ++j) {
-    const int s = t + j * kNt;
-    if (s < k) {
-      if (a.mono) {
-        il[s] = il[kStride + s] =
-            __fmul_rn(__fadd_rn(__fmul_rn(2.f, xl[j]), kDC), gain);
-      } else {
-        il[s] = __fmul_rn(__fadd_rn(xl[j], kDC), gain);
-        il[kStride + s] = __fmul_rn(__fadd_rn(xr[j], kDC), gain);
+  for (int side = 0; side < 2; ++side) {
+    for (int s0 = u; s0 < ch.k; s0 += kUnroll * kA) {
+      float v[kUnroll][8], xv[kUnroll];
+#pragma unroll
+      for (int m = 0; m < kUnroll; ++m) {
+        const int s = s0 + m * kA;
+        if (s < ch.k) {
+          xv[m] = sample_of(xs, mono, side, s);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) v[m][i] = sr[(side * 8 + i) * kRowA + s];
+        }
       }
-      dl[s] = xl[j];
-      dl[kStride + s] = xr[j];
+#pragma unroll
+      for (int m = 0; m < kUnroll; ++m) {
+        const int s = s0 + m * kA;
+        if (s < ch.k) {
+          const float in1 =
+              mono ? __fmul_rn(__fadd_rn(__fmul_rn(2.f, xv[m]), kDC), gain)
+                   : __fmul_rn(__fadd_rn(xv[m], kDC), gain);
+          const int q = (ch.base + s) & kHistMask;
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            hist[(side * 8 + i) * kHist + q] =
+                __fadd_rn(in1, __fmul_rn(v[m][i], fb));
+        }
+      }
     }
   }
 }
 
-__device__ inline void named_barrier() {
-  asm volatile("bar.sync 1, %0;" ::"r"(kApThreads) : "memory");
+// group A: chunk c's taps: a = tap*damp2 for the walk, and their sums in
+// comb order for group B; loads first, as in commit_chunk
+__device__ __forceinline__ void taps_chunk(const float* hist, float* ar,
+                                           float* sums, const int* s_d,
+                                           Chunk ch, float d2, int u) {
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    int lag[8];   // a tap's time less the sample's: base - D
+#pragma unroll
+    for (int i = 0; i < 8; ++i) lag[i] = ch.base - s_d[side * 8 + i];
+    for (int s0 = u; s0 < ch.k; s0 += kUnroll * kA) {
+      float tap[kUnroll][8];
+#pragma unroll
+      for (int m = 0; m < kUnroll; ++m) {
+        const int s = s0 + m * kA;
+        if (s < ch.k) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            tap[m][i] = hist[(side * 8 + i) * kHist +
+                             ((lag[i] + s) & kHistMask)];
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kUnroll; ++m) {
+        const int s = s0 + m * kA;
+        if (s < ch.k) {
+          float acc = tap[m][0];
+#pragma unroll
+          for (int i = 1; i < 8; ++i) acc = __fadd_rn(acc, tap[m][i]);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            ar[(side * 8 + i) * kRowA + s] = __fmul_rn(tap[m][i], d2);
+          sums[side * kMaxChunk + s] = acc;
+        }
+      }
+    }
+  }
+}
+
+// group B, lane u = 0 .. 63 of its side's two warps: the side's four
+// allpasses over chunk c from its tap sums, `lanes` samples (at most the
+// side's shortest allpass) a sub-chunk, the side's warps synchronised
+// between sub-chunks; the side's output less the DC offset into apo.
+// p0[r] = t0 mod A_r.
+__device__ __forceinline__ void allpass_side(float* aps, const int* s_d,
+                                             const int* s_off,
+                                             const float* sums, float* apo,
+                                             Chunk ch, const int* p0,
+                                             int side, int lanes, int u) {
+  int pos[4], len[4], off[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = side * 4 + i;
+    len[i] = s_d[kCombs + r];
+    off[i] = s_off[r];
+    pos[i] = static_cast<int>(static_cast<unsigned>(p0[r] + ch.base + u) %
+                              static_cast<unsigned>(len[i]));
+  }
+  for (int s0 = 0; s0 < ch.k; s0 += lanes) {
+    const int s = s0 + u;
+    if (u < lanes && s < ch.k) {
+      // the four taps first: each stage reads and writes its own ring, so
+      // the loads need not wait for the chain
+      float b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) b[i] = aps[off[i] + pos[i]];
+      float xv = sums[side * kMaxChunk + s];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float o = __fsub_rn(b[i], xv);
+        aps[off[i] + pos[i]] = __fadd_rn(xv, __fmul_rn(b[i], 0.5f));
+        xv = o;
+      }
+      apo[side * kMaxChunk + s] = __fsub_rn(xv, kDC);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      pos[i] += lanes;
+      if (pos[i] >= len[i]) pos[i] -= len[i];
+    }
+    // the next sub-chunk may read what this one wrote
+    bar_named(2 + side, kBSide);
+  }
+}
+
+struct Mix {
+  float w1, w2, dry;
+};
+
+// group B (u = 0 .. 127): chunk c's wet/dry mix from the allpass outputs
+__device__ __forceinline__ void mix_chunk(const float* apo, const float* xs,
+                                          float* y, Chunk ch, int mono,
+                                          Mix mx, int u) {
+  for (int s = u; s < ch.k; s += kB) {
+    const float l = apo[s], r = apo[kMaxChunk + s];
+    y[2 * (ch.base + s)] =
+        __fadd_rn(__fadd_rn(__fmul_rn(l, mx.w1), __fmul_rn(r, mx.w2)),
+                  __fmul_rn(sample_of(xs, mono, 0, s), mx.dry));
+    y[2 * (ch.base + s) + 1] =
+        __fadd_rn(__fadd_rn(__fmul_rn(r, mx.w1), __fmul_rn(l, mx.w2)),
+                  __fmul_rn(sample_of(xs, mono, 1, s), mx.dry));
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) freeverb_scan_kernel(FvArgs a) {
-  extern __shared__ float sm[];
-  __shared__ int s_d[kRings], s_off[kAps];
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int s_d[kRings], s_off[kAps], s_p0[kAps];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long t0 = *a.t_in;
-  const int n = a.n, K = chunk_len(a.rate);
+  const int n = a.n, K = a.chunk, mono = a.mono;
   if (tid < kRings) s_d[tid] = ring_size(tid, a.rate);
   __syncthreads();
-  int ka = kApThreads;
-  for (int r = kCombs; r < kRings; ++r) ka = min(ka, s_d[r]);
-  const int Ka = ka;
+  if (tid < kAps) s_p0[tid] = posmod(t0, s_d[kCombs + tid]);
+  float* const hist = sm;                               // [16][kHist]
+  float* const abuf = hist + kCombs * kHist;            // [2][16][kRowA]
+  float* const sbuf = abuf + 2 * kCombs * kRowA;        // [2][16][kRowA]
+  float* const xbuf = sbuf + 2 * kCombs * kRowA;        // [5][kXSlot]
+  float* const sums = xbuf + kXSlots * kXSlot;          // [2][2][kMaxChunk]
+  float* const apo = sums + 4 * kMaxChunk;              // [2][kMaxChunk]
+  float* const aps = apo + 2 * kMaxChunk;               // the allpass rings
   if (tid == 0) {
-    int off = kCombs * kHistRow;
+    int off = 0;
     for (int r = 0; r < kAps; ++r) {
       s_off[r] = off;
       off += s_d[kCombs + r];
     }
   }
-  __syncthreads();
-  float* const hist = sm;   // [16][kHistRow]
-  float* const in1 = sm + s_off[kAps - 1] + s_d[kRings - 1];
-  float* const dry_in = in1 + 3 * 2 * kStride;
-  float* const sums = dry_in + 3 * 2 * kStride;
   // the comb rings into their histories: ring entry (t0 + j) mod D was
-  // written at relative time j - D; the allpass rings as they are
+  // written at relative time j - D
   for (int i = 0; i < kCombs; ++i) {
     const float* src = ring_src(a, i);
     const int d = s_d[i], p0 = posmod(t0, d);
     for (int j = tid; j < d; j += kThreads) {
       int q = p0 + j;
       if (q >= d) q -= d;
-      hist[i * kHistRow + ((j - d) & kHistMask)] = src[q];
+      hist[i * kHist + ((j - d) & kHistMask)] = src[q];
     }
     for (int j = d + tid; j < a.cmax; j += kThreads)
       ring_dst(a, i)[j] = src[j];
   }
+  __syncthreads();   // s_off, s_p0
   for (int r = 0; r < kAps; ++r) {
     const float* src = ring_src(a, kCombs + r);
     float* dst = ring_dst(a, kCombs + r);
     const int d = s_d[kCombs + r];
-    for (int j = tid; j < d; j += kThreads) sm[s_off[r] + j] = src[j];
+    for (int j = tid; j < d; j += kThreads) aps[s_off[r] + j] = src[j];
     for (int j = d + tid; j < a.amax; j += kThreads) dst[j] = src[j];
   }
   __syncthreads();
-  // the mirror of each history's first kAhead entries past its end
-  for (int q = tid; q < kCombs * kAhead; q += kThreads)
-    hist[(q / kAhead) * kHistRow + kHist + q % kAhead] =
-        hist[(q / kAhead) * kHistRow + q % kAhead];
-  const float fb = a.prm[0], d1 = a.prm[1], d2 = a.prm[2], w1 = a.prm[3],
-              w2 = a.prm[4], dry = a.prm[5], gain = a.prm[6];
+  const float fb = a.prm[0], d1 = a.prm[1], d2 = a.prm[2], gain = a.prm[6];
+  const Mix mx{a.prm[3], a.prm[4], a.prm[5]};
   const bool walker = warp == 0 && lane < kCombs;
   float st = walker ? a.store_in[lane >> 3][lane & 7] : 0.f;
   const int chunks = (n + K - 1) / K;
-  if (chunks > 0)
-    stage_samples<kThreads>(a, in1, dry_in, 0, min(K, n), gain, 0, tid);
-  __syncthreads();
+  const float* const x = a.x;
+  float* const y = a.y;
+  const bool in_b = warp >= 1 && warp <= kB / 32;
+  const int ub = tid - 32, ua = tid - 32 - kB;   // a thread's index in B, A
+  const int side = ub / kBSide;                  // group B's side
+  // a side's sub-chunk: at most its shortest allpass
+  int lanes = kBSide;
+  if (in_b)
+    for (int i = 0; i < 4; ++i) lanes = min(lanes, s_d[kCombs + side * 4 + i]);
 
+  if (warp > kB / 32) {   // group A: chunk 0's taps
+    for (int c = 0; c < 3; ++c) stage_chunk(x, mono, n, K, chunks, xbuf, c, ua);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    bar_named(1, kA);
+    if (chunks > 0)
+      taps_chunk(hist, abuf, sums, s_d, chunk_at(0, K, n), d2, ua);
+  }
+  __syncthreads();
+  // iteration c: the walk of chunk c; group A writes chunk c - 1 into the
+  // histories and reads chunk c + 1's taps (chunk c - 1's values or older:
+  // 2K <= D); group B runs chunk c's allpasses and mix from the sums group
+  // A read the iteration before
   for (int c = 0; c <= chunks; ++c) {
-    const int base = c * K;
-    const int k = c < chunks ? min(K, n - base) : 0;
     if (warp == 0) {
-      // the comb walk of chunk c
-      if (walker && k > 0) {
-        float* h = hist + lane * kHistRow;
-        const int d = s_d[lane];
-        const float* in = in1 + ((c % 3) * 2 + (lane >> 3)) * kStride;
-        float ct[kAhead], ci[kAhead];
-        const float* rp = h + ((base - d) & kHistMask);
-#pragma unroll
-        for (int j = 0; j < kAhead; ++j) {
-          ct[j] = rp[j];
-          ci[j] = in[j];
-        }
-        for (int s = 0; s < k; s += kAhead) {
-          // the next group's taps and inputs (past k: not used)
-          const int u = base + s;
-          const float* np = h + ((u + kAhead - d) & kHistMask);
-          float nt[kAhead], ni[kAhead];
-#pragma unroll
-          for (int j = 0; j < kAhead; ++j) {
-            nt[j] = np[j];
-            ni[j] = in[s + kAhead + j];
-          }
-          const int wq = u & kHistMask;   // a group never wraps
-          float* wp = h + wq;
-          float v[kAhead];
-          if (s + kAhead <= k) {
-#pragma unroll
-            for (int j = 0; j < kAhead; ++j) {
-              st = __fadd_rn(__fmul_rn(ct[j], d2), __fmul_rn(st, d1));
-              v[j] = __fadd_rn(ci[j], __fmul_rn(st, fb));
-              wp[j] = v[j];
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < kAhead; ++j) {
-              if (s + j < k) {
-                st = __fadd_rn(__fmul_rn(ct[j], d2), __fmul_rn(st, d1));
-                v[j] = __fadd_rn(ci[j], __fmul_rn(st, fb));
-                wp[j] = v[j];
-              }
-            }
-          }
-          if (wq == 0) {   // the mirror
-#pragma unroll
-            for (int j = 0; j < kAhead; ++j)
-              if (s + j < k) h[kHist + j] = v[j];
-          }
-#pragma unroll
-          for (int j = 0; j < kAhead; ++j) {
-            ct[j] = nt[j];
-            ci[j] = ni[j];
-          }
-        }
+      if (walker && c < chunks)
+        st = walk_chunk(abuf + (c & 1) * kCombs * kRowA + lane * kRowA,
+                        sbuf + (c & 1) * kCombs * kRowA + lane * kRowA,
+                        chunk_at(c, K, n).k, st, d1);
+    } else if (in_b) {
+      if (c < chunks) {
+        const Chunk ch = chunk_at(c, K, n);
+        allpass_side(aps, s_d, s_off, sums + (c & 1) * 2 * kMaxChunk, apo, ch,
+                     s_p0, side, lanes, ub - side * kBSide);
+        bar_named(4, kB);
+        mix_chunk(apo, xbuf + (c % kXSlots) * kXSlot, y, ch, mono, mx, ub);
       }
     } else {
-      const int u0 = tid - 32;
-      const int bp = (c - 1) * K, kp = c > 0 ? min(K, n - bp) : 0;
-      const int k1 = c + 1 < chunks ? min(K, n - (c + 1) * K) : 0;
-      if (k1 > 0)
-        stage_samples<kApThreads>(a, in1, dry_in, (c + 1) * K, k1, gain,
-                                  (c + 1) % 3, u0);
-      if (kp > 0) {
-        // chunk c - 1: its taps, read back from the histories, summed in
-        // comb order; then its allpasses and mix
-        for (int idx = u0; idx < 2 * kp; idx += kApThreads) {
-          const int side = idx >= kp, s = idx - side * kp;
-          float acc = 0.f;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const int r = side * 8 + i;
-            acc = __fadd_rn(
-                acc, hist[r * kHistRow + ((bp + s - s_d[r]) & kHistMask)]);
-          }
-          sums[side * kMaxChunk + s] = acc;
-        }
-        named_barrier();
-        const float* dr = dry_in + ((c + 2) % 3) * 2 * kStride;
-        int pos[kAps];
-        if (u0 < Ka) {
-#pragma unroll
-          for (int r = 0; r < kAps; ++r)
-            pos[r] = posmod(t0 + bp + u0, s_d[kCombs + r]);
-        }
-        for (int u = 0; u < kp; u += Ka) {
-          const int s = u + u0;
-          if (u0 < Ka && s < kp) {
-            // the eight allpass taps first: each stage reads and writes
-            // its own ring, so the loads need not wait for the chain
-            float b[kAps];
-#pragma unroll
-            for (int r = 0; r < kAps; ++r) b[r] = sm[s_off[r] + pos[r]];
-            float out[2];
-#pragma unroll
-            for (int side = 0; side < 2; ++side) {
-              float xv = sums[side * kMaxChunk + s];
-#pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                const int r = side * 4 + i;
-                const float o = __fsub_rn(b[r], xv);
-                sm[s_off[r] + pos[r]] = __fadd_rn(xv, __fmul_rn(b[r], 0.5f));
-                xv = o;
-              }
-              out[side] = __fsub_rn(xv, kDC);
-            }
-            a.y[2 * (bp + s)] = __fadd_rn(
-                __fadd_rn(__fmul_rn(out[0], w1), __fmul_rn(out[1], w2)),
-                __fmul_rn(dr[s], dry));
-            a.y[2 * (bp + s) + 1] = __fadd_rn(
-                __fadd_rn(__fmul_rn(out[1], w1), __fmul_rn(out[0], w2)),
-                __fmul_rn(dr[kStride + s], dry));
-          }
-          if (u0 < Ka) {
-#pragma unroll
-            for (int r = 0; r < kAps; ++r) {
-              pos[r] += Ka;
-              if (pos[r] >= s_d[kCombs + r]) pos[r] -= s_d[kCombs + r];
-            }
-          }
-          // the next sub-chunk may read what this one wrote
-          named_barrier();
-        }
-      }
+      stage_chunk(x, mono, n, K, chunks, xbuf, c + 3, ua);
+      if (c > 0)
+        commit_chunk(hist, sbuf + ((c - 1) & 1) * kCombs * kRowA,
+                     xbuf + ((c - 1) % kXSlots) * kXSlot,
+                     chunk_at(c - 1, K, n), mono, gain, fb, ua);
+      bar_named(1, kA);
+      if (c + 1 < chunks)
+        taps_chunk(hist, abuf + ((c + 1) & 1) * kCombs * kRowA,
+                   sums + ((c + 1) & 1) * 2 * kMaxChunk, s_d,
+                   chunk_at(c + 1, K, n), d2, ua);
+      // chunk c + 2's samples are in; c + 3's may still be on their way
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     }
     __syncthreads();
   }
@@ -376,13 +497,13 @@ __global__ void __launch_bounds__(kThreads) freeverb_scan_kernel(FvArgs a) {
     for (int j = tid; j < d; j += kThreads) {
       int q = p + j;
       if (q >= d) q -= d;
-      dst[q] = hist[i * kHistRow + ((n - d + j) & kHistMask)];
+      dst[q] = hist[i * kHist + ((n - d + j) & kHistMask)];
     }
   }
   for (int r = 0; r < kAps; ++r) {
     float* dst = ring_dst(a, kCombs + r);
     for (int j = tid; j < s_d[kCombs + r]; j += kThreads)
-      dst[j] = sm[s_off[r] + j];
+      dst[j] = aps[s_off[r] + j];
   }
   if (walker) a.store_out[lane >> 3][lane & 7] = st;
   if (tid == 0)
@@ -420,17 +541,24 @@ extern "C" int gst_freeverb_scan(
     const void* store_r, const void* t, const void* prm, void* comb_l_out,
     void* comb_r_out, void* ap_l_out, void* ap_r_out, void* store_l_out,
     void* store_r_out, void* t_out, int n, int mono, int rate, int cmax,
-    int amax, void* stream) {
-  // a walk reads its taps 2 * kAhead steps back at most before they are
-  // written; a chunk is at least one group
-  int rings = 0;
+    int amax, int chunk, void* stream) {
+  // every ring at least a sample and within the state; a chunk's taps
+  // written a chunk before it (2 * chunk <= the shortest comb), and the
+  // longest comb and a chunk inside the history
+  int rings = 0, dmin = kHist, dmax = 0;
   for (int r = 0; r < kRings; ++r) {
     const int d = ring_size(r, rate);
-    if (d < (r < kCombs ? 2 * kAhead : 1) || d > (r < kCombs ? cmax : amax))
+    if (d < 1 || d > (r < kCombs ? cmax : amax))
       return static_cast<int>(cudaErrorInvalidValue);
-    if (r >= kCombs) rings += d;
+    if (r < kCombs) {
+      dmin = d < dmin ? d : dmin;
+      dmax = d > dmax ? d : dmax;
+    } else {
+      rings += d;
+    }
   }
-  if (chunk_len(rate) < kAhead)
+  if (n < 0 || chunk < 1 || chunk > kMaxChunk || 2 * chunk > dmin ||
+      dmax + chunk > kHist)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * (rings + kBufFloats);
   cudaError_t err = cudaFuncSetAttribute(
@@ -460,6 +588,7 @@ extern "C" int gst_freeverb_scan(
   a.rate = rate;
   a.cmax = cmax;
   a.amax = amax;
+  a.chunk = chunk;
   freeverb_scan_kernel<<<1, kThreads, smem,
                          static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -47,7 +47,7 @@ SIGNATURES = {
     "gst_vad_powers_serial": (_P, _P, _P, _I, _I),
     "gst_vad_powers_bracket": (_P, _P, _P, _I, _I),
     "gst_vad_step_cycles": (_P, _I),
-    "gst_freeverb_scan": (_P,) * 17 + (_I,) * 5,
+    "gst_freeverb_scan": (_P,) * 17 + (_I,) * 6,
     "gst_freeverb_step_cycles": (_P, _I),
     "gst_adpcm_ima_decode": (_P, _P, _I, _I, _I),
     "gst_adpcm_ms_decode": (_P, _P, _I, _I, _I),
@@ -56,8 +56,9 @@ SIGNATURES = {
     "gst_scope_filter": (_P,) * 4 + (_I,) * 2,
     "gst_scope_step_cycles": (_P, _I),
     "gst_haar_cascade": (_P,) * 9 + (_I,) * 22,
-    "gst_haar_tilted_integral": (_P, _P, _I, _I, _I),
-    "gst_haar_tilted_step_cycles": (_P, _I),
+    "gst_haar_tilted_integral": (_P, _P) + (_I,) * 5 + (_LL,),
+    "gst_haar_tilted_step_cycles": (_P,) + (_I,) * 5,
+    "gst_haar_tilted_ring_cycles": (_P, _I),
     "gst_sgm_aggregate": (_P, _P) + (_I,) * 9,
     "gst_sgm_step_cycles": (_P, _I),
     "gst_overlay_blend": (_P,) * 7 + (_LL,) * 23,

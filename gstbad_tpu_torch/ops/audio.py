@@ -29,6 +29,7 @@ port rounds once too (fma32, fma64), so those paths stay bit exact.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import numpy as np
@@ -435,6 +436,29 @@ def freeverb_scan_plain(state, x, params, rate: int, mono: bool):
     return new_state, torch.stack([yl, yr], dim=-1)
 
 
+FV_MAX_CHUNK = 256   # freeverb_scan's longest chunk (csrc kMaxChunk)
+FV_HIST = 2048       # a comb's history in the kernel (csrc kHist)
+
+
+@functools.lru_cache(maxsize=None)
+def freeverb_chunk(rate: int) -> int:
+    """freeverb_scan's chunk at `rate`: at most FV_MAX_CHUNK samples and
+    at most half the shortest comb, so that each comb tap of the chunk
+    after the walk's (its own value D >= 2K samples before) was written a
+    chunk earlier; a multiple of the walker's 16-step trip where that
+    leaves one.  Raises ValueError where a ring is shorter than a sample
+    or the longest comb and a chunk pass the kernel's history."""
+    sizes = _scan_sizes(rate)
+    dmin = int(min(sizes["combL"].min(), sizes["combR"].min()))
+    dmax = int(max(sizes["combL"].max(), sizes["combR"].max()))
+    k = min(FV_MAX_CHUNK, dmin // 2)
+    k = k - k % 16 if k >= 16 else k
+    if dmax + k > FV_HIST:
+        raise ValueError(f"freeverb_scan: at {rate} Hz the longest comb "
+                         f"({dmax}) does not fit the kernel's history")
+    return k
+
+
 def freeverb_scan(state, x, params, rate: int, mono: bool):
     """freeverb's per-sample walk over one window, the form the reverb
     takes below 32 kHz: x [N] (mono) or [N, 2] float32 -> (state,
@@ -475,7 +499,7 @@ def freeverb_scan(state, x, params, rate: int, mono: bool):
                       ).to(torch.float32)
     _cuda.launch("gst_freeverb_scan", x, y, *bufs, state["t"], prm, *new,
                  t_new, x.shape[0], int(mono), rate, bufs[0].shape[1],
-                 bufs[2].shape[1])
+                 bufs[2].shape[1], freeverb_chunk(rate))
     freeverb_scan.launches += 1
     return dict(zip(("combL_buf", "combR_buf", "apL_buf", "apR_buf",
                      "storeL", "storeR", "t"), new + [t_new])), y

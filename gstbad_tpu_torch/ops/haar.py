@@ -25,8 +25,10 @@ launch-bound on the card as plain ops (about 10^5 small ops a frame):
   stops at its first failed stage.  Its contract: `passed` equals the
   plain version everywhere and `score` equals it where `passed`; the
   elements read score only there.
-- `tilted_integral` (H2) is the rotated table's row recurrence as a
-  wavefront, one block a plane, one barrier a row; bit exact.
+- `tilted_integral` (H2) is the rotated table's row recurrence, one block
+  a plane: each thread keeps its columns of the last two rows in
+  registers, one barrier a row; input rows come in and finished rows go
+  out by bulk copies a few rows at a time; bit exact.
 CPU tensors take the plain versions, which give the JAX package's passes
 and scores at every window (a stage but the last only where the stages
 before it passed) and also count the (window, node) evaluations the
@@ -105,17 +107,66 @@ def tilted_integral_plain(x):
     return torch.stack(rows, 1)
 
 
+# H2's launch geometry (csrc/haar_kernels.cu tilted_integral_kernel): the
+# kernel is built for these columns a thread and at most TILT_MAX_THREADS
+# threads; it picks the rows its bulk copies move and lays out its shared
+# rings itself, and refuses a plane whose rings do not fit on the card
+TILT_COLS = (1, 3, 5, 7, 9, 11, 13, 15)   # odd: conflict-free shared stores
+TILT_THREADS = 256      # the block the columns are spread over, if they fit
+TILT_MAX_THREADS = 512
+
+
+@dataclass(frozen=True)
+class TiltPlan:
+    """H2's launch for an h x w plane: a block a plane of `threads`
+    threads, `cols` columns each (the W + H + 129 columns of the table)."""
+    cols: int
+    threads: int
+
+
+def tilted_plan(h: int, w: int) -> TiltPlan:
+    """The fewest columns a thread (of TILT_COLS) that spread the table's
+    columns over at most TILT_THREADS threads (a table wider than 15 of
+    them: 15 a thread, over up to TILT_MAX_THREADS).  Raises ValueError on
+    a table wider than that."""
+    w1 = w + h + 2 * TILT_PAD + 1
+    cols = next((c for c in TILT_COLS if -(-w1 // c) <= TILT_THREADS),
+                TILT_COLS[-1])
+    threads = -(-w1 // (32 * cols)) * 32    # whole warps
+    if threads > TILT_MAX_THREADS:
+        raise ValueError(f"tilted_integral: a {h}x{w} plane's table of {w1} "
+                         f"columns is wider than {TILT_MAX_THREADS} x "
+                         f"{TILT_COLS[-1]}")
+    return TiltPlan(cols, threads)
+
+
 def tilted_integral(x):
     """tilted_integral_plain for [B, H, W]; on a CUDA tensor the H2
-    kernel (one block a plane, a wavefront down the rows)."""
+    kernel, which reads the float32 planes as they are (the margins are
+    implicit zeros; a tensor that does not start and end on 16-byte
+    boundaries is copied first): a block a plane walks its rows
+    (tilted_plan).  Raises ValueError on a table too wide for the block,
+    RuntimeError where the kernel's shared rings do not fit on the card
+    (nothing runs)."""
     if x.device.type == "cpu":
         return tilted_integral_plain(x)
     from gstbad_tpu_torch.ops import _cuda
-    xf = _tilt_input(x).contiguous()
-    b, h, wp = xf.shape
-    out = torch.empty((b, h + 1, wp + 1), dtype=torch.float64,
-                      device=x.device)
-    _cuda.launch("gst_haar_tilted_integral", xf, out, b, h, wp)
+    x = x.to(torch.float32).contiguous()
+    b, h, w = x.shape
+    p = tilted_plan(h, w)
+    n = x.numel()
+    if x.data_ptr() % 16 or n % 4:
+        # the kernel's bulk copies read whole 16-byte units: a copy that
+        # starts and ends on 16-byte boundaries (handdetect's windows of
+        # 16 planes from resize_linear need none)
+        buf = torch.zeros((n + 3) & ~3, dtype=torch.float32,
+                          device=x.device)
+        buf[:n] = x.reshape(-1)
+        x = buf
+    out = torch.empty((b, h + 1, w + h + 2 * TILT_PAD + 1),
+                      dtype=torch.float64, device=x.device)
+    _cuda.launch("gst_haar_tilted_integral", x, out, b, h, w, p.cols,
+                 p.threads, x.numel())
     tilted_integral.launches += 1
     return out
 

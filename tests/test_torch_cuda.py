@@ -654,18 +654,34 @@ def _fv_state_close(a, b, atol):
         assert float((got.double() - want.double()).abs().max()) <= atol, k
 
 
-@pytest.mark.parametrize("rate", [8000, 16000, 22050, 31999])
+def _fv_edges(rate):
+    """Blocks either side of the kernel's chunk K, of the shortest comb
+    and of the shortest allpass at `rate`."""
+    k = audio.freeverb_chunk(rate)
+    sizes = audio.freeverb_sizes(rate)
+    comb = int(min(sizes["combL"].min(), sizes["combR"].min()))
+    ap = int(min(sizes["apL"].min(), sizes["apR"].min()))
+    return (k - 1, k, k + 1, comb - 1, comb + 1, ap - 1, ap + 1)
+
+
+@pytest.mark.parametrize("rate", [8000, 11025, 16000, 22050, 24000, 31999])
 @pytest.mark.parametrize("mono", [False, True])
-@pytest.mark.parametrize("blocks", [(1, 7), (150, 3000), (5000,)])
+@pytest.mark.parametrize("blocks", [(1, 7), (150, 3000), (5000,), "edges"])
 def test_freeverb_scan_kernel_matches_plain(dev, rate, mono, blocks):
     """Blocks of one sample, shorter than the shortest ring and longer than
-    every ring, the state carried from call to call; the plain version on
-    a CPU copy."""
+    every ring, and either side of the kernel's chunk, the shortest comb
+    and the shortest allpass, the state carried from call to call; the
+    plain version on a CPU copy.  Within 2e-6, and the outputs and state
+    values that differ at all counted: both take the C's operation order,
+    so none is expected to."""
+    if blocks == "edges":
+        blocks = _fv_edges(rate)
     rng = np.random.default_rng(rate + len(blocks))
     params = _fv_params(dev, damping=0.7 if mono else 0.2)
     cpu_params = {k: v.cpu() for k, v in params.items()}
     st = audio.freeverb_init_state(rate, dev)
     ref = audio.freeverb_init_state(rate, "cpu")
+    differ = 0
     for n in blocks:
         shape = (n,) if mono else (n, 2)
         x = torch.from_numpy(((rng.random(shape) - 0.5) * 1.8)
@@ -679,6 +695,9 @@ def test_freeverb_scan_kernel_matches_plain(dev, rate, mono, blocks):
         assert float((y.cpu() - want).abs().max()) <= 2e-6
         _fv_state_close(st, ref, 2e-6)
         assert int(st["t"]) == int(ref["t"])
+        differ += int((y.cpu() != want).sum()) + sum(
+            int((st[k].cpu() != ref[k]).sum()) for k in ref)
+    assert differ == 0, f"{differ} outputs and state values differ"
 
 
 def test_freeverb_scan_raises_on_bad_input(dev):
@@ -1164,6 +1183,93 @@ def test_haar_kernels_match_plain(dev, name, form, h, w):
     torch.cuda.synchronize()
     assert torch.equal(kp, pp)
     assert torch.equal(ks[pp], ps[pp])
+
+
+@pytest.mark.parametrize("b,h,w,kind", [
+    (2, 1, 40, "resize"), (2, 2, 40, "resize"), (2, 3, 40, "resize"),
+    (16, 480, 640, "resize"), (2, 480, 640, "zero"), (2, 480, 640, "255"),
+    (1, 20, 1024 - 129 - 21, "resize"), (1, 20, 1024 - 129 - 20, "resize"),
+    (1, 20, 1024 - 129 - 19, "resize"),     # W + H + 129 = 1023, 1024, 1025
+    (3, 100, 256 * 5 - 229 - 1, "resize"),  # 256 threads x 5 columns - 1
+    (3, 100, 256 * 5 - 229, "resize"), (3, 100, 256 * 5 - 229 + 1, "resize"),
+    (1, 1080, 1920, "resize"), (140, 40, 60, "resize"), (1, 57, 91, "255")])
+def test_tilted_integral_kernel_equals_plain(dev, b, h, w, kind):
+    """H2 bit for bit against tilted_integral_plain: planes 1 to 480 rows
+    high, tables either side of 1024 columns and of a plan's threads x
+    columns, a 1080p plane, 1 and 140 planes (more than the card's SMs);
+    resize_linear's non-integer planes and planes of 0 and of 255."""
+    from gstbad_tpu_torch.ops import haar
+    from gstbad_tpu_torch.ops.resize import resize_linear
+    if kind == "resize":
+        rng = np.random.default_rng(b * h * w)
+        src = (rng.random((b, h + 7, w + 5)) * 255).astype(np.float32)
+        x = resize_linear(torch.from_numpy(src).to(dev), h, w)
+    else:
+        x = torch.full((b, h, w), 0.0 if kind == "zero" else 255.0,
+                       device=dev)
+    before = haar.tilted_integral.launches
+    got = haar.tilted_integral(x)
+    torch.cuda.synchronize()
+    assert haar.tilted_integral.launches == before + 1
+    want = haar.tilted_integral_plain(x.cpu())
+    assert got.shape == want.shape and got.dtype == torch.float64
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+@pytest.mark.parametrize("b,h,w", [(1, 5, 7), (3, 37, 53), (2, 480, 640)])
+def test_tilted_integral_unaligned_input(dev, off, b, h, w):
+    """Planes that start 0-3 floats past a 16-byte boundary, or whose
+    floats do not end on one, give the plain version's table; the entry
+    point itself refuses a pointer off a 16-byte boundary (its bulk
+    copies read whole 16-byte units)."""
+    from gstbad_tpu_torch.ops import _cuda, haar
+    n = b * h * w
+    rng = np.random.default_rng(off + n)
+    base = torch.from_numpy((rng.random(n + 4) * 255).astype(np.float32))
+    x = base.to(dev)[off:off + n].view(b, h, w)
+    assert torch.equal(haar.tilted_integral(x).cpu(),
+                       haar.tilted_integral_plain(x.cpu()))
+    if off:
+        p = haar.tilted_plan(h, w)
+        out = torch.empty((b, h + 1, w + h + 2 * haar.TILT_PAD + 1),
+                          dtype=torch.float64, device=dev)
+        with pytest.raises(RuntimeError):
+            _cuda.launch("gst_haar_tilted_integral", x, out, b, h, w,
+                         p.cols, p.threads, x.numel())
+
+
+def test_tilted_integral_raises_on_a_plane_too_wide(dev):
+    """A 2 x W plane whose shared rings do not fit on the card has no
+    launch: the kernel's launcher refuses it before the card runs
+    anything, one column after the widest that runs (and equals the plain
+    version), though the block's threads x columns would take it; a table
+    wider than those raises in the wrapper."""
+    from gstbad_tpu_torch.ops import haar
+
+    def runs(w):
+        try:
+            haar.tilted_integral(torch.zeros((1, 2, w), device=dev))
+            return True
+        except RuntimeError:
+            return False
+
+    lo, hi = 1000, 7500
+    assert runs(lo) and not runs(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if runs(mid) else (lo, mid)
+    haar.tilted_plan(2, hi)
+    x = torch.from_numpy((np.random.default_rng(3).random((1, 2, lo))
+                          * 255).astype(np.float32)).to(dev)
+    assert torch.equal(haar.tilted_integral(x).cpu(),
+                       haar.tilted_integral_plain(x.cpu()))
+    before = haar.tilted_integral.launches
+    with pytest.raises(RuntimeError):
+        haar.tilted_integral(torch.zeros((1, 2, hi), device=dev))
+    assert haar.tilted_integral.launches == before
+    with pytest.raises(ValueError):
+        haar.tilted_integral(torch.zeros((1, 2, 7600), device=dev))
 
 
 def _h1_check(packed, x):
